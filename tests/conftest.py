@@ -32,3 +32,8 @@ jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 assert jax.default_backend() == "cpu", (
     "tests must run on CPU, got " + jax.default_backend())
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one")

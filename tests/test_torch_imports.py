@@ -1,0 +1,107 @@
+"""The PyTorch port stands alone: no jax, nothing of tombo_tpu, and no
+silent CPU fallback."""
+import os
+import re
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PORT_MODULES = [
+    "tombo_tpu_torch", "tombo_tpu_torch.config", "tombo_tpu_torch.convert",
+    "tombo_tpu_torch.device", "tombo_tpu_torch.errors",
+    "tombo_tpu_torch.kernels", "tombo_tpu_torch.seq",
+    "tombo_tpu_torch.testing", "tombo_tpu_torch.types",
+    "tombo_tpu_torch.io.fasta", "tombo_tpu_torch.io.model_io",
+    "tombo_tpu_torch.ops.banded_dp", "tombo_tpu_torch.ops.delfix",
+    "tombo_tpu_torch.ops.dp", "tombo_tpu_torch.ops.normalize",
+    "tombo_tpu_torch.ops.precision", "tombo_tpu_torch.ops.ref_impl",
+    "tombo_tpu_torch.ops.rescale", "tombo_tpu_torch.ops.segment",
+    "tombo_tpu_torch.ops.select", "tombo_tpu_torch.pipeline.aligner",
+    "tombo_tpu_torch.pipeline.batch", "tombo_tpu_torch.pipeline.resquiggle",
+]
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    code = textwrap.dedent("""
+        import importlib, sys
+        for m in %r:
+            importlib.import_module(m)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "tombo_tpu"))
+        print(",".join(bad))
+    """ % (PORT_MODULES,))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", out.stdout
+
+
+def test_chip_smoke_imports_no_jax():
+    src = open(os.path.join(ROOT, "chip_smoke.py")).read()
+    bad = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|tombo_tpu)\b(?!_)")
+    assert not [ln for ln in src.splitlines() if bad.match(ln)]
+
+
+def test_default_device_needs_a_card(monkeypatch):
+    from tombo_tpu_torch import config
+    from tombo_tpu_torch.device import resolve_device, resolve_dtype
+    from tombo_tpu_torch.io.model_io import KmerModel
+    from tombo_tpu_torch.pipeline.batch import BatchedResquiggler
+    from tombo_tpu_torch.types import SeqSampleType
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = KmerModel.load_default("DNA")
+    params = config.load_resquiggle_parameters("DNA")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchedResquiggler(model, params, SeqSampleType("DNA", False))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"
+    br = BatchedResquiggler(model, params, SeqSampleType("DNA", False),
+                            device="cpu")
+    assert br.dtype == torch.float32
+    with pytest.raises(ValueError, match="float32"):
+        resolve_dtype(torch.float64, torch.device("cuda"))
+    assert resolve_dtype(None, torch.device("cpu")) == torch.float32
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(seq_samp_type=("RNA", True)), "RNA"),
+    (dict(mesh=object()), "multi-GPU"),
+    (dict(const_scale=1.0), "CLI and runner"),
+])
+def test_unported_options_name_their_roadmap_item(kw, item):
+    from tombo_tpu_torch import config
+    from tombo_tpu_torch.io.model_io import KmerModel
+    from tombo_tpu_torch.pipeline.batch import BatchedResquiggler
+    from tombo_tpu_torch.types import SeqSampleType
+
+    sst = SeqSampleType(*kw.pop("seq_samp_type", ("DNA", False)))
+    with pytest.raises(NotImplementedError, match=item):
+        BatchedResquiggler(KmerModel.load_default("DNA"),
+                           config.load_resquiggle_parameters("DNA"), sst,
+                           device="cpu", **kw)
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from tombo_tpu_torch import kernels
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build()
+
+
+def test_model_file_is_the_jax_package_copy():
+    a = open(os.path.join(ROOT, "tombo_tpu", "models",
+                          "tombo.DNA.model.npz"), "rb").read()
+    b = open(os.path.join(ROOT, "tombo_tpu_torch", "models",
+                          "tombo.DNA.model.npz"), "rb").read()
+    assert a == b

@@ -1,0 +1,1039 @@
+"""Batched DNA re-squiggle on the card (counterpart of
+``tombo_tpu/pipeline/batch.py``).
+
+Reads are padded to batch shapes and driven through device stages, in the
+JAX package's stage order:
+
+  A. normalize + changepoint scores + greedy selection + event means
+     + start-discovery DP (banded DP kernel) + validity score  [device]
+  B. start retry with the save start band / static-band routing   [host]
+  C. masked-start + adaptive banded DP + traceback (banded DP kernel)
+     + traceback trim and raw coordinates                        [device]
+  D. deletion-fix window planning [host], raw-signal deletion fix +
+     exact Theil-Sen fit (count kernel) + score                  [device]
+  -> up to 3 scaling iterations on reads whose scale changed; failed
+     reads retried with the save bandwidth.
+
+Host-lane reads (short reads routed to the static band, deletion windows
+beyond the device caps) finish in numpy.  The PyTorch-side parts are plain
+tensor code; the two kernels are ``ops/banded_dp.py`` and
+``ops/rescale.py``'s ``count_le``.  On a CPU device every kernel wrapper
+runs its plain version.
+
+Not ported in this slice: RNA, multi-GPU meshes and constant-scale
+normalization raise ``NotImplementedError``.  The float64 parity mode
+(CPU) takes the JAX package's float64 lane where it differs from the
+float32 one: rescale passes re-select changepoints, and deletion-fix
+reads finish on the host.
+"""
+from __future__ import annotations
+
+import types as _pytypes
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import config
+from ..config import MASK_FILL_Z_SCORE, ResquiggleParams, SIG_MATCH_THRESH
+from ..device import DeviceLike, resolve_device, resolve_dtype
+from ..errors import TomboError
+from ..ops import banded_dp, delfix, rescale
+from ..ops import normalize as nrm
+from ..ops import ref_impl
+from ..ops import segment as seg
+from ..ops import select as sel
+from ..ops.dp import DpParams, StartDpParams
+from ..ops.precision import prefix_sums
+from ..seq import encode_seq, seq_to_kmer_codes
+from ..types import DpResults, ResquiggleResults, ScaleValues, SeqSampleType
+from . import resquiggle as rsq
+
+_GROUP_RATIO = 2.0      # max signal-length spread within a device group
+_MIN_GROUP = 24         # don't cut groups smaller than this
+
+# deletion-fix windows beyond these route the read to the host lane
+# (the reference errors out above MAX_RAW_CPTS=200 events)
+_DELFIX_NB_CAP = 32
+_DELFIX_T_CAP = 512
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _pow2_bucket(x: int, lo: int) -> int:
+    b = lo
+    while b < x:
+        b *= 2
+    return b
+
+
+def _sig_bucket(x: int, lo: int = 1024) -> int:
+    """Signal-axis bucket: half-octave steps (pow2 and 1.5x pow2)."""
+    b = lo
+    while True:
+        if x <= b:
+            return b
+        if x <= b + b // 2:
+            return b + b // 2
+        b *= 2
+
+
+@dataclass
+class _ReadState:
+    """Per-read mutable state as it flows through the stages."""
+    idx: int
+    map_res: ResquiggleResults
+    raw: np.ndarray
+    num_events: int
+    error: Optional[str] = None
+    scale_values: Optional[ScaleValues] = None
+    cpts: Optional[np.ndarray] = None
+    event_means: Optional[np.ndarray] = None
+    ref_means: Optional[np.ndarray] = None
+    ref_sds: Optional[np.ndarray] = None
+    genome_seq_trim: Optional[str] = None
+    use_static: bool = False
+    n_ev: int = 0
+    dev_row: int = -1
+    mapped_start: int = 0
+    events_per_base: float = 0.0
+    events_start_clip: int = 0
+    mapped_start_offset: int = 0
+    result: Optional[ResquiggleResults] = None
+    # device DP outputs: relative segment table + raw start; has_del
+    # False = no zero-length segment, None = unknown (host lane decides)
+    dp_segs: Optional[np.ndarray] = None
+    dp_rsrtr: int = 0
+    has_del: Optional[bool] = None
+    del_windows: Optional[tuple] = None
+    del_fixed: bool = False
+    # device fit (shift_corr, scale_corr, score, changed, fit_ok)
+    dev_fit: Optional[tuple] = None
+
+    def reset_pass(self):
+        """Clear per-pass products before another scaling iteration."""
+        self.result = None
+        self.scale_values = None
+        self.use_static = False
+        self.has_del = None
+        self.dp_segs = None
+        self.del_windows = None
+        self.del_fixed = False
+        self.dev_fit = None
+
+
+def _length_groups(live: list) -> list:
+    """Split a batch into signal-length groups (spread <= _GROUP_RATIO,
+    groups >= _MIN_GROUP reads) so one far-tail read does not pad every
+    read's device shapes."""
+    if len(live) < 2 * _MIN_GROUP:
+        return [live] if live else []
+    order = sorted(live, key=lambda s: s.raw.shape[0])
+    groups, start, base = [], 0, order[0].raw.shape[0]
+    for i, s in enumerate(order):
+        if i - start >= _MIN_GROUP and s.raw.shape[0] > base * _GROUP_RATIO:
+            groups.append(order[start:i])
+            start, base = i, s.raw.shape[0]
+    groups.append(order[start:])
+    return groups
+
+
+# ------------------------------------------------------- device stages
+def _pad_cols(x: torch.Tensor, width: int, value=0.0) -> torch.Tensor:
+    if x.shape[1] >= width:
+        return x
+    return torch.nn.functional.pad(x, (0, width - x.shape[1]), value=value)
+
+
+def _start_dp_with_score(em_rows, rm, rs, sp: StartDpParams):
+    """Start DP (banded DP kernel) + validity score (reference:
+    tombo/tombo_stats.py:2341-2362 ``score_valid_bases``): mean half
+    z-score over the non-duplicated bases of the start traceback."""
+    segs = banded_dp.start_dp_segs(em_rows, rm, rs, sp).long()
+    cs = prefix_sums(em_rows)
+    segs = segs.clamp(0, cs.shape[1] - 1)
+    s0, s1 = segs[:, :-1], segs[:, 1:]
+    lens = (s1 - s0).to(cs.dtype)
+    valid = s1 != s0
+    bmeans = torch.where(
+        valid, (cs.gather(1, s1) - cs.gather(1, s0)) /
+        torch.where(valid, lens, 1.0), 0.0).to(em_rows.dtype)
+    half_z = torch.abs((bmeans - rm) / rs)
+    n_valid = valid.sum(1)
+    score = torch.where(
+        n_valid > 0,
+        torch.where(valid, half_z, 0.0).sum(1) / torch.clamp(n_valid, min=1),
+        float("inf"))
+    return segs, score
+
+
+def _stage_a_dna(raw, sig_lens, has_sv, sv_shift, sv_scale, sv_lower,
+                 sv_upper, num_cpts, rm_start, rs_start, outlier_thresh,
+                 w: int, min_base_obs: int, max_cpts: int,
+                 sp: StartDpParams):
+    """DNA stages 1-3: normalize (median/MAD, or given scale values) ->
+    changepoint scores -> greedy selection -> event means -> start DP +
+    validity score."""
+    norm, shift, scale, lower, upper = nrm.normalize_median_batch(
+        raw, sig_lens, outlier_thresh)
+    shift = torch.where(has_sv, sv_shift, shift)
+    scale = torch.where(has_sv, sv_scale, scale)
+    lower = torch.where(has_sv, sv_lower, lower)
+    upper = torch.where(has_sv, sv_upper, upper)
+    norm_sv = torch.minimum(torch.maximum(
+        (raw - shift[:, None]) / scale[:, None], lower[:, None]),
+        upper[:, None])
+    idx = torch.arange(raw.shape[1], device=raw.device)[None, :]
+    norm_sv = torch.where(idx < sig_lens[:, None], norm_sv, 0.0)
+    norm = torch.where(has_sv[:, None], norm_sv, norm)
+    scores = seg.cpt_scores_diff_batch(norm, sig_lens, w)
+    cpts, status = sel.greedy_cpts_device(
+        scores, sig_lens - 2 * w + 1, num_cpts, min_base_obs, w, max_cpts)
+    em = nrm.compute_base_means_batch(norm, cpts, num_cpts - 1)
+    need = sp.num_bases + sp.num_events
+    start_segs, start_score = _start_dp_with_score(
+        _pad_cols(em, need)[:, :need], rm_start, rs_start, sp)
+    return (norm, em, cpts, status, shift, scale, lower, upper, start_segs,
+            start_score)
+
+
+def _stage_a_rescale(raw, sig_lens, sv_shift, sv_scale, sv_lower, sv_upper,
+                     cpts, n_cpts, rm_start, rs_start, sp: StartDpParams):
+    """Rescale-pass stage A: the changepoints of the first pass are kept
+    (the scores scale by a positive constant under the affine
+    re-normalization), so only normalization, event means and start
+    discovery are redone."""
+    norm = nrm.normalize_with_scale_batch(raw, sig_lens, sv_shift, sv_scale,
+                                          sv_lower, sv_upper)
+    em = nrm.compute_base_means_batch(norm, cpts, n_cpts - 1)
+    need = sp.num_bases + sp.num_events
+    start_segs, start_score = _start_dp_with_score(
+        _pad_cols(em, need)[:, :need], rm_start, rs_start, sp)
+    return norm, em, start_segs, start_score
+
+
+def _gather_clip_rows(em, rows, clips, out_width: int):
+    """em[rows] left-clipped per read by ``clips``, zero-padded to
+    ``out_width`` (``event_means[events_start_clip:]``)."""
+    em_pad = _pad_cols(em[rows], em.shape[1] + out_width)
+    st = clips.clamp(0, em.shape[1])
+    idx = st[:, None] + torch.arange(out_width, device=em.device)[None, :]
+    return em_pad.gather(1, idx)
+
+
+def _stage_finalize(cpts, rows, clips, segs_dp, seq_lens, ev_lens,
+                    n_rows: int):
+    """Traceback trim + raw coordinates + deletion flag (reference:
+    tombo/resquiggle.py:754-764 trim, then pipeline/resquiggle.py
+    ``get_rel_raw_coords``; integer-exact).  Only leading (<0) and
+    trailing (>events_len) positions can be out of range, so a clip is
+    the trim."""
+    L = n_rows
+    tb = torch.minimum(segs_dp.long().clamp(min=0), ev_lens[:, None])
+    cpts_rows = cpts[rows]
+    gather_idx = (clips[:, None] + tb).clamp(0, cpts_rows.shape[1] - 1)
+    seq_segs_abs = cpts_rows.gather(1, gather_idx)
+    rsrtr = seq_segs_abs[:, 0]
+    seq_segs = seq_segs_abs - rsrtr[:, None]
+    d = seq_segs[:, 1:] - seq_segs[:, :-1]
+    base_valid = torch.arange(L, device=cpts.device)[None, :] < \
+        seq_lens[:, None]
+    has_del = ((d == 0) & base_valid).any(1)
+    return seq_segs, rsrtr, has_del
+
+
+def _stage_fit(norm, rows, rsrtr, seq_segs, rm, rs, seq_lens, samp, tri,
+               shift_thresh: float, scale_thresh: float):
+    """Event means over the final segment table -> exact Theil-Sen (count
+    kernel) -> scale/shift corrections, changed mask and signal-match
+    score (reference: tombo/resquiggle.py:1122-1197,
+    tombo/tombo_stats.py:2327-2339)."""
+    L = seq_segs.shape[1] - 1
+    # the prefix sums start at each read's mapped start, as the host
+    # lane's ``new_means`` over the mapped slice does: segments of equal
+    # integer sums then give bitwise-equal means, and the pair slopes
+    # between them the exact ``max_slope``
+    S = norm.shape[1]
+    em = nrm.compute_base_means_batch(_slice_rows(norm, rows, rsrtr, S),
+                                      seq_segs.clamp(0, S), seq_lens)
+    if samp is not None:
+        gi = samp.clamp(0, L - 1)
+        ev, mod = em.gather(1, gi), rm.gather(1, gi)
+        n_pts = torch.clamp(seq_lens, max=samp.shape[1])
+    else:
+        ev, mod, n_pts = em, rm, seq_lens
+    slope, inter = rescale.theil_sen_device(ev, mod, n_pts, tri=tri)
+    fit_ok = slope != 0
+    safe = torch.where(fit_ok, slope, 1.0)
+    scale_corr = 1.0 / safe
+    shift_corr = -inter / safe
+    em_s = (em - shift_corr[:, None]) / scale_corr[:, None]
+    changed = ((torch.abs(shift_corr) > shift_thresh) |
+               (torch.abs(scale_corr - 1.0) > scale_thresh))
+    valid = torch.arange(L, device=em.device)[None, :] < seq_lens[:, None]
+    score = (torch.where(valid, torch.abs((em_s - rm) / rs), 0.0).sum(1) /
+             torch.clamp(seq_lens, min=1))
+    return shift_corr, scale_corr, score, changed, fit_ok
+
+
+def _slice_rows(mat, rows, starts, width: int):
+    """mat[rows[i], starts[i] : starts[i] + width], zero past the matrix
+    edge (a ``lax.dynamic_slice`` of the zero-padded row: the start
+    clamps so the window fits)."""
+    S = mat.shape[1]
+    padded = _pad_cols(mat, S + width)
+    st = starts.clamp(0, S)
+    idx = st[:, None] + torch.arange(width, device=mat.device)[None, :]
+    return padded[rows].gather(1, idx)
+
+
+def _stage_delfix_fit(norm, rows, rsrtr, seq_segs, rm, rs, seq_lens, win_i,
+                      win_bs, win_nb, win_t, win_sig_rel, max_half_z, samp,
+                      tri, nb_pad: int, t_pad: int, min_obs: int,
+                      winsorize: bool, shift_thresh: float,
+                      scale_thresh: float):
+    """Batched raw-signal deletion fix, then the fit on the FIXED table
+    (the reference's order, tombo/resquiggle.py:1168-1195)."""
+    rows_w = rows[win_i]
+    sig_abs = rsrtr[win_i] + win_sig_rel
+    sig_w = _slice_rows(norm, rows_w, sig_abs, t_pad)
+    mu_w = _slice_rows(rm, win_i, win_bs, nb_pad)
+    sd_raw = _slice_rows(rs, win_i, win_bs, nb_pad)
+    jb = torch.arange(nb_pad, device=norm.device)[None, :]
+    sd_w = torch.where(jb < win_nb[:, None], sd_raw, 1.0)
+    bounds, fail = delfix.raw_windows_dp(
+        sig_w, mu_w, sd_w, win_t, win_nb, max_half_z, min_obs=min_obs,
+        nb_pad=nb_pad, winsorize=winsorize)
+
+    # scatter boundaries back: resolved[ws+1+j] = bound_j + segs[ws]
+    seg_base = seq_segs[win_i, win_bs]
+    jcols = torch.arange(nb_pad - 1, device=norm.device)[None, :]
+    valid = jcols < (win_nb[:, None] - 1)
+    cols = win_bs[:, None] + 1 + jcols
+    vals = bounds.long() + seg_base[:, None]
+    seq_segs_fx = seq_segs.clone()
+    wi = win_i[:, None].expand_as(cols)
+    seq_segs_fx[wi[valid], cols[valid]] = vals[valid].to(seq_segs.dtype)
+
+    fit = _stage_fit(norm, rows, rsrtr, seq_segs_fx, rm, rs, seq_lens, samp,
+                     tri, shift_thresh, scale_thresh)
+    return (bounds, fail) + fit
+
+
+def _build_masked_plans_batch(live, p, mask_bases=config.MASK_BASES):
+    """Start-masked static band plan for every read in a few matrix ops
+    (bit-identical to the per-read numpy ``np.linspace`` plan, reference:
+    tombo/resquiggle.py:607-677).  Returns (pstarts (B, P_max), pvalid
+    (B,), pend (B, P_max), start_rows (B,), P_max)."""
+    B = len(live)
+    half_bw = p.bandwidth // 2
+    n_ev = np.array([s.n_ev - s.events_start_clip for s in live], np.int64)
+    mso = np.array([s.mapped_start_offset for s in live], np.int64)
+    epb = np.array([s.events_per_base for s in live], np.float64)
+    bes_pos = np.where(half_bw <= mso, 0, mso - half_bw)
+
+    T = np.maximum(np.maximum(half_bw, mask_bases),
+                   ((half_bw + 1) / epb).astype(np.int64)) + 1
+    T_max = int(T.max())
+    r = np.arange(T_max, dtype=np.float64)[None, :]
+    # np.linspace(start, start + T*epb, T): y = r*step + start, y[-1]=stop
+    delta = T * epb
+    step = delta / (T - 1)
+    y = r * step[:, None] + bes_pos[:, None].astype(np.float64)
+    rows = np.arange(B)
+    y[rows, T - 1] = bes_pos + delta
+    bes = y.astype(np.int64)
+
+    in_T = np.arange(T_max)[None, :] < T[:, None]
+    first_hit = np.argmax((bes >= mso[:, None]) & in_T, axis=1)
+    P = np.maximum(mask_bases, first_hit + 2)
+    P_max = _round_up(int(P.max()), 64)
+
+    # mask_start_pos = linspace(mso+1, bes[mask_bases-1]+bw, mask_bases)
+    m_start = (mso + 1).astype(np.float64)
+    m_stop = (bes[:, mask_bases - 1] + p.bandwidth).astype(np.float64)
+    m_step = (m_stop - m_start) / (mask_bases - 1)
+    rm_ = np.arange(mask_bases, dtype=np.float64)[None, :]
+    msp = rm_ * m_step[:, None] + m_start[:, None]
+    msp[:, -1] = m_stop
+    msp = msp.astype(np.int64)
+
+    if P_max > bes.shape[1]:
+        bes = np.pad(bes, ((0, 0), (0, P_max - bes.shape[1])))
+    pstarts = bes[:, :P_max].copy()
+    pad_col = np.arange(P_max)[None, :] >= P[:, None]
+    np.copyto(pstarts, bes[rows, P - 1][:, None], where=pad_col)
+    pend = np.broadcast_to(n_ev[:, None], (B, P_max)).copy()
+    pend[:, :mask_bases] = np.minimum(msp, n_ev[:, None])
+    np.copyto(pend, n_ev[:, None], where=pad_col)
+    return pstarts, mso, pend, P, P_max
+
+
+_TS_SAMPLE_CACHE: dict = {}
+
+
+def _ts_sample_idx(n: int, max_n: int) -> np.ndarray:
+    """Deterministic Theil-Sen subsample (rng(0), reference:
+    tombo/tombo_stats.py:398-401)."""
+    key = (n, max_n)
+    out = _TS_SAMPLE_CACHE.get(key)
+    if out is None:
+        out = np.random.default_rng(0).choice(n, max_n, replace=False)
+        _TS_SAMPLE_CACHE[key] = out
+    return out
+
+
+# --------------------------------------------------------------- driver
+class BatchedResquiggler:
+    """Drive batches of mapped DNA reads through the device stages.
+
+    ``device=None`` means the CUDA card; ``device="cpu"`` runs every
+    kernel's plain PyTorch version."""
+
+    def __init__(self, std_ref, rsqgl_params: ResquiggleParams,
+                 seq_samp_type: SeqSampleType,
+                 outlier_thresh: Optional[float] = config.OUTLIER_THRESH,
+                 dtype=None, device: DeviceLike = None, mesh=None,
+                 const_scale=None):
+        if seq_samp_type.name != config.DNA_SAMP_TYPE:
+            raise NotImplementedError(
+                "RNA re-squiggle is not ported yet (ROADMAP.md, Queue 1: "
+                "RNA)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-GPU re-squiggle is not ported yet (ROADMAP.md, "
+                "Queue 1: multi-GPU)")
+        if const_scale is not None:
+            raise NotImplementedError(
+                "constant-scale normalization is not ported yet "
+                "(ROADMAP.md, Queue 1: CLI and runner)")
+        self.device = resolve_device(device)
+        self.dtype = resolve_dtype(dtype, self.device)
+        self.np_dtype = (np.float64 if self.dtype == torch.float64
+                         else np.float32)
+        self.std_ref = std_ref
+        self.params = rsqgl_params
+        self.seq_samp_type = seq_samp_type
+        self.outlier_thresh = outlier_thresh
+        self.save_params = rsqgl_params.replace(
+            bandwidth=config.load_resquiggle_parameters(
+                seq_samp_type.name, use_save_bandwidth=True).bandwidth)
+
+    # ------------------------------------------------------------ helpers
+    def _t(self, arr, float_=False) -> torch.Tensor:
+        arr = np.asarray(arr)
+        if float_:
+            arr = arr.astype(self.np_dtype)
+        elif arr.dtype != np.bool_:
+            arr = arr.astype(np.int64)
+        return torch.as_tensor(arr).to(self.device)
+
+    def _levels(self, live, width: int, clip: bool = False):
+        """(B, width) expected means and sds, padded with 1.0; ``clip``
+        crops each read to ``width`` (reads shorter than ``width`` become
+        all-padding rows)."""
+        rm = np.ones((len(live), width))
+        rs = np.ones((len(live), width))
+        for i, s in enumerate(live):
+            n = s.ref_means.shape[0]
+            if clip:
+                if n >= width:
+                    rm[i], rs[i] = s.ref_means[:width], s.ref_sds[:width]
+            else:
+                m = min(n, width)
+                rm[i, :m], rs[i, :m] = s.ref_means[:m], s.ref_sds[:m]
+        return self._t(rm, True), self._t(rs, True)
+
+    def _start_params(self, num_events: int) -> StartDpParams:
+        p = self.params
+        return StartDpParams(
+            z_shift=p.z_shift, skip_pen=p.skip_pen, stay_pen=p.stay_pen,
+            max_half_z_score=p.max_half_z_score or -1.0,
+            num_bases=p.start_n_bases, num_events=num_events)
+
+    @staticmethod
+    def _np(*ts):
+        return [t.cpu().numpy() for t in ts]
+
+    # ------------------------------------------------------ stage drivers
+    def _segment_batch(self, states: List[_ReadState]):
+        """Stages 1-3 (+ start DP): normalize, select, event means."""
+        p = self.params
+        live = [s for s in states if s.error is None]
+        if not live:
+            return None
+        B = len(live)
+        sig_lens = np.array([s.raw.shape[0] for s in live], np.int64)
+        raw_pad = np.zeros((B, _sig_bucket(int(sig_lens.max()))),
+                           self.np_dtype)
+        for i, s in enumerate(live):
+            raw_pad[i, :s.raw.shape[0]] = s.raw
+            s.dev_row = i
+        raw_j = torch.as_tensor(raw_pad).to(self.device)
+        lens_j = self._t(sig_lens)
+        nb = p.start_n_bases
+        rm_sj, rs_sj = self._levels(live, nb, clip=True)
+        sp = self._start_params(p.start_bw)
+
+        # rescale passes keep the first pass's changepoints on the float32
+        # lane; the float64 parity mode re-selects, as the JAX package's
+        # float64 lane does (selection is invariant under the affine
+        # re-normalization only in exact arithmetic)
+        if self.dtype != torch.float64 and all(
+                s.map_res.scale_values is not None and s.cpts is not None
+                for s in live):
+            return self._segment_rescale(live, raw_j, lens_j, rm_sj, rs_sj,
+                                         sp)
+
+        w = p.running_stat_width
+        num_cpts = np.array([s.num_events for s in live], np.int64)
+        max_cpts = _pow2_bucket(int(num_cpts.max()), 256)
+        has_sv = np.array([s.map_res.scale_values is not None
+                           for s in live])
+        sv_shift, sv_scale = np.zeros(B), np.ones(B)
+        sv_lower = np.full(B, -nrm.POS_LARGE)
+        sv_upper = np.full(B, nrm.POS_LARGE)
+        for i, s in enumerate(live):
+            sv = s.map_res.scale_values
+            if sv is not None:
+                sv_shift[i], sv_scale[i] = sv.shift, sv.scale
+                if sv.lower_lim is not None:
+                    sv_lower[i] = sv.lower_lim
+                if sv.upper_lim is not None:
+                    sv_upper[i] = sv.upper_lim
+        (norm_j, em_j, cpts_j, status_j, shift, scale, lower, upper,
+         start_segs_j, start_score_j) = _stage_a_dna(
+            raw_j, lens_j, self._t(has_sv), self._t(sv_shift, True),
+            self._t(sv_scale, True), self._t(sv_lower, True),
+            self._t(sv_upper, True), self._t(num_cpts), rm_sj, rs_sj,
+            (None if self.outlier_thresh is None
+             else float(self.outlier_thresh)), w, p.min_obs_per_base,
+            max_cpts, sp)
+        (cpts_np, status, shift, scale, lower, upper, s0, sN,
+         score) = self._np(cpts_j, status_j, shift, scale, lower, upper,
+                           start_segs_j[:, 0], start_segs_j[:, -1],
+                           start_score_j)
+        for i, s in enumerate(live):
+            if status[i] != 0:
+                s.error = "Fewer changepoints found than requested"
+                continue
+            s.cpts = cpts_np[i, :s.num_events].astype(np.int64)
+            s.n_ev = s.num_events - 1
+            s.event_means = None
+            prev_sv = s.map_res.scale_values
+            s.scale_values = ScaleValues(
+                float(shift[i]), float(scale[i]), float(lower[i]),
+                float(upper[i]),
+                prev_sv.outlier_thresh if prev_sv is not None
+                else self.outlier_thresh)
+        return {"em": em_j, "norm": norm_j, "cpts": cpts_j,
+                "start": (s0.astype(np.int64), sN.astype(np.int64),
+                          score.astype(np.float64))}
+
+    def _segment_rescale(self, live, raw_j, lens_j, rm_sj, rs_sj, sp):
+        """Rescale-pass segmentation reusing first-pass changepoints."""
+        B = len(live)
+        n_cpts = np.array([s.cpts.shape[0] for s in live], np.int64)
+        cpts = np.zeros((B, _pow2_bucket(int(n_cpts.max()), 256)), np.int64)
+        sv_shift, sv_scale = np.zeros(B), np.ones(B)
+        sv_lower, sv_upper = np.full(B, np.nan), np.full(B, np.nan)
+        for i, s in enumerate(live):
+            cpts[i, :n_cpts[i]] = s.cpts
+            sv = s.map_res.scale_values
+            sv_shift[i], sv_scale[i] = sv.shift, sv.scale
+            if sv.lower_lim is not None:
+                sv_lower[i] = sv.lower_lim
+            if sv.upper_lim is not None:
+                sv_upper[i] = sv.upper_lim
+        cpts_j = self._t(cpts)
+        norm_j, em_j, start_segs_j, start_score_j = _stage_a_rescale(
+            raw_j, lens_j, self._t(sv_shift, True), self._t(sv_scale, True),
+            self._t(sv_lower, True), self._t(sv_upper, True), cpts_j,
+            self._t(n_cpts), rm_sj, rs_sj, sp)
+        s0, sN, score = self._np(start_segs_j[:, 0], start_segs_j[:, -1],
+                                 start_score_j)
+        for i, s in enumerate(live):
+            s.n_ev = int(n_cpts[i]) - 1
+            s.event_means = None
+            s.scale_values = s.map_res.scale_values.replace()
+        return {"em": em_j, "norm": norm_j, "cpts": cpts_j,
+                "start": (s0.astype(np.int64), sN.astype(np.int64),
+                          score.astype(np.float64))}
+
+    def _plan_reads(self, states: List[_ReadState]):
+        """Expected levels + static-band routing."""
+        p = self.params
+        std_ref = self.std_ref
+        k = std_ref.kmer_width
+        dnstrm = k - std_ref.central_pos - 1
+        for s in states:
+            if s.error is not None:
+                continue
+            if s.ref_means is None:
+                codes = seq_to_kmer_codes(encode_seq(s.map_res.genome_seq),
+                                          k)
+                if codes.shape[0] <= 0 or np.any(codes < 0):
+                    s.error = ("Invalid sequence encountered from genome "
+                               "sequence.")
+                    continue
+                s.ref_means = std_ref.means[codes]
+                s.ref_sds = std_ref.sds[codes]
+                s.genome_seq_trim = s.map_res.genome_seq[
+                    std_ref.central_pos:-dnstrm]
+            if len(s.genome_seq_trim) != s.ref_means.shape[0]:
+                s.error = "Discordant reference and sequence lengths."
+                continue
+            if (s.n_ev < p.start_bw + p.start_n_bases or
+                    s.ref_means.shape[0] < p.start_n_bases):
+                s.use_static = True
+
+    def _start_discovery(self, states, ctx, start_bw: int,
+                         check_score: bool, precomputed=None):
+        """Static-band start discovery + validity score; returns the reads
+        whose start failed the score check."""
+        p = self.params
+        live = [s for s in states if s.error is None and not s.use_static]
+        if not live:
+            return []
+        nb = p.start_n_bases
+        need = nb + start_bw
+        if precomputed is not None:
+            rows = [s.dev_row for s in live]
+            seg0, segN, score = (a[rows] for a in precomputed)
+        else:
+            if ctx["em"].shape[1] < need:
+                # every live read has >= need events, but the batch-wide
+                # padded width can still be smaller
+                for s in live:
+                    s.use_static = True
+                return []
+            rows = self._t([s.dev_row for s in live])
+            rm_sj, rs_sj = self._levels(live, nb, clip=True)
+            segs, score = _start_dp_with_score(
+                ctx["em"][rows][:, :need], rm_sj, rs_sj,
+                self._start_params(start_bw))
+            seg0, segN, score = self._np(segs[:, 0], segs[:, -1], score)
+        failed = []
+        thresh = SIG_MATCH_THRESH[self.seq_samp_type.name]
+        for i, s in enumerate(live):
+            if check_score and (not np.isfinite(score[i]) or
+                                score[i] > thresh):
+                failed.append(s)
+                continue
+            s.events_per_base = (int(segN[i]) - int(seg0[i])) / (nb + 1)
+            s.mapped_start = int(seg0[i])
+        return failed
+
+    def _adaptive_batch(self, states: List[_ReadState], ctx):
+        """Masked-start prefix + adaptive DP + traceback."""
+        p = self.params
+        live = []
+        half_bw = p.bandwidth // 2
+        for s in states:
+            if s.error is not None or s.use_static:
+                continue
+            if s.events_per_base == 0:
+                s.error = ("Very poor signal quality. Read likely includes "
+                           "open pore.")
+                continue
+            if s.mapped_start < half_bw:
+                s.events_start_clip = 0
+                s.mapped_start_offset = s.mapped_start
+            else:
+                s.events_start_clip = s.mapped_start - half_bw
+                s.mapped_start_offset = half_bw
+            if (int((half_bw + 1) / s.events_per_base) >=
+                    s.ref_means.shape[0] or
+                    s.n_ev - s.mapped_start_offset -
+                    s.events_start_clip < p.bandwidth):
+                s.use_static = True
+                continue
+            live.append(s)
+        if not live:
+            return
+        # bound the (B, L, bw) move scratch by slicing very-long-read
+        # batches
+        L_all = _pow2_bucket(max(s.ref_means.shape[0] for s in live), 256)
+        max_b = max(8, int(1.5e9 // (L_all * p.bandwidth)))
+        if len(live) > max_b:
+            live.sort(key=lambda s: s.ref_means.shape[0])
+        for i in range(0, len(live), max_b):
+            self._adaptive_device_call(live[i:i + max_b], ctx)
+
+    def _adaptive_device_call(self, live: List[_ReadState], ctx):
+        p = self.params
+        bw = p.bandwidth
+        L_max = _pow2_bucket(max(s.ref_means.shape[0] for s in live), 256)
+        E_max = _pow2_bucket(
+            max(s.n_ev - s.events_start_clip for s in live) + bw, 256)
+        rows = self._t([s.dev_row for s in live])
+        clips = self._t([s.events_start_clip for s in live])
+        n_events = self._t([s.n_ev - s.events_start_clip for s in live])
+        seq_lens = self._t([s.ref_means.shape[0] for s in live])
+        pstarts, pvalid, pend, start_rows, P_max = \
+            _build_masked_plans_batch(live, p)
+        em_j = _gather_clip_rows(ctx["em"], rows, clips, E_max)
+        dpp = DpParams(
+            z_shift=p.z_shift, skip_pen=p.skip_pen, stay_pen=p.stay_pen,
+            mask_fill_z_score=MASK_FILL_Z_SCORE,
+            max_half_z_score=p.max_half_z_score or -1.0, bandwidth=bw)
+        rm_j, rs_j = self._levels(live, L_max)
+        segs_j, band_err, bound_err, _ = banded_dp.adaptive_banded_dp_tb(
+            em_j, n_events, rm_j, rs_j, seq_lens, self._t(pstarts),
+            self._t(pvalid), self._t(pend), self._t(start_rows), dpp, L_max,
+            P_max, p.band_bound_thresh)
+        seq_segs_j, rsrtr_j, has_del_j = _stage_finalize(
+            ctx["cpts"], rows, clips, segs_j, seq_lens, n_events, L_max)
+        band_err, bound_err, seq_segs, rsrtr, has_del = self._np(
+            band_err, bound_err, seq_segs_j, rsrtr_j, has_del_j)
+        for i, s in enumerate(live):
+            if band_err[i]:
+                s.error = ("Adaptive signal to sequence alignment extended "
+                           "beyond raw signal")
+                continue
+            if bound_err[i]:
+                s.error = ("Read event to sequence alignment extends beyond "
+                           "bandwidth")
+                continue
+            s.dp_segs = seq_segs[i, :s.ref_means.shape[0] + 1].astype(
+                np.int64)
+            s.dp_rsrtr = int(rsrtr[i])
+            s.has_del = bool(has_del[i])
+        self._delfix_and_fit(live, ctx, rows, rsrtr_j, seq_segs_j, rm_j,
+                             rs_j, seq_lens)
+
+    def _delfix_and_fit(self, live, ctx, rows_j, rsrtr_j, seq_segs_j, rm_j,
+                        rs_j, seq_lens_j):
+        """Deletion-fix windows planned on the host from the segment
+        tables, then one device call: window DP + fit on the fixed table.
+        Reads whose windows exceed the device caps go to the host lane."""
+        p = self.params
+        win_i, win_bs, win_nb, win_t, win_rel = [], [], [], [], []
+        fit_reads = []
+        w = config.DEL_FIX_WINDOW
+        min_sig_per_base = p.raw_min_obs_per_base * config.EXTRA_SIG_FACTOR
+        for i, s in enumerate(live):
+            if s.error is not None or s.dp_segs is None:
+                continue
+            if not s.has_del:
+                fit_reads.append(s)
+                continue
+            if self.dtype == torch.float64:
+                # host lane, as the JAX package's float64 lane: the device
+                # window DP is the same recurrence in prefix-sum form,
+                # which rounds differently where integer signals tie
+                continue
+            segs = s.dp_segs
+            # vectorized fast path of plan_del_fix_windows: deletion
+            # clusters with gaps > 2w map one-to-one to merged windows,
+            # final unless too small; else the exact host planner
+            dels = np.flatnonzero(np.diff(segs) == 0)
+            if dels.size == 0:
+                s.has_del = False
+                fit_reads.append(s)
+                continue
+            brk = np.flatnonzero(np.diff(dels) > 2 * w) + 1
+            first = dels[np.concatenate([[0], brk])]
+            last = dels[np.concatenate([brk - 1, [dels.shape[0] - 1]])]
+            ws_arr = np.maximum(first - w, 0)
+            we_arr = np.minimum(last + w + 1, segs.shape[0] - 1)
+            n_ev = we_arr - ws_arr
+            sig_len = segs[we_arr] - segs[ws_arr]
+            if np.any(sig_len <= (n_ev + 1) * min_sig_per_base):
+                try:
+                    windows = rsq.plan_del_fix_windows(
+                        _pytypes.SimpleNamespace(segs=segs), p)
+                except TomboError as e:
+                    s.error = str(e)
+                    continue
+                if not windows:
+                    s.has_del = False
+                    fit_reads.append(s)
+                    continue
+                ws_arr = np.array([a for a, _ in windows])
+                we_arr = np.array([b for _, b in windows])
+                n_ev = we_arr - ws_arr
+                sig_len = segs[we_arr] - segs[ws_arr]
+            if n_ev.max() > _DELFIX_NB_CAP or sig_len.max() > _DELFIX_T_CAP:
+                continue                      # host lane (s.has_del True)
+            s.del_windows = (list(zip(ws_arr.tolist(), we_arr.tolist())),
+                             len(win_i))
+            win_i.extend([i] * ws_arr.shape[0])
+            win_bs.extend(ws_arr.tolist())
+            win_nb.extend(n_ev.tolist())
+            win_t.extend(sig_len.tolist())
+            win_rel.extend(segs[ws_arr].tolist())
+            fit_reads.append(s)
+        if not fit_reads:
+            return
+
+        max_n = config.MAX_POINTS_FOR_THEIL_SEN
+        L_max = seq_segs_j.shape[1] - 1
+        samp_j = None
+        if any(s.ref_means.shape[0] > max_n for s in live):
+            samp_np = np.zeros((len(live), max_n), np.int64)
+            for i, s in enumerate(live):
+                n = s.ref_means.shape[0]
+                samp_np[i] = (_ts_sample_idx(n, max_n) if n > max_n else
+                              np.pad(np.arange(n), (0, max_n - n)))
+            samp_j = self._t(samp_np)
+        tri = rescale.tri_indices(max_n if samp_j is not None else L_max,
+                                  self.device)
+        if not win_i:
+            # one inert window keeps the call shape-valid
+            win_i, win_bs, win_nb, win_t, win_rel = [0], [0], [0], [2], [0]
+        mhz = p.max_half_z_score
+        (bounds_j, fail_j, shc_j, scc_j, fscore_j, fchanged_j,
+         fok_j) = _stage_delfix_fit(
+            ctx["norm"], rows_j, rsrtr_j, seq_segs_j, rm_j, rs_j,
+            seq_lens_j, self._t(win_i), self._t(win_bs), self._t(win_nb),
+            self._t(win_t), self._t(win_rel),
+            float(mhz if mhz is not None else 0.0), samp_j, tri,
+            nb_pad=max(2, max(win_nb)), t_pad=max(2, max(win_t)),
+            min_obs=p.raw_min_obs_per_base, winsorize=mhz is not None,
+            shift_thresh=float(config.SHIFT_CHANGE_THRESH),
+            scale_thresh=float(config.SCALE_CHANGE_THRESH))
+        (bounds, fail, f_shc, f_scc, f_score, f_changed, f_ok) = self._np(
+            bounds_j, fail_j, shc_j, scc_j, fscore_j, fchanged_j, fok_j)
+
+        for s in fit_reads:
+            if s.del_windows is None:
+                continue
+            windows, w0 = s.del_windows
+            segs = s.dp_segs
+            ok = True
+            for k, (ws, we) in enumerate(windows):
+                if fail[w0 + k]:
+                    s.error = "Raw-signal traceback failed to find boundary"
+                    ok = False
+                    break
+                segs[ws + 1:we] = (bounds[w0 + k, :we - ws - 1].astype(
+                    np.int64) + segs[ws])
+            if not ok:
+                continue
+            # reference validity checks (tombo/resquiggle.py:470-500)
+            if np.diff(segs).min() < 1:
+                s.error = "New segments include zero length events"
+                continue
+            if segs[0] < 0:
+                s.error = "New segments start with negative index"
+                continue
+            s.del_fixed = True
+        fit_ids = {id(s) for s in fit_reads}
+        for i, s in enumerate(live):
+            if (s.error is None and id(s) in fit_ids and
+                    (s.has_del is False or s.del_fixed)):
+                s.dev_fit = (float(f_shc[i]), float(f_scc[i]),
+                             float(f_score[i]), bool(f_changed[i]),
+                             bool(f_ok[i]))
+
+    def _static_reads(self, states: List[_ReadState], ctx):
+        """Short-read static-band assignment (host, numpy)."""
+        need = [s for s in states if s.error is None and s.use_static and
+                s.event_means is None]
+        if need and ctx is not None:
+            em_rows, = self._np(ctx["em"][self._t([s.dev_row
+                                                  for s in need])])
+            for s, row in zip(need, em_rows):
+                s.event_means = row.astype(np.float64)[:s.n_ev]
+        for s in states:
+            if s.error is not None or not s.use_static:
+                continue
+            try:
+                seq_events = rsq.find_static_base_assignment(
+                    s.event_means, s.ref_means, s.ref_sds, self.params)
+                s.dp_segs, s.dp_rsrtr = rsq.get_rel_raw_coords(s.cpts,
+                                                               seq_events)
+            except TomboError as e:
+                s.error = str(e)
+
+    @staticmethod
+    def _host_norm(raw: np.ndarray, sv: ScaleValues, start: int,
+                   end: int) -> np.ndarray:
+        """Normalized raw slice in float64 from scale values."""
+        norm = (raw[start:end] - sv.shift) / sv.scale
+        if (sv.lower_lim is not None and sv.upper_lim is not None and
+                np.isfinite(sv.lower_lim) and np.isfinite(sv.upper_lim)):
+            norm = np.clip(norm, sv.lower_lim, sv.upper_lim)
+        return norm
+
+    def _finalize(self, states: List[_ReadState], will_retry: bool = False):
+        """Apply the device fit (scalar bookkeeping) or run the numpy host
+        lane (deletion fix + Theil-Sen) and assemble results."""
+        host, dev = [], []
+        for s in states:
+            if s.error is not None or s.result is not None:
+                continue
+            if s.dp_segs is None:
+                s.error = "DP did not produce a path"
+                continue
+            dp_res = DpResults(s.dp_rsrtr, s.dp_segs, s.ref_means, s.ref_sds,
+                               s.genome_seq_trim)
+            if s.dev_fit is not None:
+                dev.append((s, dp_res, s.dp_segs))
+                continue
+            try:
+                norm = self._host_norm(
+                    s.raw, s.scale_values, s.dp_rsrtr,
+                    s.dp_rsrtr + int(s.dp_segs[-1]))
+                segs = (dp_res.segs if s.has_del is False else
+                        rsq.resolve_skipped_bases_with_raw(dp_res, norm,
+                                                           self.params))
+                host.append((s, dp_res, segs, norm))
+            except TomboError as e:
+                s.error = str(e)
+
+        results = []
+        max_n = config.MAX_POINTS_FOR_THEIL_SEN
+        for s, dp_res, segs, norm in host:
+            ev = ref_impl.new_means(norm, segs)
+            mod = dp_res.ref_means
+            n = mod.shape[0]
+            if n > max_n:
+                samp = _ts_sample_idx(n, max_n)
+                ev, mod = ev[samp], mod[samp]
+            slope, inter = rescale.theil_sen_host(ev, mod)
+            if slope == 0:
+                s.error = ("Read failed sequence-based signal re-scaling "
+                           "parameter estimation.")
+                continue
+            scale_corr, shift_corr = 1.0 / slope, -inter / slope
+            sv = s.scale_values
+            s.scale_values = sv.replace(
+                shift=sv.shift + shift_corr * sv.scale,
+                scale=sv.scale * scale_corr,
+                outlier_thresh=self.outlier_thresh)
+            norm = (norm - shift_corr) / scale_corr
+            changed = bool(
+                abs(shift_corr) > config.SHIFT_CHANGE_THRESH or
+                abs(scale_corr - 1) > config.SCALE_CHANGE_THRESH)
+            score = rsq.get_read_seg_score(ref_impl.new_means(norm, segs),
+                                           dp_res.ref_means, dp_res.ref_sds)
+            results.append((s, dp_res, segs, norm, score, changed))
+
+        for s, dp_res, segs in dev:
+            shc, scc, score, changed, fit_ok = s.dev_fit
+            if not fit_ok:
+                s.error = ("Read failed sequence-based signal re-scaling "
+                           "parameter estimation.")
+                continue
+            sv_pre = s.scale_values
+            s.scale_values = sv_pre.replace(
+                shift=sv_pre.shift + shc * sv_pre.scale,
+                scale=sv_pre.scale * scc,
+                outlier_thresh=self.outlier_thresh)
+            norm = None
+            if not (will_retry and changed):
+                # the normalized mapped slice, two steps as the host lane:
+                # pre-fit scale values + clip, then the fitted correction
+                start = dp_res.read_start_rel_to_raw
+                norm = (self._host_norm(s.raw, sv_pre, start,
+                                        start + int(segs[-1])) - shc) / scc
+            results.append((s, dp_res, segs, norm, score, changed))
+
+        for s, dp_res, segs, norm, score, changed in results:
+            if segs.shape[0] != len(dp_res.genome_seq) + 1:
+                s.error = ("Aligned sequence does not match number of "
+                           "segments produced")
+                continue
+            s.result = s.map_res.replace(
+                read_start_rel_to_raw=dp_res.read_start_rel_to_raw,
+                segs=segs, genome_seq=dp_res.genome_seq, raw_signal=norm,
+                scale_values=s.scale_values, sig_match_score=float(score),
+                norm_params_changed=bool(changed))
+
+    # ------------------------------------------------------------ run API
+    def _run_pass(self, states: List[_ReadState], will_retry: bool = False):
+        for s in states:
+            if s.error is None:
+                s.n_ev = s.num_events - 1
+        live = [s for s in states if s.error is None]
+        for group in _length_groups(live):
+            self._run_pass_group(group, will_retry)
+
+    def _run_pass_group(self, states: List[_ReadState],
+                        will_retry: bool = False):
+        p = self.params
+        self._plan_reads(states)
+        ctx = self._segment_batch(states)
+        if ctx is not None:
+            failed_start = self._start_discovery(
+                states, ctx, p.start_bw, check_score=True,
+                precomputed=ctx["start"])
+            # save-bandwidth start retry without score check, so no read
+            # fails it (reference: tombo/resquiggle.py:996-1006)
+            for s in failed_start:
+                if s.n_ev < p.start_save_bw + p.start_n_bases:
+                    s.use_static = True
+            retry = [s for s in failed_start if not s.use_static]
+            if retry:
+                self._start_discovery(retry, ctx, p.start_save_bw,
+                                      check_score=False)
+            self._adaptive_batch(states, ctx)
+            self._static_reads(states, ctx)
+        self._finalize(states, will_retry=will_retry)
+
+    def resquiggle_batches(self, batches, pipeline_depth: int = 3,
+                           max_scaling_iters: int = config.MAX_SCALING_ITERS):
+        """Process an iterable of mapped-read batches, yielding per-batch
+        result lists in order, one batch after another.
+
+        ``pipeline_depth`` is kept for the JAX package's signature and has
+        no effect: that package runs batches side by side in threads, but
+        a batch here makes thousands of short PyTorch calls, each of which
+        hands the GIL over, so concurrent batches slow each other down
+        (PERF.md, Findings)."""
+        for b in batches:
+            yield self.resquiggle_batch(b, max_scaling_iters=max_scaling_iters)
+
+    def resquiggle_batch(self, map_results: Sequence[ResquiggleResults],
+                         max_scaling_iters: int = config.MAX_SCALING_ITERS
+                         ) -> List[Tuple[Optional[ResquiggleResults],
+                                         Optional[str]]]:
+        """Re-squiggle a batch of mapped reads (raw signal already
+        adjusted).  Returns per-read (result, error)."""
+        states = []
+        for idx, mr in enumerate(map_results):
+            raw = np.asarray(mr.raw_signal, np.float64)
+            num_mapped_bases = len(mr.genome_seq) - self.std_ref.kmer_width + 1
+            st = _ReadState(idx=idx, map_res=mr, raw=raw, num_events=0)
+            st.num_events = rsq.compute_num_events(
+                raw.shape[0], num_mapped_bases,
+                self.params.mean_obs_per_event)
+            if st.num_events / self.params.bandwidth > num_mapped_bases:
+                st.error = "Too much raw signal for mapped sequence"
+            states.append(st)
+
+        self._run_pass(states, will_retry=max_scaling_iters > 1)
+
+        # iterative sequence-fitted rescaling
+        for it in range(max_scaling_iters - 1):
+            redo = [s for s in states
+                    if s.result is not None and s.result.norm_params_changed]
+            if not redo:
+                break
+            for s in redo:
+                s.map_res = s.map_res.replace(
+                    scale_values=s.result.scale_values)
+                s.reset_pass()
+            self._run_pass(redo, will_retry=it < max_scaling_iters - 2)
+
+        # failed reads retried with the save bandwidth
+        # (reference: tombo/resquiggle.py:1586-1588)
+        retry = ([] if self.params.bandwidth == self.save_params.bandwidth
+                 else [s for s in states if s.result is None])
+        if retry:
+            saver = BatchedResquiggler(
+                self.std_ref, self.save_params, self.seq_samp_type,
+                self.outlier_thresh, self.dtype, device=self.device)
+            retry_out = saver.resquiggle_batch(
+                [s.map_res.replace(scale_values=None) for s in retry],
+                max_scaling_iters=max_scaling_iters)
+            for s, (res, err) in zip(retry, retry_out):
+                if res is not None:
+                    s.result = res
+                    s.error = None
+        return [(s.result, s.error) for s in states]
