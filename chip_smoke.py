@@ -3,16 +3,27 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and nvcc (CUDA_HOME, default /usr/local/cuda).  It
-builds the port's kernels from tombo_tpu_torch/csrc/, drives the main
-path -- batched DNA re-squiggle of 3 x 512 simulated 1000-base reads
-through ``BatchedResquiggler.resquiggle_batches`` at the default DNA
-configuration (bandwidth 300, start band 750/2500, save bandwidth 1500,
-3 scaling iterations) -- checks that the path launched every kernel,
-holds each kernel against its plain PyTorch version on inputs captured
-from that run, re-runs 32 of the reads on the CPU and compares, and
-prints one JSON line per kernel summary plus a final status line.  Any
-failed phase exits non-zero without the status line.
+builds the port's kernels from tombo_tpu_torch/csrc/ and drives two paths
+of batched DNA re-squiggle through ``BatchedResquiggler.resquiggle_batches``
+at the default DNA configuration (bandwidth 300, start band 750/2500,
+save bandwidth 1500, 3 scaling iterations):
+
+  1 kb path     3 x 512 simulated 1000-base reads (fused DP only);
+  mixed path    2 x 512 reads of log-normal lengths, 600 to 30,000 bases
+                (bench.py's mixed recipe): length groups, long groups on
+                the row-chunked DP pair.
+
+Each path is driven with the launch counts set to 0 just before it and
+read just after, and fails if a kernel of that path was not launched (or,
+on the 1 kb path, if a chunked kernel was).  Every kernel is then held
+against its plain PyTorch version on inputs captured from the paths, the
+chunked pair also against the fused kernel bit for bit; some reads of
+each path run again on the CPU for comparison.  It prints per-phase wall
+times, a per-layer breakdown of one batch of each path, one JSON line of
+kernel summaries and a final status line.  Any failed phase exits
+non-zero without the status line.
 """
+import contextlib
 import json
 import statistics
 import subprocess
@@ -27,6 +38,14 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12          # non-tensor float32; used for int32 too
 K1_OPS_PER_CELL = 20           # f32 ops per active band cell and row
 READ_LEN, BATCH, N_BATCHES, MEAN_DWELL = 1000, 512, 3, 7.0
+# bench.py's mixed-length recipe: log-normal read lengths (median ~2.7 kb)
+# clipped to 600-30,000 bases, on a 120,000-base reference
+MIXED_LOG_MEAN, MIXED_LOG_SD = 7.9, 0.85
+MIXED_MIN_LEN, MIXED_MAX_LEN, MIXED_REF_LEN = 600, 30000, 120000
+N_MIXED_BATCHES = 2
+CHUNKED = ("banded_dp_chunked_fwd", "banded_dp_chunked_tb")
+CHUNKED_SLICE = 16             # reads of the captured long call held
+DEVICE = "cuda"
 
 
 def fail(msg):
@@ -34,10 +53,18 @@ def fail(msg):
     sys.exit(1)
 
 
-def cuda_ms(fn, reps):
+@contextlib.contextmanager
+def phase(name):
+    t0 = time.perf_counter()
+    yield
+    print("phase %s: %.1f s" % (name, time.perf_counter() - t0), flush=True)
+
+
+def cuda_ms(fn, reps, warm=True):
     """Median milliseconds of ``fn`` over ``reps`` CUDA-event-timed calls
-    (after one warm-up call)."""
-    fn()
+    (after one warm-up call unless ``warm`` is false)."""
+    if warm:
+        fn()
     out = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -50,8 +77,63 @@ def cuda_ms(fn, reps):
     return statistics.median(out)
 
 
-def build_reads(n_reads, seed):
-    """Simulated, mapped 1 kb DNA reads (bench.py's recipe)."""
+def pair_split_ms(fn, reps):
+    """Median milliseconds of each kernel of the chunked pair (K2, K2')
+    over ``reps`` calls of ``fn`` (after one warm-up call), from CUDA
+    events recorded before the call, between its two launches and after
+    it."""
+    from tombo_tpu_torch import kernels
+    count, marks = kernels.count_launch, []
+
+    def mark(name):
+        count(name)
+        if name == CHUNKED[0]:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+
+    fn()
+    fwd, tb = [], []
+    with patched([(kernels, "count_launch", mark)]):
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            fwd.append(a.elapsed_time(marks[-1]))
+            tb.append(marks[-1].elapsed_time(b))
+    return statistics.median(fwd), statistics.median(tb)
+
+
+def kernel_device_ms(fn, reps, names):
+    """Device milliseconds of each kernel whose name contains one of
+    ``names``, from torch.profiler over ``reps`` calls of ``fn`` (after
+    one warm-up call): the mean over the kernel events the profiler
+    recorded, and how many it recorded against the ``reps`` launched."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {n: [] for n in names}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for n in names:
+                if n in e.name:
+                    out[n].append((e.time_range.end - e.time_range.start) *
+                                  1e-3)
+    return {n: {"ms": statistics.mean(v) if v else "not measured",
+                "recorded": len(v), "launched": reps}
+            for n, v in out.items()}
+
+
+def build_reads(read_lens, seed, ref_len):
+    """Simulated, mapped DNA reads of the given lengths (bench.py's
+    recipe)."""
     from tombo_tpu_torch import config
     from tombo_tpu_torch.io.model_io import KmerModel
     from tombo_tpu_torch.pipeline import resquiggle as rsq
@@ -60,13 +142,13 @@ def build_reads(n_reads, seed):
     from tombo_tpu_torch.types import SeqSampleType, SequenceData
     rng = np.random.default_rng(seed)
     model = KmerModel.load_default("DNA")
-    fasta = random_reference(np.random.default_rng(5), 60000)
+    fasta = random_reference(np.random.default_rng(5), ref_len)
     aligner = ExactAligner(fasta)
     sst = SeqSampleType("DNA", False)
     params = config.load_resquiggle_parameters("DNA")
     maps = []
-    for i in range(n_reads):
-        read = simulate_read(rng, fasta, model, read_len=READ_LEN,
+    for i, n in enumerate(read_lens):
+        read = simulate_read(rng, fasta, model, read_len=int(n),
                              read_id="smoke_%05d" % i, mean_dwell=MEAN_DWELL)
         mr = rsq.map_read(SequenceData(read.seq, read.read_id, 12.0),
                           aligner, model, sst)
@@ -75,18 +157,46 @@ def build_reads(n_reads, seed):
     return model, params, sst, maps
 
 
+def mixed_lens(n_reads, seed):
+    rng = np.random.default_rng(seed)
+    lens = np.exp(rng.normal(MIXED_LOG_MEAN, MIXED_LOG_SD, n_reads))
+    return np.clip(lens, MIXED_MIN_LEN, MIXED_MAX_LEN).astype(int)
+
+
 class Recorder:
-    """Wraps a kernel wrapper to keep the inputs of its largest call per
-    shape key; forwards every call unchanged."""
+    """Wraps a function to keep the inputs of its largest call per shape
+    key and count its calls and reads per key; forwards every call
+    unchanged."""
 
     def __init__(self, fn, key_fn):
-        self.fn, self.key_fn, self.calls = fn, key_fn, {}
+        self.fn, self.key_fn = fn, key_fn
+        self.calls, self.count = {}, {}
 
     def __call__(self, *args, **kw):
         key, size = self.key_fn(*args)
         if key not in self.calls or self.calls[key][0] < size:
-            self.calls[key] = (size, args)
+            self.calls[key] = (size, args, kw)
+        n, reads = self.count.get(key, (0, 0))
+        self.count[key] = (n + 1, reads + size)
         return self.fn(*args, **kw)
+
+
+@contextlib.contextmanager
+def patched(pairs):
+    """Set each (owner, name, value) for the duration of the block."""
+    old = [(o, n, getattr(o, n)) for o, n, _ in pairs]
+    for o, n, v in pairs:
+        setattr(o, n, v)
+    try:
+        yield
+    finally:
+        for o, n, v in old:
+            setattr(o, n, v)
+
+
+def dp_key(*a):
+    """(n_rows, bandwidth), reads of a DP wrapper call."""
+    return (a[10], a[9].bandwidth), a[0].shape[0]
 
 
 # BatchedResquiggler methods -> the layer they make up (PERF.md, Layers)
@@ -104,10 +214,19 @@ STAGES = {
 def stage_breakdown(br, batch):
     """Seconds of one ``resquiggle_batch`` by layer, each layer's own time
     without the layers it calls, with a card synchronise at every layer
-    edge so that device work is charged to the layer that queued it."""
+    edge so that device work is charged to the layer that queued it;
+    also the reads and bases that took the host's static band."""
+    from tombo_tpu_torch.pipeline import resquiggle as rsq
     cls = type(br)
     acc = {label: 0.0 for label in STAGES.values()}
     stack, orig = [], {}
+    static = {"reads": 0, "bases": 0}
+    find_static = rsq.find_static_base_assignment
+
+    def static_counted(em, rm, *a):
+        static["reads"] += 1
+        static["bases"] += rm.shape[0]
+        return find_static(em, rm, *a)
 
     def timed(name, label):
         fn = getattr(cls, name)
@@ -130,15 +249,18 @@ def stage_breakdown(br, batch):
     for name, label in STAGES.items():
         setattr(cls, name, timed(name, label))
     try:
-        t0 = time.perf_counter()
-        br.resquiggle_batch(batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with patched([(rsq, "find_static_base_assignment",
+                        static_counted)]):
+            t0 = time.perf_counter()
+            br.resquiggle_batch(batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     finally:
         for name, fn in orig.items():
             setattr(cls, name, fn)
     acc["other (host)"] = wall - sum(acc.values())
-    return {"reads": len(batch), "wall_s": wall, "stages_s": acc}
+    return {"reads": len(batch), "wall_s": wall, "stages_s": acc,
+            "static_band": static}
 
 
 def device_profile(br, batch):
@@ -190,71 +312,59 @@ def k1_bound_ms(args, bw):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def main():
-    if not torch.cuda.is_available():
-        fail("no CUDA device")
-    from tombo_tpu_torch import config, kernels
-    from tombo_tpu_torch.ops import banded_dp, rescale
-    from tombo_tpu_torch.pipeline.batch import BatchedResquiggler
+def dp_compare(ko, po, seq_lens, L):
+    """K1's bars against a plain version: (flags identical, fraction of
+    boundaries equal up to each read's length, max |final_fwd| diff)."""
+    mask = (torch.arange(L + 1, device=ko[0].device)[None, :] <=
+            torch.clamp(seq_lens.long(), max=L)[:, None])
+    frac = float((ko[0].long() == po[0].long())[mask].float().mean())
+    same_flags = torch.equal(ko[1], po[1]) and torch.equal(ko[2], po[2])
+    return same_flags, frac, float((ko[3] - po[3]).abs().max())
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
-    print("card: " + smi)
-    print("torch %s, CUDA %s, python %s" % (
-        torch.__version__, torch.version.cuda, sys.version.split()[0]))
-    dev = torch.device("cuda")
 
-    # ---- phase 1: build every kernel from the checkout's sources
-    t0 = time.perf_counter()
-    kernels.build()
-    print("kernel build %.1f s (%s)" % (
-        time.perf_counter() - t0, ", ".join(
-            "%s %.1f s" % kv for kv in kernels.BUILD_SECONDS.items())))
-    for name, log in kernels.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas %s: %s" % (name, line.strip()))
+def check_dp_bars(label, same_flags, frac, ferr):
+    if not same_flags:
+        fail("%s: error flags differ from the plain version" % label)
+    if frac < 0.995:
+        fail("%s: only %.4f of boundaries equal" % (label, frac))
+    if not ferr <= 1e-3:
+        fail("%s: final_fwd differs by %g" % (label, ferr))
 
-    # ---- phase 2: the main path on the card
-    model, params, sst, maps = build_reads(BATCH * (N_BATCHES + 1), 1234)
-    warm, maps = maps[:BATCH], maps[BATCH:]
-    batches = [maps[b * BATCH:(b + 1) * BATCH] for b in range(N_BATCHES)]
-    br = BatchedResquiggler(model, params, sst, config.OUTLIER_THRESH,
-                            device="cuda")
-    # one full batch first: CUDA context, lazily loaded kernels, the
-    # caching allocator's pools at the batch's sizes
-    t0 = time.perf_counter()
-    br.resquiggle_batch(warm)
+
+def assert_bitwise(label, a, b):
+    for x, y in zip(a, b):
+        if not torch.equal(x, y):
+            fail("%s: chunked pair and fused kernel differ" % label)
+
+
+def peak_bytes(fn):
+    """Device memory a call allocates at its peak, above what was held
+    before it."""
     torch.cuda.synchronize()
-    print("warm-up batch of %d reads: %.2f s" % (len(warm),
-                                                time.perf_counter() - t0))
-
-    k1, k5 = banded_dp.adaptive_banded_dp_tb, rescale.count_le
-    rec_k1 = Recorder(k1, lambda *a: ((a[10], a[9].bandwidth), a[0].shape[0]))
-    rec_k5 = Recorder(k5, lambda keys, piv: (piv.shape[1], keys.shape[0]))
-    rec_ts = Recorder(rescale.theil_sen_device,
-                      lambda ev, *a, **kw: ("ts", ev.shape[0]))
-    banded_dp.adaptive_banded_dp_tb = rec_k1
-    rescale.count_le = rec_k5
-    rescale.theil_sen_device = rec_ts
-    for name in kernels.LAUNCHES:
-        kernels.LAUNCHES[name] = 0
-    t0 = time.perf_counter()
-    outs = []
-    for out in br.resquiggle_batches(batches, pipeline_depth=3):
-        outs.append(out)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    banded_dp.adaptive_banded_dp_tb = k1
-    rescale.count_le = k5
-    rescale.theil_sen_device = rec_ts.fn
+    return torch.cuda.max_memory_allocated() - base
+
+
+def run_path(label, br, batches, patches):
+    """Drive ``batches`` through ``resquiggle_batches`` with the launch
+    counts at 0 just before and read just after.  Returns (results,
+    wall seconds, launches)."""
+    from tombo_tpu_torch import kernels
+    with patched(patches):
+        for name in kernels.LAUNCHES:
+            kernels.LAUNCHES[name] = 0
+        t0 = time.perf_counter()
+        outs = list(br.resquiggle_batches(batches, pipeline_depth=3))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
     results = [r for o in outs for r in o]
     n_ok = sum(1 for r, e in results if r is not None)
-    print("main path: %d/%d reads ok in %.2f s = %.1f reads/s on the card "
-          "(launches %s)" % (n_ok, len(results), wall, n_ok / wall,
+    print("%s: %d/%d reads ok in %.2f s = %.1f reads/s on the card "
+          "(launches %s)" % (label, n_ok, len(results), wall, n_ok / wall,
                              launches))
     errs = {}
     for r, e in results:
@@ -263,149 +373,41 @@ def main():
     if errs:
         print("  errors: %s" % errs)
     if n_ok < 0.9 * len(results):
-        fail("fewer than 90%% of reads succeeded (%d/%d)" % (
-            n_ok, len(results)))
-    for name, n in launches.items():
-        if n <= 0:
-            fail("kernel %s was not launched on the main path" % name)
+        fail("%s: fewer than 90%% of reads succeeded (%d/%d)" % (
+            label, n_ok, len(results)))
     for res, _ in results:
         if res is not None and not (
                 np.isfinite(res.sig_match_score) and
                 res.segs.shape[0] == len(res.genome_seq) + 1 and
                 np.all(np.diff(res.segs) > 0)):
-            fail("malformed result for %s" % res.align_info.read_id)
+            fail("%s: malformed result for %s" % (label,
+                                                  res.align_info.read_id))
+    return outs, wall, launches
 
-    # ---- phase 3: kernels against their plain versions, on the card
-    entries = []
-    pdp = banded_dp.adaptive_banded_dp_tb_plain
-    main_key = (1024, params.bandwidth)
-    start_key = (params.start_n_bases, params.start_bw)
-    if main_key not in rec_k1.calls or start_key not in rec_k1.calls:
-        fail("main path did not reach the DP shapes %s, %s (saw %s)" % (
-            main_key, start_key, sorted(rec_k1.calls)))
-    main_args = rec_k1.calls[main_key][1]
-    start_args = rec_k1.calls[start_key][1]
-    nb = params.start_n_bases
-    # start retry shape: spliced captured event rows, start_save_bw band
-    ne = params.start_save_bw
-    em_s = start_args[0]
-    n_cat = -(-(nb + ne) // em_s.shape[1])
-    em_r = torch.cat([em_s[i * 16:(i + 1) * 16] for i in range(n_cat)],
-                     dim=1)[:, :nb + ne].contiguous()
-    full = lambda v: torch.full((16,), v, dtype=torch.int32, device=dev)
-    retry_args = (em_r, full(nb + ne), start_args[2][:16],
-                  start_args[3][:16], full(nb),
-                  torch.arange(nb, dtype=torch.int32,
-                               device=dev)[None].expand(16, nb).contiguous(),
-                  full(0), torch.full((16, nb), 2 ** 31 - 1,
-                                      dtype=torch.int32, device=dev),
-                  full(nb), start_args[9]._replace(bandwidth=ne), nb, nb,
-                  -1)
-    save_args = tuple(a[:16] if torch.is_tensor(a) else a
-                      for a in main_args[:9]) + (
-        main_args[9]._replace(bandwidth=config.ALGN_PARAMS_TABLE[
-            "DNA"].save_bandwidth),) + tuple(main_args[10:])
-    k1_shapes = []
-    for label, args in (("main DP", main_args), ("start DP", start_args),
-                        ("start retry", retry_args),
-                        ("save-bandwidth DP", save_args)):
-        bw = args[9].bandwidth
-        B, L = args[0].shape[0], args[10]
-        ko = k1(*args)
-        po = pdp(*args)
-        torch.cuda.synchronize()
-        seg_k, seg_p = ko[0].long(), po[0].long()
-        sl = args[4].long()
-        mask = (torch.arange(L + 1, device=dev)[None, :] <=
-                torch.clamp(sl, max=L)[:, None])
-        frac = float((seg_k == seg_p)[mask].float().mean())
-        same_flags = (torch.equal(ko[1], po[1]) and
-                      torch.equal(ko[2], po[2]))
-        ferr = float((ko[3] - po[3]).abs().max())
-        ms = cuda_ms(lambda: k1(*args), 20)
-        plain_ms = cuda_ms(lambda: pdp(*args), 3)
-        bound, by = k1_bound_ms(args, bw)
-        shape = {"label": label, "B": B, "L": L, "bw": bw,
-                 "segs_equal_frac": frac, "flags_equal": same_flags,
-                 "max_abs_err": ferr, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": bound, "bound_by": by}
-        print("banded_dp %s: %s" % (label, json.dumps(shape)))
-        if not same_flags:
-            fail("banded_dp %s: error flags differ from the plain "
-                 "version" % label)
-        if frac < 0.995:
-            fail("banded_dp %s: only %.4f of boundaries equal" % (label,
-                                                                  frac))
-        if not ferr <= 1e-3:
-            fail("banded_dp %s: final_fwd differs by %g" % (label, ferr))
-        k1_shapes.append(shape)
-    m = k1_shapes[0]
-    entries.append({
-        "name": "banded_dp", "route": "cuda",
-        "source": "tombo_tpu_torch/csrc/banded_dp.cu",
-        "replaces": "tombo_tpu/ops/pallas_dp.py:1052",
-        "launches": launches["banded_dp"], "max_abs_err": m["max_abs_err"],
-        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"], "library_ms": None,
-        "shapes": k1_shapes})
 
-    # K5 at the fit's shape: counts exact, median slope bitwise
-    kb = max(rec_k5.calls.values(), key=lambda v: v[0])[1]
-    keys, piv = kb
-    c_k = k5(keys, piv)
-    c_p = rescale.count_le_plain(keys, piv)
-    cerr = int((c_k - c_p).abs().max())
-    if cerr != 0:
-        fail("count_le counts differ from the plain version by %d" % cerr)
-    ev, mod, n_pts = rec_ts.calls["ts"][1][:3]
-    tri = rescale.tri_indices(ev.shape[1], dev)
-    med_k = rescale.pairwise_slope_median_count(ev, mod, n_pts, 1000.0,
-                                                tri=tri)
-    med_p = rescale.pairwise_slope_median_count(
-        ev, mod, n_pts, 1000.0, tri=tri, count_fn=rescale.count_le_plain)
-    if not torch.equal(med_k.view(torch.int32), med_p.view(torch.int32)):
-        fail("median slope through count_le differs from the plain count")
-    B5, M5 = keys.shape
-    P5 = piv.shape[1]
-    ms5 = cuda_ms(lambda: k5(keys, piv), 20)
-    plain5 = cuda_ms(lambda: rescale.count_le_plain(keys, piv), 5)
-    k_rank = int(rescale._pair_ranks(n_pts)[2][0]) + 1
-    try:
-        lib5 = cuda_ms(lambda: torch.kthvalue(keys, k_rank, dim=1), 5)
-    except RuntimeError as e:          # yardstick only, never on the path
-        print("torch.kthvalue yardstick unavailable: %s" % e)
-        lib5 = None
-    t_b = (B5 * M5 * 4 + 3 * B5 * P5 * 4) / HBM_BYTES_PER_S
-    t_o = 2 * B5 * M5 * P5 / F32_OPS_PER_S
-    k5_entry = {
-        "name": "count_le", "route": "cuda",
-        "source": "tombo_tpu_torch/csrc/count_le.cu",
-        "replaces": "tombo_tpu/ops/rescale.py:176",
-        "launches": launches["count_le"], "max_abs_err": cerr,
-        "ms": ms5, "plain_ms": plain5, "bound_ms": 1e3 * max(t_b, t_o),
-        "bound_by": "bytes" if t_b >= t_o else "operations",
-        "library_ms": lib5, "shape": {"B": B5, "M": M5, "P": P5},
-        "median_slope_bitwise": True}
-    print("count_le: %s" % json.dumps(k5_entry))
-    entries.append(k5_entry)
-
-    # ---- phase 4: 32 of the reads again on the CPU
-    sub = batches[0][:32]
+def cpu_crosscheck(label, model, params, sst, reads, card_results):
+    """The reads again through the port on the CPU, each held to the card
+    result: same error or none, same start and table length, segs equal
+    on > 99%, shift and scale within 2e-3 of the scale, score within
+    1e-2."""
+    from tombo_tpu_torch import config
+    from tombo_tpu_torch.pipeline.batch import BatchedResquiggler
     cpu = BatchedResquiggler(model, params, sst, config.OUTLIER_THRESH,
                              device="cpu")
     t0 = time.perf_counter()
-    cpu_out = cpu.resquiggle_batch(sub)
-    print("CPU subset: %d reads in %.1f s" % (len(sub),
-                                               time.perf_counter() - t0))
+    cpu_out = cpu.resquiggle_batch(reads)
+    print("%s: %d reads on the CPU in %.1f s" % (
+        label, len(reads), time.perf_counter() - t0))
     worst = {"segs": 1.0, "shift": 0.0, "scale": 0.0, "score": 0.0}
-    for i, ((g, ge), (c, ce)) in enumerate(zip(outs[0][:32], cpu_out)):
+    for i, ((g, ge), (c, ce)) in enumerate(zip(card_results, cpu_out)):
         if (ge is None) != (ce is None):
-            fail("read %d: card error %r vs CPU error %r" % (i, ge, ce))
+            fail("%s read %d: card error %r vs CPU error %r" % (label, i, ge,
+                                                                ce))
         if g is None:
             continue
         if g.segs.shape != c.segs.shape or \
                 g.read_start_rel_to_raw != c.read_start_rel_to_raw:
-            fail("read %d: segment table or start differs" % i)
+            fail("%s read %d: segment table or start differs" % (label, i))
         sc = c.scale_values.scale
         d = {"segs": float(np.mean(g.segs == c.segs)),
              "shift": abs(g.scale_values.shift - c.scale_values.shift) / sc,
@@ -417,13 +419,364 @@ def main():
                  "score": max(worst["score"], d["score"])}
         if not (d["segs"] > 0.99 and d["shift"] < 2e-3 and
                 d["scale"] < 2e-3 and d["score"] < 1e-2):
-            fail("read %d: card vs CPU outside tolerance %s" % (i, d))
-    print("card vs CPU on 32 reads, worst: %s" % json.dumps(worst))
+            fail("%s read %d: card vs CPU outside tolerance %s" % (label, i,
+                                                                  d))
+    print("%s: card vs CPU, worst: %s" % (label, json.dumps(worst)))
 
-    # ---- phase 5: where the time goes
-    print("stages: %s" % json.dumps(stage_breakdown(br, batches[1])))
-    print("device: %s" % json.dumps(device_profile(br, batches[2])))
 
+def main():
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    from tombo_tpu_torch import config, kernels
+    from tombo_tpu_torch.ops import banded_dp, rescale
+    from tombo_tpu_torch.pipeline import batch as batch_mod
+    from tombo_tpu_torch.pipeline.batch import BatchedResquiggler
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print("card: " + smi)
+    print("torch %s, CUDA %s, python %s" % (
+        torch.__version__, torch.version.cuda, sys.version.split()[0]))
+    dev = torch.device(DEVICE)
+    k1, k2, k5 = (banded_dp.adaptive_banded_dp_tb,
+                  banded_dp.adaptive_banded_dp_tb_chunked, rescale.count_le)
+    pdp, pch = (banded_dp.adaptive_banded_dp_tb_plain,
+                banded_dp.adaptive_banded_dp_tb_chunked_plain)
+    t_start = time.perf_counter()
+
+    # ---- phase 1: build every kernel from the checkout's sources
+    with phase("build"):
+        kernels.build()
+        print("kernel build (%s)" % ", ".join(
+            "%s %.1f s" % kv for kv in kernels.BUILD_SECONDS.items()))
+        for name, log in kernels.BUILD_LOG.items():
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print("  ptxas %s: %s" % (name, line.strip()))
+
+    # ---- phase 2: the 1 kb path on the card
+    with phase("1 kb path"):
+        model, params, sst, maps = build_reads(
+            [READ_LEN] * (BATCH * (N_BATCHES + 1)), 1234, 60000)
+        warm, maps = maps[:BATCH], maps[BATCH:]
+        batches = [maps[b * BATCH:(b + 1) * BATCH]
+                   for b in range(N_BATCHES)]
+        br = BatchedResquiggler(model, params, sst, config.OUTLIER_THRESH,
+                                device=DEVICE)
+        # one full batch first: CUDA context, lazily loaded kernels, the
+        # caching allocator's pools at the batch's sizes
+        t0 = time.perf_counter()
+        br.resquiggle_batch(warm)
+        torch.cuda.synchronize()
+        print("warm-up batch of %d reads: %.2f s" % (
+            len(warm), time.perf_counter() - t0))
+        rec_k1 = Recorder(k1, dp_key)
+        rec_k5 = Recorder(k5, lambda keys, piv: (piv.shape[1],
+                                                 keys.shape[0]))
+        rec_ts = Recorder(rescale.theil_sen_device,
+                          lambda ev, *a, **kw: ("ts", ev.shape[0]))
+        outs, wall, launches = run_path(
+            "1 kb path", br, batches,
+            [(banded_dp, "adaptive_banded_dp_tb", rec_k1),
+             (rescale, "count_le", rec_k5),
+             (rescale, "theil_sen_device", rec_ts)])
+        for name in ("banded_dp", "count_le"):
+            if launches[name] <= 0:
+                fail("kernel %s was not launched on the 1 kb path" % name)
+        for name in CHUNKED:
+            if launches[name] != 0:
+                fail("the 1 kb path launched %s" % name)
+        launches_1kb = launches
+
+    # ---- phase 3: kernels against their plain versions, on the card
+    entries = []
+    with phase("kernels vs plain, 1 kb shapes"):
+        main_key = (1024, params.bandwidth)
+        start_key = (params.start_n_bases, params.start_bw)
+        if main_key not in rec_k1.calls or start_key not in rec_k1.calls:
+            fail("1 kb path did not reach the DP shapes %s, %s (saw %s)" % (
+                main_key, start_key, sorted(rec_k1.calls)))
+        main_args = rec_k1.calls[main_key][1]
+        start_args = rec_k1.calls[start_key][1]
+        nb = params.start_n_bases
+        # start retry shape: spliced captured event rows, start_save_bw band
+        ne = params.start_save_bw
+        em_s = start_args[0]
+        n_cat = -(-(nb + ne) // em_s.shape[1])
+        em_r = torch.cat([em_s[i * 16:(i + 1) * 16] for i in range(n_cat)],
+                         dim=1)[:, :nb + ne].contiguous()
+        full = lambda v: torch.full((16,), v, dtype=torch.int32, device=dev)
+        retry_args = (em_r, full(nb + ne), start_args[2][:16],
+                      start_args[3][:16], full(nb),
+                      torch.arange(nb, dtype=torch.int32, device=dev)[
+                          None].expand(16, nb).contiguous(),
+                      full(0), torch.full((16, nb), 2 ** 31 - 1,
+                                          dtype=torch.int32, device=dev),
+                      full(nb), start_args[9]._replace(bandwidth=ne), nb, nb,
+                      -1)
+        save_args = tuple(a[:16] if torch.is_tensor(a) else a
+                          for a in main_args[:9]) + (
+            main_args[9]._replace(bandwidth=config.ALGN_PARAMS_TABLE[
+                "DNA"].save_bandwidth),) + tuple(main_args[10:])
+        k1_shapes = []
+        for label, args in (("main DP", main_args), ("start DP", start_args),
+                            ("start retry", retry_args),
+                            ("save-bandwidth DP", save_args)):
+            bw = args[9].bandwidth
+            B, L = args[0].shape[0], args[10]
+            ko = k1(*args)
+            po = pdp(*args)
+            torch.cuda.synchronize()
+            same_flags, frac, ferr = dp_compare(ko, po, args[4], L)
+            ms = cuda_ms(lambda: k1(*args), 20)
+            plain_ms = cuda_ms(lambda: pdp(*args), 3)
+            bound, by = k1_bound_ms(args, bw)
+            shape = {"label": label, "B": B, "L": L, "bw": bw,
+                     "segs_equal_frac": frac, "flags_equal": same_flags,
+                     "max_abs_err": ferr, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by}
+            print("banded_dp %s: %s" % (label, json.dumps(shape)))
+            check_dp_bars("banded_dp " + label, same_flags, frac, ferr)
+            k1_shapes.append(shape)
+
+        # K5 at the fit's shape: counts exact, median slope bitwise
+        keys, piv = max(rec_k5.calls.values(), key=lambda v: v[0])[1]
+        c_k = k5(keys, piv)
+        c_p = rescale.count_le_plain(keys, piv)
+        cerr = int((c_k - c_p).abs().max())
+        if cerr != 0:
+            fail("count_le counts differ from the plain version by %d" %
+                 cerr)
+        ev, mod, n_pts = rec_ts.calls["ts"][1][:3]
+        tri = rescale.tri_indices(ev.shape[1], dev)
+        med_k = rescale.pairwise_slope_median_count(ev, mod, n_pts, 1000.0,
+                                                    tri=tri)
+        med_p = rescale.pairwise_slope_median_count(
+            ev, mod, n_pts, 1000.0, tri=tri,
+            count_fn=rescale.count_le_plain)
+        if not torch.equal(med_k.view(torch.int32), med_p.view(torch.int32)):
+            fail("median slope through count_le differs from the plain "
+                 "count")
+        B5, M5 = keys.shape
+        P5 = piv.shape[1]
+        ms5 = cuda_ms(lambda: k5(keys, piv), 20)
+        plain5 = cuda_ms(lambda: rescale.count_le_plain(keys, piv), 5)
+        k_rank = int(rescale._pair_ranks(n_pts)[2][0]) + 1
+        try:
+            lib5 = cuda_ms(lambda: torch.kthvalue(keys, k_rank, dim=1), 5)
+        except RuntimeError as e:      # yardstick only, never on the path
+            print("torch.kthvalue yardstick unavailable: %s" % e)
+            lib5 = None
+        t_b = (B5 * M5 * 4 + 3 * B5 * P5 * 4) / HBM_BYTES_PER_S
+        t_o = 2 * B5 * M5 * P5 / F32_OPS_PER_S
+        k5_entry = {
+            "name": "count_le", "route": "cuda",
+            "source": "tombo_tpu_torch/csrc/count_le.cu",
+            "replaces": "tombo_tpu/ops/rescale.py:176",
+            "launches": launches_1kb["count_le"], "max_abs_err": cerr,
+            "ms": ms5, "plain_ms": plain5, "bound_ms": 1e3 * max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": lib5, "shape": {"B": B5, "M": M5, "P": P5},
+            "median_slope_bitwise": True}
+        print("count_le: %s" % json.dumps(k5_entry))
+
+        # the chunked pair forced onto the 1 kb main shape: bitwise K1
+        Lc_1kb = 256
+        ko = k1(*main_args)
+        co = k2(*main_args, chunk_rows=Lc_1kb)
+        torch.cuda.synchronize()
+        assert_bitwise("1 kb main shape, Lc %d" % Lc_1kb, co, ko)
+        forced = {
+            "B": main_args[0].shape[0], "L": main_args[10],
+            "bw": main_args[9].bandwidth, "Lc": Lc_1kb, "bitwise_k1": True,
+            "k1_ms": k1_shapes[0]["ms"],
+            "pair_ms": cuda_ms(lambda: k2(*main_args, chunk_rows=Lc_1kb),
+                               10),
+            "fwd_tb_ms": pair_split_ms(
+                lambda: k2(*main_args, chunk_rows=Lc_1kb), 10),
+            "k1_peak_bytes": peak_bytes(lambda: k1(*main_args)),
+            "pair_peak_bytes": peak_bytes(
+                lambda: k2(*main_args, chunk_rows=Lc_1kb))}
+        forced["profiler_ms"] = kernel_device_ms(
+            lambda: k2(*main_args, chunk_rows=Lc_1kb), 5,
+            ("chunked_fwd_kernel", "chunked_tb_kernel"))
+        print("chunked pair forced at the 1 kb shape: %s" % json.dumps(
+            forced))
+
+    # ---- phase 4: 32 of the 1 kb reads again on the CPU
+    with phase("1 kb CPU cross-check"):
+        cpu_crosscheck("1 kb CPU cross-check", model, params, sst,
+                       batches[0][:32], outs[0][:32])
+
+    # ---- phase 5: where the time goes on the 1 kb path
+    with phase("1 kb breakdown"):
+        print("stages: %s" % json.dumps(stage_breakdown(br, batches[1])))
+        print("device: %s" % json.dumps(device_profile(br, batches[2])))
+
+    # ---- phase 6: the mixed-length path on the card
+    with phase("mixed path"):
+        lens = mixed_lens(BATCH * (N_MIXED_BATCHES + 1), 4321)
+        model, params, sst, maps = build_reads(lens, 4321, MIXED_REF_LEN)
+        print("mixed reads: %d, bases median %d, mean %.0f, max %d; "
+              "%d over 16,384 bases" % (
+                  len(lens), int(np.median(lens)), lens.mean(), lens.max(),
+                  int((lens > 16384).sum())))
+        warm, maps = maps[:BATCH], maps[BATCH:]
+        mixed = [maps[b * BATCH:(b + 1) * BATCH]
+                 for b in range(N_MIXED_BATCHES)]
+        br = BatchedResquiggler(model, params, sst, config.OUTLIER_THRESH,
+                                device=DEVICE)
+        t0 = time.perf_counter()
+        br.resquiggle_batch(warm)
+        torch.cuda.synchronize()
+        print("warm-up batch of %d reads: %.2f s" % (
+            len(warm), time.perf_counter() - t0))
+        groups = []
+        length_groups = batch_mod._length_groups
+
+        def groups_rec(live):
+            out = length_groups(live)
+            groups.append([(len(g), min(s.raw.shape[0] for s in g),
+                            max(s.raw.shape[0] for s in g)) for g in out])
+            return out
+
+        rec_k1m = Recorder(k1, dp_key)
+        rec_ch = Recorder(k2, dp_key)
+        outs_m, wall_m, launches_m = run_path(
+            "mixed path", br, mixed,
+            [(banded_dp, "adaptive_banded_dp_tb", rec_k1m),
+             (banded_dp, "adaptive_banded_dp_tb_chunked", rec_ch),
+             (batch_mod, "_length_groups", groups_rec)])
+        for name, n in launches_m.items():
+            if n <= 0:
+                fail("kernel %s was not launched on the mixed path" % name)
+        print("mixed path length groups (reads, min, max signal) of each "
+              "pass: %s" % json.dumps(groups))
+        for rec, layout in ((rec_k1m, "fused"), (rec_ch, "chunked")):
+            for (L, bw), (n, reads) in sorted(rec.count.items()):
+                print("  DP L %d bw %d: %s, %d calls, %d reads" % (
+                    L, bw, layout, n, reads))
+        print("stages (mixed): %s" % json.dumps(
+            stage_breakdown(br, mixed[0])))
+        print("device (mixed): %s" % json.dumps(
+            device_profile(br, mixed[1])))
+
+    # ---- phase 7: the chunked pair at the captured long shape
+    with phase("chunked pair vs K1 and plain, long shape"):
+        size, args, kw = max(
+            rec_ch.calls.values(),
+            key=lambda v: v[0] * v[1][10] * v[1][9].bandwidth)
+        args = tuple(a[:CHUNKED_SLICE] if torch.is_tensor(a) else a
+                     for a in args)
+        Lc = kw["chunk_rows"]
+        B, L, bw = args[0].shape[0], args[10], args[9].bandwidth
+        co = k2(*args, **kw)
+        ko = k1(*args)
+        torch.cuda.synchronize()
+        assert_bitwise("captured L %d bw %d" % (L, bw), co, ko)
+        t0 = time.perf_counter()
+        po = pch(*args, **kw)
+        torch.cuda.synchronize()
+        plain_pair_ms = 1e3 * (time.perf_counter() - t0)
+        same_flags, frac, ferr = dp_compare(co, po, args[4], L)
+        check_dp_bars("chunked pair, captured L %d bw %d" % (L, bw),
+                      same_flags, frac, ferr)
+        seg_err = int((co[0].long() - po[0].long()).abs().max())
+
+        # the plain forward alone (the plain pair less it is K2''s part)
+        from tombo_tpu_torch.ops import dp as dp_mod
+
+        def plain_fwd():
+            x = dp_mod.dp_inputs(*args[:12])
+            st = dp_mod.init_fwd_state(x, bw)
+            for r0 in range(0, L, Lc):
+                st = dp_mod.adaptive_dp_rows(x, st, r0, min(r0 + Lc, L),
+                                             args[9])[0]
+            return st
+        plain_fwd_ms = cuda_ms(plain_fwd, 1, warm=False)
+        dev_ms = kernel_device_ms(lambda: k2(*args, **kw), 3,
+                                  ("chunked_fwd_kernel",
+                                   "chunked_tb_kernel"))
+        pair_ms = cuda_ms(lambda: k2(*args, **kw), 5)
+        fwd_ms, tb_ms = pair_split_ms(lambda: k2(*args, **kw), 5)
+        k1_ms = cuda_ms(lambda: k1(*args), 5)
+        sl_sum = int(torch.clamp(args[4].long(), max=L).sum())
+        k2_bound, k2_by = k1_bound_ms(args, bw)
+        # the TPU traceback's own traffic: moves, band starts, segs
+        tb_bytes = sl_sum * bw + sl_sum * 4 + B * (L + 1) * 4
+        tb_bound = 1e3 * tb_bytes / HBM_BYTES_PER_S
+        recompute_ms = 1e3 * sl_sum * bw * K1_OPS_PER_CELL / F32_OPS_PER_S
+        long_shape = {
+            "B": B, "L": L, "bw": bw, "Lc": Lc, "reads_in_call": size,
+            "bitwise_k1": True, "segs_equal_frac_plain": frac,
+            "flags_equal_plain": same_flags, "final_fwd_err_plain": ferr,
+            "pair_ms": pair_ms, "k1_ms": k1_ms, "fwd_ms": fwd_ms,
+            "tb_ms": tb_ms, "profiler_ms": dev_ms,
+            "plain_pair_ms": plain_pair_ms, "plain_fwd_ms": plain_fwd_ms,
+            "k1_peak_bytes": peak_bytes(lambda: k1(*args)),
+            "pair_peak_bytes": peak_bytes(lambda: k2(*args, **kw)),
+            "k1_move_bytes": B * L * bw,
+            "pair_scratch_bytes": B * (-(-L // Lc) * (bw * 4 + 4) +
+                                       Lc * bw),
+            "tb_bound_ms": tb_bound, "recompute_ops_bound_ms": recompute_ms}
+        print("chunked pair at the captured long shape: %s" % json.dumps(
+            long_shape))
+
+    # ---- phase 8: 4 mixed reads on the CPU, one of them routed chunked
+    with phase("mixed CPU cross-check"):
+        res0 = outs_m[0]
+        n_bases = [len(m.genome_seq) for m in mixed[0]]
+        long_i = [i for i in np.argsort(n_bases)
+                  if banded_dp.plan_dp_layout(
+                      batch_mod._pow2_bucket(n_bases[i], 256),
+                      params.bandwidth)[0] == "chunked"]
+        if not long_i:
+            fail("no read of the first mixed batch routes chunked")
+        pick = [i for i in range(len(n_bases)) if n_bases[i] < 3000][:3]
+        pick.append(int(long_i[0]))
+        rec_cpu = Recorder(k2, dp_key)
+        with patched([(banded_dp, "adaptive_banded_dp_tb_chunked",
+                       rec_cpu)]):
+            cpu_crosscheck("mixed CPU cross-check (bases %s)" % [
+                n_bases[i] for i in pick], model, params, sst,
+                [mixed[0][i] for i in pick], [res0[i] for i in pick])
+        if not rec_cpu.count:
+            fail("the mixed CPU cross-check ran no chunked DP")
+
+    # ---- the kernels line
+    m = k1_shapes[0]
+    entries.append({
+        "name": "banded_dp", "route": "cuda",
+        "source": "tombo_tpu_torch/csrc/banded_dp.cu",
+        "replaces": "tombo_tpu/ops/pallas_dp.py:1052",
+        "launches": launches_1kb["banded_dp"],
+        "launches_mixed": launches_m["banded_dp"],
+        "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": None, "shapes": k1_shapes})
+    ch_shape = {"B": B, "L": L, "bw": bw, "Lc": Lc}
+    entries.append({
+        "name": "banded_dp_chunked_fwd", "route": "cuda",
+        "source": "tombo_tpu_torch/csrc/banded_dp_chunked.cu",
+        "replaces": "tombo_tpu/ops/pallas_dp.py:798",
+        "launches": launches_m["banded_dp_chunked_fwd"],
+        "max_abs_err": ferr, "ms": fwd_ms,
+        "plain_ms": plain_fwd_ms, "bound_ms": k2_bound, "bound_by": k2_by,
+        "library_ms": None, "shape": ch_shape})
+    entries.append({
+        "name": "banded_dp_chunked_tb", "route": "cuda",
+        "source": "tombo_tpu_torch/csrc/banded_dp_chunked.cu",
+        "replaces": "tombo_tpu/ops/pallas_dp.py:842",
+        "launches": launches_m["banded_dp_chunked_tb"],
+        "max_abs_err": seg_err, "ms": tb_ms,
+        "plain_ms": plain_pair_ms - plain_fwd_ms, "bound_ms": tb_bound,
+        "bound_by": "bytes", "library_ms": None, "shape": ch_shape,
+        "recompute_ops_bound_ms": recompute_ms})
+    k5_entry["launches_mixed"] = launches_m["count_le"]
+    entries.append(k5_entry)
+    print("total wall %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ one.  On a machine with a card and nvcc, run them with
 (``--noconftest`` because the suite's conftest imports jax, which this
 file does not need).  Bars: the DP kernel's error flags are identical
 and its boundaries equal on at least 99.5% of positions, final_fwd
-within 1e-3 (float32 co-optimal ties, as in chip_smoke.py); the count
+within 1e-3 (float32 co-optimal ties, as in chip_smoke.py); the
+chunked pair (K2 + K2') is bitwise equal to the fused kernel (K1), whose
+row step it shares, and within K1's bars of its plain version; the count
 kernel is exact, and so the median slope is bitwise equal."""
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ import torch
 from tombo_tpu_torch import config, kernels, testing
 from tombo_tpu_torch.io.model_io import KmerModel
 from tombo_tpu_torch.ops import banded_dp, dp, rescale
+from tombo_tpu_torch.pipeline import batch as batch_mod
 from tombo_tpu_torch.pipeline import resquiggle as rsq
 from tombo_tpu_torch.pipeline.aligner import ExactAligner
 from tombo_tpu_torch.pipeline.batch import BatchedResquiggler
@@ -65,16 +68,47 @@ def test_banded_dp_kernel_matches_plain(card, bw, B, L, P, E):
     p = dp.DpParams(z_shift=2.0, skip_pen=4.2, stay_pen=4.2,
                     mask_fill_z_score=-15.0, max_half_z_score=20.0,
                     bandwidth=bw)
-    before = kernels.LAUNCHES["banded_dp"]
+    before = dict(kernels.LAUNCHES)
     k = banded_dp.adaptive_banded_dp_tb(*args, p, L, P, 10)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["banded_dp"] == before + 1
+    assert kernels.LAUNCHES == dict(before,
+                                    banded_dp=before["banded_dp"] + 1)
     q = banded_dp.adaptive_banded_dp_tb_plain(*args, p, L, P, 10)
+    _assert_dp_close(k, q, args[4], L)
+
+
+def _assert_dp_close(k, q, seq_lens, L):
+    """K1's bars against a plain version: identical flags, >= 99.5% of
+    boundaries equal, final_fwd within 1e-3."""
     assert torch.equal(k[1], q[1]) and torch.equal(k[2], q[2])
-    mask = (torch.arange(L + 1, device=card)[None, :] <=
-            args[4].clamp(max=L)[:, None])
+    mask = (torch.arange(L + 1, device=k[0].device)[None, :] <=
+            seq_lens.clamp(max=L)[:, None])
     assert float((k[0].long() == q[0].long())[mask].float().mean()) >= 0.995
     assert float((k[3] - q[3]).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("bw,L,Lc", [(32, 256, 64), (300, 2048, 512),
+                                     (1500, 1024, 256), (2500, 256, 128)])
+def test_chunked_kernels_equal_fused_kernel(card, bw, L, Lc):
+    B, P = 8, 64
+    args = [a.to(card) for a in _dp_case(bw + L, B, L, P, bw, 2 * L + bw)]
+    p = dp.DpParams(z_shift=2.0, skip_pen=4.2, stay_pen=4.2,
+                    mask_fill_z_score=-15.0, max_half_z_score=20.0,
+                    bandwidth=bw)
+    before = dict(kernels.LAUNCHES)
+    c = banded_dp.adaptive_banded_dp_tb_chunked(*args, p, L, P, 10,
+                                                chunk_rows=Lc)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == dict(
+        before, banded_dp_chunked_fwd=before["banded_dp_chunked_fwd"] + 1,
+        banded_dp_chunked_tb=before["banded_dp_chunked_tb"] + 1)
+    f = banded_dp.adaptive_banded_dp_tb(*args, p, L, P, 10)
+    torch.cuda.synchronize()
+    for a, b in zip(c, f):
+        assert torch.equal(a, b)
+    q = banded_dp.adaptive_banded_dp_tb_chunked_plain(*args, p, L, P, 10,
+                                                      chunk_rows=Lc)
+    _assert_dp_close(c, q, args[4], L)
 
 
 def test_start_dp_kernel_matches_start_band_dp(card):
@@ -104,7 +138,9 @@ def test_count_le_kernel_exact(card, M, P):
     piv = torch.randint(-2 ** 31, 2 ** 31 - 1, (6, P), generator=g,
                         dtype=torch.int32)
     piv[:, 0] = keys[:, 3]
+    before = dict(kernels.LAUNCHES)
     out = rescale.count_le(keys.to(card), piv.to(card))
+    assert kernels.LAUNCHES == dict(before, count_le=before["count_le"] + 1)
     assert torch.equal(out.cpu(), rescale.count_le_plain(keys, piv))
 
 
@@ -123,16 +159,18 @@ def test_median_slope_through_kernel_bitwise(card):
     assert torch.equal(k.view(torch.int32), q.view(torch.int32))
 
 
-def test_slice_on_card_matches_cpu(card):
-    rng = np.random.default_rng(7)
+def _card_vs_cpu(read_lens, seed):
+    """Simulated mapped reads of the given lengths through the port on
+    the card and on the CPU; returns the launches the card run made."""
+    rng = np.random.default_rng(seed)
     model = KmerModel.load_default("DNA")
-    fasta = testing.random_reference(np.random.default_rng(8), 30000)
+    fasta = testing.random_reference(np.random.default_rng(seed + 1), 30000)
     aligner = ExactAligner(fasta)
     sst = SeqSampleType("DNA", False)
     params = config.load_resquiggle_parameters("DNA")
     maps = []
-    for i in range(8):
-        read = testing.simulate_read(rng, fasta, model, read_len=650,
+    for i, n in enumerate(read_lens):
+        read = testing.simulate_read(rng, fasta, model, read_len=n,
                                      read_id="c_%03d" % i)
         mr = rsq.map_read(SequenceData(read.seq, read.read_id, 12.0),
                           aligner, model, sst)
@@ -140,8 +178,8 @@ def test_slice_on_card_matches_cpu(card):
         maps.append(rsq.adjust_map_res(mr, sst, params))
     before = dict(kernels.LAUNCHES)
     g_out = BatchedResquiggler(model, params, sst, config.OUTLIER_THRESH,
-                               device=card).resquiggle_batch(maps)
-    assert all(kernels.LAUNCHES[n] > before[n] for n in before)
+                               device="cuda").resquiggle_batch(maps)
+    launches = {n: kernels.LAUNCHES[n] - before[n] for n in before}
     c_out = BatchedResquiggler(model, params, sst, config.OUTLIER_THRESH,
                                device="cpu").resquiggle_batch(maps)
     for (g, ge), (c, ce) in zip(g_out, c_out):
@@ -155,3 +193,23 @@ def test_slice_on_card_matches_cpu(card):
         assert abs(g.scale_values.shift - c.scale_values.shift) / sc < 2e-3
         assert abs(g.scale_values.scale - sc) / sc < 2e-3
         assert abs(g.sig_match_score - c.sig_match_score) < 1e-2
+    return launches
+
+
+def test_slice_on_card_matches_cpu(card):
+    launches = _card_vs_cpu([650] * 8, 7)
+    assert launches["banded_dp"] > 0 and launches["count_le"] > 0
+    assert launches["banded_dp_chunked_fwd"] == 0
+    assert launches["banded_dp_chunked_tb"] == 0
+
+
+def test_mixed_lengths_on_card_match_cpu(card, monkeypatch):
+    """Six reads of 400 to 3,000 bases split into length groups; the
+    longest group's DP runs chunked (per-read cap lowered below its
+    moves) on the card and on the CPU."""
+    monkeypatch.setattr(batch_mod, "_MIN_GROUP", 2)
+    monkeypatch.setattr(banded_dp, "PER_READ_MOVE_CAP", 4096 * 300 - 1)
+    launches = _card_vs_cpu([400, 520, 1100, 1300, 2500, 3000], 41)
+    assert all(n > 0 for n in launches.values()), launches
+    assert launches["banded_dp_chunked_fwd"] == \
+        launches["banded_dp_chunked_tb"]

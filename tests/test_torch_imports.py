@@ -99,6 +99,23 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
         kernels.build()
 
 
+def test_header_edit_changes_library_hash(monkeypatch, tmp_path):
+    """A library is keyed on its source and every local header the
+    source includes, so editing a shared header rebuilds its users."""
+    import shutil
+    from tombo_tpu_torch import kernels
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    monkeypatch.setattr(kernels, "CSRC", str(csrc))
+    before = {n: kernels._lib_path(n) for n in kernels.SOURCES}
+    with open(csrc / "dp_row.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: kernels._lib_path(n) for n in kernels.SOURCES}
+    assert after["banded_dp"] != before["banded_dp"]
+    assert after["banded_dp_chunked"] != before["banded_dp_chunked"]
+    assert after["count_le"] == before["count_le"]
+
+
 def test_model_file_is_the_jax_package_copy():
     a = open(os.path.join(ROOT, "tombo_tpu", "models",
                           "tombo.DNA.model.npz"), "rb").read()

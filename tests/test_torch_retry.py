@@ -21,6 +21,7 @@ from tombo_tpu.pipeline.batch import BatchedResquiggler as JBatched
 from tombo_tpu.types import SeqSampleType as JSeqSampleType
 from tombo_tpu.types import SequenceData as JSequenceData
 from tombo_tpu_torch import convert
+from tombo_tpu_torch.ops import banded_dp as t_bdp
 from tombo_tpu_torch.pipeline.batch import BatchedResquiggler as TBatched
 
 from test_torch_batch import _assert_f32_close, _assert_f64_exact, _convert
@@ -103,3 +104,32 @@ def test_retries_match_jax(retry_inputs, monkeypatch, dtype):
     else:
         for j, t in zip(j_out, t_out):
             _assert_f32_close(*j, *t, same_start=True)
+
+
+def test_save_bandwidth_retry_chunked_matches_jax(retry_inputs, monkeypatch):
+    """The save-bandwidth batch through the row-chunked DP: with the
+    per-read cap below one read's moves at bw 1500 but above those of the
+    main and start bands, only the retry routes chunked, and the result
+    stays exact at float64."""
+    model, params, sst, maps = retry_inputs
+    j_out = JBatched(model, params, sst, j_config.OUTLIER_THRESH,
+                     dtype=jnp.float64).resquiggle_batch(maps)
+    t_params, t_maps = _convert(params, maps)
+    t_model = convert.kmer_model(model.means, model.sds, model.central_pos,
+                                 model.name, "DNA")
+    save_bw = j_config.load_resquiggle_parameters(
+        "DNA", use_save_bandwidth=True).bandwidth
+    monkeypatch.setattr(t_bdp, "PER_READ_MOVE_CAP", 1024 * save_bw - 1)
+    layouts = set()
+    plan = t_bdp.plan_dp_layout
+
+    def plan_rec(n_rows, bw):
+        layouts.add((bw, plan(n_rows, bw)[0]))
+        return plan(n_rows, bw)
+
+    monkeypatch.setattr(t_bdp, "plan_dp_layout", plan_rec)
+    t_out = TBatched(t_model, t_params, convert.seq_samp_type("DNA", False),
+                     j_config.OUTLIER_THRESH, dtype="float64",
+                     device="cpu").resquiggle_batch(t_maps)
+    assert layouts == {(params.bandwidth, "fused"), (save_bw, "chunked")}
+    assert _assert_f64_exact(j_out, t_out) == len(maps)

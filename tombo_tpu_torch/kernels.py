@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with nvcc into its own shared library
 with a plain C interface, loaded with ctypes.  The build happens at first
 use into ``build/tombo_tpu_torch/`` at the root of the checkout, keyed on
-a hash of the source and the flags, so a fresh checkout builds everything
+a hash of the source, the headers it includes and the flags, so an edit
+to a shared header rebuilds every source that includes it and a fresh
+checkout builds everything
 it needs from the repository's sources alone.  All sources compile at
 once, one nvcc process each.  A missing nvcc or a failed build raises:
 there is no fallback.
@@ -13,13 +15,17 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from typing import Dict, List
 
-SOURCES = ("banded_dp", "count_le")
+SOURCES = ("banded_dp", "banded_dp_chunked", "count_le")
+# the kernels, each launched by one wrapper: K1, K2, K2', K5
+KERNELS = ("banded_dp", "banded_dp_chunked_fwd", "banded_dp_chunked_tb",
+           "count_le")
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -36,9 +42,9 @@ _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
 BUILD_SECONDS: Dict[str, float] = {}
-# kernel launches so far, by source name: each wrapper adds one where it
-# launches its kernel (a CPU call runs the plain version and adds none)
-LAUNCHES: Dict[str, int] = {n: 0 for n in SOURCES}
+# kernel launches so far, by kernel: each wrapper adds one where it
+# launches a kernel (a CPU call runs the plain version and adds none)
+LAUNCHES: Dict[str, int] = {n: 0 for n in KERNELS}
 
 
 def count_launch(name: str) -> None:
@@ -55,9 +61,25 @@ def find_nvcc() -> str:
                        "are built from csrc/ at first use")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _source_bytes(path: str, seen: set) -> bytes:
+    """The file's bytes followed by those of every local header it
+    includes (``#include "..."``, recursively, each once)."""
+    if path in seen:
+        return b""
+    seen.add(path)
+    with open(path, "rb") as f:
+        src = f.read()
+    return src + b"".join(
+        _source_bytes(os.path.join(os.path.dirname(path), inc.decode()),
+                      seen) for inc in _INCLUDE.findall(src))
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    src = _source_bytes(os.path.join(CSRC, name + ".cu"), set())
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, h.hexdigest()[:16]))
 
 

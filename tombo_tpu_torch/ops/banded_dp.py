@@ -1,13 +1,18 @@
-"""Fused adaptive banded DP + traceback: the CUDA kernel's wrapper and its
-plain PyTorch version (counterpart of ``tombo_tpu/ops/pallas_dp.py``
-``adaptive_banded_dp_tb``).
+"""Adaptive banded DP + traceback: the CUDA kernels' wrappers, their plain
+PyTorch versions and the layout planner that picks one (counterpart of
+``tombo_tpu/ops/pallas_dp.py`` ``adaptive_banded_dp_tb``,
+``adaptive_banded_dp_tb_chunked`` and ``plan_dp_layout``).
 
-:func:`adaptive_banded_dp_tb` launches ``csrc/banded_dp.cu`` on a CUDA
-tensor and runs :func:`adaptive_banded_dp_tb_plain` (``ops/dp.py``'s row
-loops) on a CPU tensor.  Both take the same arguments and return
+:func:`adaptive_banded_dp_tb` launches the fused kernel
+``csrc/banded_dp.cu`` (K1) on a CUDA tensor and runs
+:func:`adaptive_banded_dp_tb_plain` (``ops/dp.py``'s row loops) on a CPU
+tensor.  :func:`adaptive_banded_dp_tb_chunked` launches the
+sequence-chunked pair ``csrc/banded_dp_chunked.cu`` (K2 forward, K2'
+traceback) or runs :func:`adaptive_banded_dp_tb_chunked_plain`.  All take
+the same arguments (the chunked ones also ``chunk_rows``) and return
 (segs (B, L+1) int32, band_error (B,) bool, bound_error (B,) bool,
-final_fwd (B, bw)).  Start discovery uses the same kernel with
-``starts = arange`` covering every row and no masking
+final_fwd (B, bw)), the same values from either layout.  Start discovery
+uses K1 with ``starts = arange`` covering every row and no masking
 (:func:`start_dp_segs`)."""
 from __future__ import annotations
 
@@ -20,6 +25,25 @@ from . import dp
 from .dp import DpParams, StartDpParams
 
 _INT32_MAX = 2 ** 31 - 1
+
+# K1 keeps each read's (L, bw) uint8 move codes in device memory.  Up to
+# this many bytes per read a group runs fused, above it chunked: a fused
+# launch then holds at most 8 MiB of moves per read (4 GiB for a 512-read
+# batch, 5% of the card), and the chunked pair, which runs each row step
+# twice, takes only the reads whose moves would otherwise grow without
+# bound (bw 300 above 16,384 rows, the save bandwidth 1500 above 4,096).
+PER_READ_MOVE_CAP = 8 * 2 ** 20
+# rows per chunk of the chunked pair: per-read scratch is one (Lc, bw)
+# move tile plus one bw-float checkpoint per Lc rows
+CHUNK_ROWS = 512
+
+
+def plan_dp_layout(n_rows: int, bandwidth: int):
+    """("fused",) while one read's ``n_rows x bandwidth`` move bytes stay
+    within :data:`PER_READ_MOVE_CAP`, else ("chunked", Lc)."""
+    if n_rows * bandwidth <= PER_READ_MOVE_CAP:
+        return ("fused",)
+    return ("chunked", min(n_rows, CHUNK_ROWS))
 
 
 def adaptive_banded_dp_tb_plain(event_means, n_events, ref_means, ref_sds,
@@ -38,34 +62,75 @@ def adaptive_banded_dp_tb_plain(event_means, n_events, ref_means, ref_sds,
     return segs.to(torch.int32), band_err, bound_err, final_fwd
 
 
-_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-              ctypes.c_int, ctypes.c_int, ctypes.c_int] +
-             [ctypes.c_float] * 5 + [ctypes.c_int] +
-             [ctypes.c_void_p] * 7)
+def adaptive_banded_dp_tb_chunked_plain(
+        event_means, n_events, ref_means, ref_sds, seq_lens, prefix_starts,
+        prefix_valid_start, prefix_end, start_rows, params: DpParams,
+        n_rows: int, prefix_rows: int, band_bound_thresh: int,
+        chunk_rows: int = CHUNK_ROWS):
+    """The chunked pair's plain version, split as the kernels split the
+    work: a forward pass that keeps one checkpoint (forward row, band
+    start) per ``chunk_rows`` rows, then the chunks last to first, each
+    recomputed from its checkpoint and walked back."""
+    bw = params.bandwidth
+    x = dp.dp_inputs(event_means, n_events, ref_means, ref_sds, seq_lens,
+                     prefix_starts, prefix_valid_start, prefix_end,
+                     start_rows, params, n_rows, prefix_rows)
+    state = dp.init_fwd_state(x, bw)
+    chunks = []
+    for r0 in range(0, n_rows, chunk_rows):
+        r1 = min(r0 + chunk_rows, n_rows)
+        chunks.append((r0, r1, state.fwd, state.prev_start))
+        state = dp.adaptive_dp_rows(x, state, r0, r1, params)[0]
+
+    init_event_pos = torch.argmax(state.final_fwd, 1) + state.last_start
+    event_pos = init_event_pos
+    bound_err = torch.zeros_like(state.band_error)
+    segs = torch.zeros((x.seq_lens.shape[0], n_rows), dtype=torch.long,
+                       device=event_means.device)
+    for r0, r1, fwd, start in reversed(chunks):
+        # only the rows come out of the recompute: its flags and final
+        # row are the forward pass's already
+        _, tb, band_starts = dp.adaptive_dp_rows(
+            x, dp.FwdState(fwd, start, state.band_error, fwd, start), r0, r1,
+            params)
+        segs[:, r0:r1], event_pos, bound_err = dp.traceback_rows(
+            tb, band_starts, x.seq_lens, r0, event_pos, bound_err,
+            band_bound_thresh, bw)
+    segs = dp.finish_segs(segs, x.seq_lens, init_event_pos, n_rows)
+    return (segs.to(torch.int32), state.band_error, bound_err,
+            state.final_fwd)
 
 
-def _kernel_fn():
-    fn = kernels.load("banded_dp").tombo_banded_dp
-    fn.argtypes = _ARGTYPES
+_IN_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int] +
+                [ctypes.c_float] * 5 + [ctypes.c_int])
+_ARGTYPES = {
+    "tombo_banded_dp": _IN_ARGTYPES + [ctypes.c_void_p] * 7,
+    "tombo_banded_dp_chunked_fwd": _IN_ARGTYPES + [ctypes.c_int] +
+    [ctypes.c_void_p] * 6,
+    "tombo_banded_dp_chunked_tb": _IN_ARGTYPES + [ctypes.c_int] +
+    [ctypes.c_void_p] * 8,
+}
+
+
+def _kernel_fn(source: str, symbol: str):
+    fn = getattr(kernels.load(source), symbol)
+    fn.argtypes = _ARGTYPES[symbol]
     fn.restype = ctypes.c_int
     return fn
 
 
-def adaptive_banded_dp_tb(event_means, n_events, ref_means, ref_sds,
-                          seq_lens, prefix_starts, prefix_valid_start,
-                          prefix_end, start_rows, params: DpParams,
-                          n_rows: int, prefix_rows: int,
-                          band_bound_thresh: int):
-    """Start-masked + adaptive banded DP and traceback for a read batch."""
+def _kernel_inputs(event_means, n_events, ref_means, ref_sds, seq_lens,
+                   prefix_starts, prefix_valid_start, prefix_end,
+                   start_rows, params: DpParams, n_rows: int,
+                   band_bound_thresh: int):
+    """Checks the inputs on a CUDA tensor and returns the leading C
+    arguments that every DP kernel takes, and the tensors behind their
+    pointers (which must stay alive until the launch)."""
     dev = event_means.device
-    if dev.type == "cpu":
-        return adaptive_banded_dp_tb_plain(
-            event_means, n_events, ref_means, ref_sds, seq_lens,
-            prefix_starts, prefix_valid_start, prefix_end, start_rows,
-            params, n_rows, prefix_rows, band_bound_thresh)
     if dev.type != "cuda":
         raise ValueError("banded DP: unsupported device %s" % dev)
     if event_means.dtype != torch.float32:
@@ -90,6 +155,37 @@ def adaptive_banded_dp_tb(event_means, n_events, ref_means, ref_sds,
     nev, sl, ps, pv, pe, sr = (i32(n_events), i32(seq_lens),
                                i32(prefix_starts), i32(prefix_valid_start),
                                i32(prefix_end), i32(start_rows))
+    p = kernels.ptr
+    args = (p(em), E, p(nev), p(rm), p(rs), rm.shape[1], p(sl), p(ps),
+            p(pv), p(pe), P, p(sr), B, L, bw, params.z_shift,
+            params.skip_pen, params.stay_pen, params.mask_fill_z_score,
+            params.max_half_z_score, int(band_bound_thresh))
+    return args, (em, rm, rs, nev, sl, ps, pv, pe, sr)
+
+
+def _check_launch(err: int, name: str):
+    if err != 0:
+        raise RuntimeError("%s kernel launch failed (error %d)" % (name,
+                                                                   err))
+    kernels.count_launch(name)
+
+
+def adaptive_banded_dp_tb(event_means, n_events, ref_means, ref_sds,
+                          seq_lens, prefix_starts, prefix_valid_start,
+                          prefix_end, start_rows, params: DpParams,
+                          n_rows: int, prefix_rows: int,
+                          band_bound_thresh: int):
+    """Start-masked + adaptive banded DP and traceback for a read batch,
+    fused (K1)."""
+    ins = (event_means, n_events, ref_means, ref_sds, seq_lens,
+           prefix_starts, prefix_valid_start, prefix_end, start_rows,
+           params, n_rows)
+    if event_means.device.type == "cpu":
+        return adaptive_banded_dp_tb_plain(*ins, prefix_rows,
+                                           band_bound_thresh)
+    args, _keep = _kernel_inputs(*ins, band_bound_thresh)
+    B, dev = event_means.shape[0], event_means.device
+    L, bw = int(n_rows), int(params.bandwidth)
     moves = torch.empty((B, L, bw), dtype=torch.uint8, device=dev)
     bstarts = torch.empty((B, L), dtype=torch.int32, device=dev)
     segs = torch.empty((B, L + 1), dtype=torch.int32, device=dev)
@@ -97,15 +193,52 @@ def adaptive_banded_dp_tb(event_means, n_events, ref_means, ref_sds,
     bound_err = torch.empty(B, dtype=torch.uint8, device=dev)
     ffwd = torch.empty((B, bw), dtype=torch.float32, device=dev)
     p = kernels.ptr
-    err = _kernel_fn()(
-        p(em), E, p(nev), p(rm), p(rs), rm.shape[1], p(sl), p(ps), p(pv),
-        p(pe), P, p(sr), B, L, bw, params.z_shift, params.skip_pen,
-        params.stay_pen, params.mask_fill_z_score, params.max_half_z_score,
-        int(band_bound_thresh), p(moves), p(bstarts), p(segs), p(band_err),
-        p(bound_err), p(ffwd), kernels.stream_handle(dev))
-    if err != 0:
-        raise RuntimeError("banded_dp kernel launch failed (error %d)" % err)
-    kernels.count_launch("banded_dp")
+    _check_launch(_kernel_fn("banded_dp", "tombo_banded_dp")(
+        *args, p(moves), p(bstarts), p(segs), p(band_err), p(bound_err),
+        p(ffwd), kernels.stream_handle(dev)), "banded_dp")
+    return segs, band_err.bool(), bound_err.bool(), ffwd
+
+
+def adaptive_banded_dp_tb_chunked(event_means, n_events, ref_means, ref_sds,
+                                  seq_lens, prefix_starts,
+                                  prefix_valid_start, prefix_end, start_rows,
+                                  params: DpParams, n_rows: int,
+                                  prefix_rows: int, band_bound_thresh: int,
+                                  chunk_rows: int = CHUNK_ROWS):
+    """The same DP and traceback, chunked along the rows (K2 forward, then
+    K2' traceback): device scratch per read is one (chunk_rows, bw) move
+    tile plus one forward-row checkpoint per chunk, whatever the read's
+    length."""
+    ins = (event_means, n_events, ref_means, ref_sds, seq_lens,
+           prefix_starts, prefix_valid_start, prefix_end, start_rows,
+           params, n_rows)
+    if event_means.device.type == "cpu":
+        return adaptive_banded_dp_tb_chunked_plain(
+            *ins, prefix_rows, band_bound_thresh, chunk_rows)
+    if chunk_rows < 1:
+        raise ValueError("chunk_rows must be positive")
+    args, _keep = _kernel_inputs(*ins, band_bound_thresh)
+    B, dev = event_means.shape[0], event_means.device
+    L, bw = int(n_rows), int(params.bandwidth)
+    Lc = min(int(chunk_rows), L)
+    n_chunks = -(-L // Lc)
+    ckpt = torch.empty((B, n_chunks, bw), dtype=torch.float32, device=dev)
+    ckpt_start = torch.empty((B, n_chunks), dtype=torch.int32, device=dev)
+    band_err = torch.empty(B, dtype=torch.uint8, device=dev)
+    ffwd = torch.empty((B, bw), dtype=torch.float32, device=dev)
+    last_bs = torch.empty(B, dtype=torch.int32, device=dev)
+    p, stream = kernels.ptr, kernels.stream_handle(dev)
+    _check_launch(_kernel_fn("banded_dp_chunked",
+                             "tombo_banded_dp_chunked_fwd")(
+        *args, Lc, p(ckpt), p(ckpt_start), p(band_err), p(ffwd),
+        p(last_bs), stream), "banded_dp_chunked_fwd")
+    tile = torch.empty((B, Lc, bw), dtype=torch.uint8, device=dev)
+    segs = torch.empty((B, L + 1), dtype=torch.int32, device=dev)
+    bound_err = torch.empty(B, dtype=torch.uint8, device=dev)
+    _check_launch(_kernel_fn("banded_dp_chunked",
+                             "tombo_banded_dp_chunked_tb")(
+        *args, Lc, p(ckpt), p(ckpt_start), p(ffwd), p(last_bs), p(tile),
+        p(segs), p(bound_err), stream), "banded_dp_chunked_tb")
     return segs, band_err.bool(), bound_err.bool(), ffwd
 
 

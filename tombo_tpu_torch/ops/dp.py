@@ -97,26 +97,41 @@ def _shifted_z(window, mu, sd, p: DpParams):
     return p.z_shift - z
 
 
-def adaptive_banded_dp(event_means, n_events, ref_means, ref_sds, seq_lens,
-                       prefix_starts, prefix_valid_start, prefix_end,
-                       start_rows, params: DpParams, n_rows: int,
-                       prefix_rows: int):
-    """Start-masked prefix + adaptive banded forward pass for a batch.
+class DpInputs(NamedTuple):
+    """Per-batch inputs of the adaptive DP in the form its rows read
+    them (built once by :func:`dp_inputs`)."""
+    em_shift: torch.Tensor          # (B, bw + E + bw) zero-padded
+    n_events: torch.Tensor          # (B,) long
+    ref_means: torch.Tensor         # (B, >= L)
+    ref_sds: torch.Tensor
+    seq_lens: torch.Tensor          # (B,) long
+    prefix_starts: torch.Tensor     # (B, P) long
+    start_rows: torch.Tensor        # (B,) long
+    prefix_z: torch.Tensor          # (B, min(P, L), bw) masked prefix z
+    prefix_rows: int
 
-    Rows ``r < start_rows`` use the precomputed prefix band plan (events
-    outside ``[prefix_valid_start, prefix_end[r])`` masked); later rows
-    place the band adaptively.  Returns (tb (L, B, bw) int8, band_starts
-    (L, B), final_fwd (B, bw), band_error (B,) bool)."""
+
+class FwdState(NamedTuple):
+    """The forward pass's state carried from one row to the next."""
+    fwd: torch.Tensor               # (B, bw) forward row
+    prev_start: torch.Tensor        # (B,) long band start of that row
+    band_error: torch.Tensor        # (B,) bool
+    final_fwd: torch.Tensor         # (B, bw) row seq_len - 1
+    last_start: torch.Tensor        # (B,) long band start of that row
+
+
+def dp_inputs(event_means, n_events, ref_means, ref_sds, seq_lens,
+              prefix_starts, prefix_valid_start, prefix_end, start_rows,
+              params: DpParams, n_rows: int, prefix_rows: int) -> DpInputs:
+    """The batch's inputs in the form the rows read them: event means
+    zero-padded by bw on both sides and the masked prefix z-scores."""
     bw = params.bandwidth
     B = event_means.shape[0]
     dev, dtype = event_means.device, event_means.dtype
-    half_bw = bw // 2
     n_events = n_events.long()
-    seq_lens = seq_lens.long()
     prefix_starts = prefix_starts.long()
     prefix_valid_start = prefix_valid_start.long()
     prefix_end = prefix_end.long().clamp(0, 2 ** 31 - 1)
-    start_rows = start_rows.long()
     iota = torch.arange(bw, device=dev)
 
     zpad = torch.zeros((B, bw), dtype=dtype, device=dev)
@@ -132,27 +147,51 @@ def adaptive_banded_dp(event_means, n_events, ref_means, ref_sds, seq_lens,
     pz = _shifted_z(_windows(em_shift, ps, bw), ref_means[:, :Pz, None],
                     ref_sds[:, :Pz, None], params)
     prefix_z = torch.where(pvalid, pz, params.mask_fill_z_score)
+    return DpInputs(em_shift, n_events, ref_means, ref_sds,
+                    seq_lens.long(), prefix_starts, start_rows.long(),
+                    prefix_z, prefix_rows)
 
-    fwd = torch.zeros((B, bw), dtype=dtype, device=dev)
-    prev_start = prefix_starts[:, 0]
-    final_fwd = torch.zeros((B, bw), dtype=dtype, device=dev)
-    band_error = torch.zeros(B, dtype=torch.bool, device=dev)
-    tb = torch.zeros((n_rows, B, bw), dtype=torch.int8, device=dev)
-    band_starts = torch.zeros((n_rows, B), dtype=torch.long, device=dev)
 
-    for r in range(n_rows):
-        is_prefix = r < start_rows
+def init_fwd_state(x: DpInputs, bw: int) -> FwdState:
+    """The state before row 0."""
+    B, dev, dtype = x.em_shift.shape[0], x.em_shift.device, x.em_shift.dtype
+    zeros = torch.zeros((B, bw), dtype=dtype, device=dev)
+    return FwdState(zeros, x.prefix_starts[:, 0],
+                    torch.zeros(B, dtype=torch.bool, device=dev), zeros,
+                    x.prefix_starts[:, 0])
+
+
+def adaptive_dp_rows(x: DpInputs, state: FwdState, r0: int, r1: int,
+                     params: DpParams):
+    """Rows ``[r0, r1)`` of the forward pass from ``state``, the state
+    before row ``r0``.  Rows ``r < start_rows`` use the precomputed prefix
+    band plan; later rows place the band adaptively.  Returns (the state
+    after row ``r1 - 1``, moves (r1 - r0, B, bw) int8, band starts
+    (r1 - r0, B))."""
+    bw = params.bandwidth
+    half_bw = bw // 2
+    fwd, prev_start, band_error, final_fwd, last_start = state
+    B, dev = fwd.shape[0], fwd.device
+    n_events, seq_lens = x.n_events, x.seq_lens
+    iota = torch.arange(bw, device=dev)
+    Pz = x.prefix_z.shape[1]
+    tb = torch.zeros((r1 - r0, B, bw), dtype=torch.int8, device=dev)
+    band_starts = torch.zeros((r1 - r0, B), dtype=torch.long, device=dev)
+
+    for r in range(r0, r1):
+        is_prefix = r < x.start_rows
         active = r < seq_lens
 
         amax = torch.argmax(fwd, 1)
         adapt_start = torch.maximum(prev_start + amax - half_bw + 1,
                                     prev_start)
         overrun = adapt_start >= n_events
-        band_error |= overrun & (r < seq_lens - 2) & active & ~is_prefix
+        band_error = band_error | (overrun & (r < seq_lens - 2) & active &
+                                   ~is_prefix)
         adapt_start = torch.minimum(adapt_start, n_events - 1)
 
-        pref_idx = min(r, prefix_rows - 1)
-        band_start = torch.where(is_prefix, prefix_starts[:, pref_idx],
+        pref_idx = min(r, x.prefix_rows - 1)
+        band_start = torch.where(is_prefix, x.prefix_starts[:, pref_idx],
                                  adapt_start)
         band_start = torch.where(active, band_start, prev_start)
 
@@ -160,11 +199,12 @@ def adaptive_banded_dp(event_means, n_events, ref_means, ref_sds, seq_lens,
                        (band_start[:, None] + iota < n_events[:, None]))
         adapt_z = torch.where(
             adapt_valid,
-            _shifted_z(_windows(em_shift, band_start, bw),
-                       ref_means[:, r, None], ref_sds[:, r, None], params),
+            _shifted_z(_windows(x.em_shift, band_start, bw),
+                       x.ref_means[:, r, None], x.ref_sds[:, r, None],
+                       params),
             params.mask_fill_z_score)
         z_row = torch.where(is_prefix[:, None],
-                            prefix_z[:, min(r, Pz - 1)], adapt_z)
+                            x.prefix_z[:, min(r, Pz - 1)], adapt_z)
 
         diff = band_start - prev_start
         same = diff == 0
@@ -176,11 +216,55 @@ def adaptive_banded_dp(event_means, n_events, ref_means, ref_sds, seq_lens,
         new_fwd, moves = _row_update(fwd, z_row, first_val, first_move,
                                      diff, params)
         fwd = torch.where(active[:, None], new_fwd, fwd)
-        tb[r] = torch.where(active[:, None], moves, 0)
-        final_fwd = torch.where((r == seq_lens - 1)[:, None], fwd, final_fwd)
-        band_starts[r] = band_start
+        tb[r - r0] = torch.where(active[:, None], moves, 0)
+        is_last = r == seq_lens - 1
+        final_fwd = torch.where(is_last[:, None], fwd, final_fwd)
+        last_start = torch.where(is_last, band_start, last_start)
+        band_starts[r - r0] = band_start
         prev_start = band_start
-    return tb, band_starts, final_fwd, band_error
+    return (FwdState(fwd, prev_start, band_error, final_fwd, last_start),
+            tb, band_starts)
+
+
+def adaptive_banded_dp(event_means, n_events, ref_means, ref_sds, seq_lens,
+                       prefix_starts, prefix_valid_start, prefix_end,
+                       start_rows, params: DpParams, n_rows: int,
+                       prefix_rows: int):
+    """Start-masked prefix + adaptive banded forward pass for a batch, all
+    rows at once.  Returns (tb (L, B, bw) int8, band_starts (L, B),
+    final_fwd (B, bw), band_error (B,) bool)."""
+    x = dp_inputs(event_means, n_events, ref_means, ref_sds, seq_lens,
+                  prefix_starts, prefix_valid_start, prefix_end, start_rows,
+                  params, n_rows, prefix_rows)
+    state, tb, band_starts = adaptive_dp_rows(
+        x, init_fwd_state(x, params.bandwidth), 0, n_rows, params)
+    return tb, band_starts, state.final_fwd, state.band_error
+
+
+def traceback_rows(tb, band_starts, seq_lens, r0: int, event_pos,
+                   bound_err, band_bound_thresh: int, bandwidth: int):
+    """Walk rows ``[r0, r0 + len(tb))`` back, last row first, from the
+    event position and bound-error flag carried in from the row above
+    (reference: pyx:281-310).  ``tb`` (n, B, bw) and ``band_starts``
+    (n, B) hold those rows.  Returns (segs (B, n): event boundary + 1 of
+    each active row, else 0; event_pos; bound_err)."""
+    n, B, bw = tb.shape
+    iota = torch.arange(bw, device=tb.device)[None, :]
+    segs = torch.zeros((B, n), dtype=torch.long, device=tb.device)
+    for i in range(n - 1, -1, -1):
+        active = r0 + i < seq_lens
+        bs_row = band_starts[i]
+        band_pos = (event_pos - bs_row).clamp(0, bw - 1)
+        # last non-stay position <= band_pos
+        nsp = torch.cummax(torch.where(tb[i] != 0, iota, -1), 1).values
+        band_pos = nsp.gather(1, band_pos[:, None])[:, 0].clamp(0, bw - 1)
+        move = tb[i].gather(1, band_pos[:, None])[:, 0]
+        band_pos = torch.where(move == 2, band_pos - 1, band_pos)
+        bound_err = bound_err | (active & (
+            torch.minimum(band_pos, bw - band_pos - 1) < band_bound_thresh))
+        event_pos = torch.where(active, bs_row + band_pos, event_pos)
+        segs[:, i] = torch.where(active, event_pos + 1, 0)
+    return segs, event_pos, bound_err
 
 
 def banded_traceback(tb, band_starts, seq_lens, top_band_pos,
@@ -189,30 +273,25 @@ def banded_traceback(tb, band_starts, seq_lens, top_band_pos,
     """Walk the moves back from ``top_band_pos`` on each read's last row
     (reference: pyx:281-310).  Returns (segs (B, L+1), bound_error (B,)):
     entry i is the event boundary of base i for i <= seq_len, else 0."""
-    L, B, bw = tb.shape
-    dev = tb.device
+    L, B, _ = tb.shape
     seq_lens = seq_lens.long()
-    iota = torch.arange(bw, device=dev)[None, :]
     last_start = band_starts.gather(0, (seq_lens - 1)[None, :])[0]
     init_event_pos = top_band_pos.long() + last_start
-    event_pos = init_event_pos
-    bound_err = torch.zeros(B, dtype=torch.bool, device=dev)
-    segs = torch.zeros((B, L + 1), dtype=torch.long, device=dev)
-    for r in range(n_rows - 1, -1, -1):
-        active = r < seq_lens
-        bs_row = band_starts[r]
-        band_pos = (event_pos - bs_row).clamp(0, bw - 1)
-        # last non-stay position <= band_pos
-        nsp = torch.cummax(torch.where(tb[r] != 0, iota, -1), 1).values
-        band_pos = nsp.gather(1, band_pos[:, None])[:, 0].clamp(0, bw - 1)
-        move = tb[r].gather(1, band_pos[:, None])[:, 0]
-        band_pos = torch.where(move == 2, band_pos - 1, band_pos)
-        bound_err |= active & (torch.minimum(band_pos, bw - band_pos - 1) <
-                               band_bound_thresh)
-        event_pos = torch.where(active, bs_row + band_pos, event_pos)
-        segs[:, r] = torch.where(active, event_pos + 1, 0)
-    segs.scatter_(1, seq_lens[:, None], (init_event_pos + 1)[:, None])
-    return segs, bound_err
+    segs, _, bound_err = traceback_rows(
+        tb[:n_rows], band_starts[:n_rows], seq_lens, 0, init_event_pos,
+        torch.zeros(B, dtype=torch.bool, device=tb.device),
+        band_bound_thresh, bandwidth)
+    return finish_segs(segs, seq_lens, init_event_pos, L), bound_err
+
+
+def finish_segs(segs_rows, seq_lens, init_event_pos, n_rows: int):
+    """(B, <= L) row boundaries -> (B, L+1), zero past the rows given,
+    with entry ``seq_len`` set to the top row's event position + 1
+    (reference: pyx:290-293)."""
+    segs = torch.nn.functional.pad(
+        segs_rows, (0, n_rows + 1 - segs_rows.shape[1]))
+    segs.scatter_(1, seq_lens.long()[:, None], (init_event_pos + 1)[:, None])
+    return segs
 
 
 def start_band_dp(event_means, ref_means, ref_sds, params: StartDpParams):

@@ -7,8 +7,9 @@ JAX package's stage order:
   A. normalize + changepoint scores + greedy selection + event means
      + start-discovery DP (banded DP kernel) + validity score  [device]
   B. start retry with the save start band / static-band routing   [host]
-  C. masked-start + adaptive banded DP + traceback (banded DP kernel)
-     + traceback trim and raw coordinates                        [device]
+  C. masked-start + adaptive banded DP + traceback (fused DP kernel, or
+     the row-chunked pair for long reads) + traceback trim and raw
+     coordinates                                                 [device]
   D. deletion-fix window planning [host], raw-signal deletion fix +
      exact Theil-Sen fit (count kernel) + score                  [device]
   -> up to 3 scaling iterations on reads whose scale changed; failed
@@ -16,9 +17,11 @@ JAX package's stage order:
 
 Host-lane reads (short reads routed to the static band, deletion windows
 beyond the device caps) finish in numpy.  The PyTorch-side parts are plain
-tensor code; the two kernels are ``ops/banded_dp.py`` and
-``ops/rescale.py``'s ``count_le``.  On a CPU device every kernel wrapper
-runs its plain version.
+tensor code; the kernels are ``ops/banded_dp.py``'s (fused and chunked DP)
+and ``ops/rescale.py``'s ``count_le``.  On a CPU device every kernel
+wrapper runs its plain version.  A batch splits into signal-length groups
+(``_length_groups``); each group's adaptive DP is one launch of the fused
+kernel, or one of each chunked kernel.
 
 Not ported in this slice: RNA, multi-GPU meshes and constant-scale
 normalization raise ``NotImplementedError``.  The float64 parity mode
@@ -652,16 +655,8 @@ class BatchedResquiggler:
                 s.use_static = True
                 continue
             live.append(s)
-        if not live:
-            return
-        # bound the (B, L, bw) move scratch by slicing very-long-read
-        # batches
-        L_all = _pow2_bucket(max(s.ref_means.shape[0] for s in live), 256)
-        max_b = max(8, int(1.5e9 // (L_all * p.bandwidth)))
-        if len(live) > max_b:
-            live.sort(key=lambda s: s.ref_means.shape[0])
-        for i in range(0, len(live), max_b):
-            self._adaptive_device_call(live[i:i + max_b], ctx)
+        if live:
+            self._adaptive_device_call(live, ctx)
 
     def _adaptive_device_call(self, live: List[_ReadState], ctx):
         p = self.params
@@ -681,10 +676,19 @@ class BatchedResquiggler:
             mask_fill_z_score=MASK_FILL_Z_SCORE,
             max_half_z_score=p.max_half_z_score or -1.0, bandwidth=bw)
         rm_j, rs_j = self._levels(live, L_max)
-        segs_j, band_err, bound_err, _ = banded_dp.adaptive_banded_dp_tb(
-            em_j, n_events, rm_j, rs_j, seq_lens, self._t(pstarts),
-            self._t(pvalid), self._t(pend), self._t(start_rows), dpp, L_max,
-            P_max, p.band_bound_thresh)
+        dp_args = (em_j, n_events, rm_j, rs_j, seq_lens, self._t(pstarts),
+                   self._t(pvalid), self._t(pend), self._t(start_rows), dpp,
+                   L_max, P_max, p.band_bound_thresh)
+        # fused while one read's (L, bw) move codes stay small, else
+        # chunked along the rows (long reads, the save-bandwidth retry)
+        layout = banded_dp.plan_dp_layout(L_max, bw)
+        if layout[0] == "fused":
+            segs_j, band_err, bound_err, _ = \
+                banded_dp.adaptive_banded_dp_tb(*dp_args)
+        else:
+            segs_j, band_err, bound_err, _ = \
+                banded_dp.adaptive_banded_dp_tb_chunked(
+                    *dp_args, chunk_rows=layout[1])
         seq_segs_j, rsrtr_j, has_del_j = _stage_finalize(
             ctx["cpts"], rows, clips, segs_j, seq_lens, n_events, L_max)
         band_err, bound_err, seq_segs, rsrtr, has_del = self._np(
