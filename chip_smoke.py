@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and nvcc (CUDA_HOME, default /usr/local/cuda).  It
-builds the port's kernels from tombo_tpu_torch/csrc/ and drives two paths
+builds the port's kernels from tombo_tpu_torch/csrc/ and drives three paths
 of batched DNA re-squiggle through ``BatchedResquiggler.resquiggle_batches``
 at the default DNA configuration (bandwidth 300, start band 750/2500,
 save bandwidth 1500, 3 scaling iterations):
@@ -11,14 +11,19 @@ save bandwidth 1500, 3 scaling iterations):
   1 kb path     3 x 512 simulated 1000-base reads (fused DP only);
   mixed path    2 x 512 reads of log-normal lengths, 600 to 30,000 bases
                 (bench.py's mixed recipe): length groups, long groups on
-                the row-chunked DP pair.
+                the row-chunked DP pair;
+  mesh lane     ``BatchedResquiggler(mesh=...)`` over every visible card
+                (two shards on one card when there is one), on one batch
+                of each path: every group's adaptive DP through the
+                read-sharded launcher (K3).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after, and fails if a kernel of that path was not launched (or,
 on the 1 kb path, if a chunked kernel was).  Every kernel is then held
 against its plain PyTorch version on inputs captured from the paths, the
-chunked pair also against the fused kernel bit for bit; some reads of
-each path run again on the CPU for comparison.  It prints per-phase wall
+chunked pair also against the fused kernel bit for bit, K3 against both;
+some reads of each path run again on the CPU for comparison, and the mesh
+lane's reads against the 1-device lane's.  It prints per-phase wall
 times, a per-layer breakdown of one batch of each path, one JSON line of
 kernel summaries and a final status line.  Any failed phase exits
 non-zero without the status line.
@@ -745,6 +750,92 @@ def main():
         if not rec_cpu.count:
             fail("the mixed CPU cross-check ran no chunked DP")
 
+    # ---- phase 9: the read-sharded lane (K3) over the cards' mesh
+    with phase("mesh lane"):
+        from tombo_tpu_torch.parallel import mesh as pmesh
+        cards = pmesh.make_mesh()
+        mesh = cards if len(cards) > 1 else cards * 2
+        idx = sorted({d.index for d in mesh})
+        print("mesh: %d shards over %d cards (%s)" % (
+            len(mesh), len(idx), ", ".join(
+                torch.cuda.get_device_name(i) for i in idx)))
+        if len(idx) == 1:
+            print("  shards share one card: this shows the sharded lane "
+                  "exact, not multi-card speed")
+        k3 = banded_dp.adaptive_banded_dp_tb_sharded
+        k3_shapes = []
+        for label, a, layout, unsharded in (
+                ("1 kb main shape", main_args, ("fused",), k1),
+                ("captured long shape", args, ("chunked", Lc),
+                 lambda *x: k2(*x, chunk_rows=Lc))):
+            call = lambda: k3(mesh, a[:9], a[9], a[10], a[11], a[12],
+                              layout)
+            before = dict(kernels.LAUNCHES)
+            so = call()
+            torch.cuda.synchronize()
+            per_call = {n: kernels.LAUNCHES[n] - before[n]
+                        for n in kernels.LAUNCHES
+                        if kernels.LAUNCHES[n] != before[n]}
+            n_shards = sum(1 for n in pmesh.shard_sizes(a[0].shape[0], mesh)
+                           if n)
+            want = ("banded_dp",) if layout[0] == "fused" else CHUNKED
+            if per_call != {n: n_shards for n in want +
+                            ("banded_dp_sharded",)}:
+                fail("K3 %s: launches %s for %d shards" % (label, per_call,
+                                                          n_shards))
+            ko, co = k1(*a), k2(*a, chunk_rows=Lc)
+            assert_bitwise("K3 vs K1, " + label, so, ko)
+            assert_bitwise("K3 vs K2/K2', " + label, so, co)
+            shape = {"label": label, "B": a[0].shape[0], "L": a[10],
+                     "bw": a[9].bandwidth, "layout": list(layout),
+                     "shards": len(mesh), "launches_per_call": per_call,
+                     "bitwise_k1": True, "bitwise_pair": True,
+                     "max_abs_err": float((so[3] - ko[3]).abs().max()),
+                     "ms": cuda_ms(call, 10),
+                     "unsharded_ms": cuda_ms(lambda: unsharded(*a), 10)}
+            print("K3 %s: %s" % (label, json.dumps(shape)))
+            k3_shapes.append(shape)
+        # K3's plain version: the plain DP shard by shard, 1 kb shape
+        k3_plain_ms = cuda_ms(lambda: [
+            pdp(*sh, *main_args[9:]) for sh in
+            pmesh.shard_batch(mesh, *main_args[:9])], 1, warm=False)
+        k3_bound, k3_by = k1_bound_ms(main_args, main_args[9].bandwidth)
+
+        diffs = pmesh.production_lane_dryrun(mesh, n_reads=4 * len(mesh))
+        print("production_lane_dryrun over %d shards: %d reads differ "
+              "from the 1-device lane %s" % (len(mesh), len(diffs), diffs))
+
+        brm = BatchedResquiggler(model, params, sst, config.OUTLIER_THRESH,
+                                 mesh=mesh)
+        mesh_batches = [("1 kb", batches[0], outs[0]),
+                        ("mixed", mixed[0], outs_m[0])]
+        outs_k3, _, launches_k3 = run_path(
+            "mesh lane (1 kb + mixed batch)", brm,
+            [b for _, b, _ in mesh_batches], [])
+        for name, n in launches_k3.items():
+            if n <= 0:
+                fail("kernel %s was not launched on the mesh lane" % name)
+        for (label, batch, one_out), mesh_out in zip(mesh_batches, outs_k3):
+            diffs = pmesh.lane_differences(mesh_out, one_out, exact=False)
+            print("mesh lane %s batch: %d of %d reads differ from the "
+                  "1-device lane, all inside the card-vs-CPU tolerances%s"
+                  % (label, len(diffs), len(batch),
+                     (": %s" % json.dumps(diffs)) if diffs else ""))
+            # the two lanes in turns: 1-device, mesh, mesh, 1-device
+            one = BatchedResquiggler(model, params, sst,
+                                     config.OUTLIER_THRESH, device=DEVICE)
+            walls = {"1-device": [], "mesh": []}
+            for lane in ("1-device", "mesh", "mesh", "1-device"):
+                t0 = time.perf_counter()
+                (one if lane == "1-device" else brm).resquiggle_batch(batch)
+                torch.cuda.synchronize()
+                walls[lane].append(time.perf_counter() - t0)
+            n_ok = sum(1 for r, _ in mesh_out if r is not None)
+            print("mesh lane %s batch: %s" % (label, json.dumps({
+                "reads_ok": n_ok, "wall_s": walls,
+                "reads_per_s": {k: n_ok / statistics.mean(v)
+                                for k, v in walls.items()}})))
+
     # ---- the kernels line
     m = k1_shapes[0]
     entries.append({
@@ -776,6 +867,19 @@ def main():
         "recompute_ops_bound_ms": recompute_ms})
     k5_entry["launches_mixed"] = launches_m["count_le"]
     entries.append(k5_entry)
+    k3m = k3_shapes[0]
+    entries.append({
+        "name": "banded_dp_sharded", "route": "cuda",
+        "source": "tombo_tpu_torch/ops/banded_dp.py",
+        "kernel_sources": ["tombo_tpu_torch/csrc/banded_dp.cu",
+                           "tombo_tpu_torch/csrc/banded_dp_chunked.cu"],
+        "replaces": "tombo_tpu/ops/pallas_dp.py:957",
+        "launches": launches_k3["banded_dp_sharded"],
+        "max_abs_err": max(x["max_abs_err"] for x in k3_shapes),
+        "ms": k3m["ms"], "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+        "bound_by": k3_by, "library_ms": None, "shards": len(mesh),
+        "cards": len(idx), "unsharded_ms": k3m["unsharded_ms"],
+        "shapes": k3_shapes})
     print("total wall %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": entries}))
     print(smi)

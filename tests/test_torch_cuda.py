@@ -12,7 +12,9 @@ and its boundaries equal on at least 99.5% of positions, final_fwd
 within 1e-3 (float32 co-optimal ties, as in chip_smoke.py); the
 chunked pair (K2 + K2') is bitwise equal to the fused kernel (K1), whose
 row step it shares, and within K1's bars of its plain version; the count
-kernel is exact, and so the median slope is bitwise equal."""
+kernel is exact, and so the median slope is bitwise equal.  The sharded
+launcher (K3) over shards on one card is bitwise K1 and the chunked pair,
+with one launch per non-empty shard."""
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,7 @@ import torch
 from tombo_tpu_torch import config, kernels, testing
 from tombo_tpu_torch.io.model_io import KmerModel
 from tombo_tpu_torch.ops import banded_dp, dp, rescale
+from tombo_tpu_torch.parallel import mesh as pmesh
 from tombo_tpu_torch.pipeline import batch as batch_mod
 from tombo_tpu_torch.pipeline import resquiggle as rsq
 from tombo_tpu_torch.pipeline.aligner import ExactAligner
@@ -109,6 +112,86 @@ def test_chunked_kernels_equal_fused_kernel(card, bw, L, Lc):
     q = banded_dp.adaptive_banded_dp_tb_chunked_plain(*args, p, L, P, 10,
                                                       chunk_rows=Lc)
     _assert_dp_close(c, q, args[4], L)
+
+
+@pytest.mark.parametrize("bw,L,Lc", [(32, 256, 64), (300, 2048, 512),
+                                     (1500, 1024, 256), (2500, 256, 128)])
+def test_sharded_dp_equals_k1_and_pair(card, bw, L, Lc):
+    """K3 over two shards on one card, in both layouts, bitwise the
+    unsharded K1 and K2/K2' on the same inputs."""
+    B, P = 8, 64
+    args = [a.to(card) for a in _dp_case(bw + L, B, L, P, bw, 2 * L + bw)]
+    p = dp.DpParams(z_shift=2.0, skip_pen=4.2, stay_pen=4.2,
+                    mask_fill_z_score=-15.0, max_half_z_score=20.0,
+                    bandwidth=bw)
+    fused = banded_dp.adaptive_banded_dp_tb(*args, p, L, P, 10)
+    pair = banded_dp.adaptive_banded_dp_tb_chunked(*args, p, L, P, 10,
+                                                   chunk_rows=Lc)
+    mesh = pmesh.make_mesh(["cuda", "cuda"])
+    for layout, names in ((("fused",), ("banded_dp",)),
+                          (("chunked", Lc), ("banded_dp_chunked_fwd",
+                                             "banded_dp_chunked_tb"))):
+        before = dict(kernels.LAUNCHES)
+        out = banded_dp.adaptive_banded_dp_tb_sharded(mesh, args, p, L, P,
+                                                      10, layout)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES == dict(
+            before, **{n: before[n] + 2
+                       for n in names + ("banded_dp_sharded",)})
+        for a, f, c in zip(out, fused, pair):
+            assert a.device == mesh[0]
+            assert torch.equal(a, f) and torch.equal(a, c)
+
+
+def test_sharded_dp_empty_shard_launches_nothing(card):
+    """3 reads over 4 shards on one card: 3 launches, bitwise K1."""
+    L, P, bw = 256, 64, 300
+    args = [a.to(card) for a in _dp_case(5, 3, L, P, bw, 1024)]
+    p = dp.DpParams(z_shift=2.0, skip_pen=4.2, stay_pen=4.2,
+                    mask_fill_z_score=-15.0, max_half_z_score=20.0,
+                    bandwidth=bw)
+    fused = banded_dp.adaptive_banded_dp_tb(*args, p, L, P, 10)
+    before = dict(kernels.LAUNCHES)
+    out = banded_dp.adaptive_banded_dp_tb_sharded(
+        pmesh.make_mesh(["cuda"] * 4), args, p, L, P, 10, ("fused",))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == dict(
+        before, banded_dp=before["banded_dp"] + 3,
+        banded_dp_sharded=before["banded_dp_sharded"] + 3)
+    for a, f in zip(out, fused):
+        assert torch.equal(a, f)
+
+
+def test_sharded_dp_shards_on_their_own_cards(card, monkeypatch):
+    """Over cuda:0 and cuda:1, called with cuda:0 current: each shard's
+    outputs lie on its own card before the gather, and the launch on
+    cuda:1 computes what K1 computes there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    L, P, bw = 256, 64, 300
+    args = _dp_case(9, 6, L, P, bw, 1024)
+    p = dp.DpParams(z_shift=2.0, skip_pen=4.2, stay_pen=4.2,
+                    mask_fill_z_score=-15.0, max_half_z_score=20.0,
+                    bandwidth=bw)
+    ref = banded_dp.adaptive_banded_dp_tb(*[a.to("cuda:0") for a in args],
+                                          p, L, P, 10)
+    seen = []
+    gather = banded_dp.gather
+
+    def gather_rec(mesh, shards):
+        seen.append([t.device for t in shards])
+        return gather(mesh, shards)
+
+    monkeypatch.setattr(banded_dp, "gather", gather_rec)
+    mesh = pmesh.make_mesh(["cuda:0", "cuda:1"])
+    with torch.cuda.device(0):
+        out = banded_dp.adaptive_banded_dp_tb_sharded(mesh, args, p, L, P,
+                                                      10, ("fused",))
+        torch.cuda.synchronize(1)
+        assert torch.cuda.current_device() == 0
+    assert seen == [list(mesh)] * 4
+    for a, r in zip(out, ref):
+        assert torch.equal(a, r)
 
 
 def test_start_dp_kernel_matches_start_band_dp(card):

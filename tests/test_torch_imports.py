@@ -21,8 +21,10 @@ PORT_MODULES = [
     "tombo_tpu_torch.ops.dp", "tombo_tpu_torch.ops.normalize",
     "tombo_tpu_torch.ops.precision", "tombo_tpu_torch.ops.ref_impl",
     "tombo_tpu_torch.ops.rescale", "tombo_tpu_torch.ops.segment",
-    "tombo_tpu_torch.ops.select", "tombo_tpu_torch.pipeline.aligner",
-    "tombo_tpu_torch.pipeline.batch", "tombo_tpu_torch.pipeline.resquiggle",
+    "tombo_tpu_torch.ops.select", "tombo_tpu_torch.parallel",
+    "tombo_tpu_torch.parallel.distributed", "tombo_tpu_torch.parallel.mesh",
+    "tombo_tpu_torch.pipeline.aligner", "tombo_tpu_torch.pipeline.batch",
+    "tombo_tpu_torch.pipeline.resquiggle",
 ]
 
 
@@ -72,19 +74,21 @@ def test_default_device_needs_a_card(monkeypatch):
     assert resolve_dtype(None, torch.device("cpu")) == torch.float32
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(seq_samp_type=("RNA", True)), "RNA"),
-    (dict(mesh=object()), "multi-GPU"),
-    (dict(const_scale=1.0), "CLI and runner"),
+@pytest.mark.parametrize("kw,exc,item", [
+    (dict(seq_samp_type=("RNA", True)), NotImplementedError, "RNA"),
+    (dict(mesh=[]), ValueError, "at least one device"),
+    (dict(const_scale=1.0), NotImplementedError, "CLI and runner"),
 ])
-def test_unported_options_name_their_roadmap_item(kw, item):
+def test_unported_options_name_their_roadmap_item(kw, exc, item):
+    """Each option not ported names its ROADMAP item; an invalid mesh
+    raises, as every mesh the port cannot run does."""
     from tombo_tpu_torch import config
     from tombo_tpu_torch.io.model_io import KmerModel
     from tombo_tpu_torch.pipeline.batch import BatchedResquiggler
     from tombo_tpu_torch.types import SeqSampleType
 
     sst = SeqSampleType(*kw.pop("seq_samp_type", ("DNA", False)))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=item):
         BatchedResquiggler(KmerModel.load_default("DNA"),
                            config.load_resquiggle_parameters("DNA"), sst,
                            device="cpu", **kw)

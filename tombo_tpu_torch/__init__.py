@@ -2,10 +2,10 @@
 
 A package of its own beside ``tombo_tpu``: it imports torch, numpy and
 the standard library, never jax and nothing of ``tombo_tpu``.  The module
-layout follows the JAX package (``ops/``, ``pipeline/``, ``io/``) so each
-function has an obvious counterpart there.  Entry points take
-``device=None``, which means the CUDA card; without a card they raise
-unless ``device="cpu"`` is passed (see :mod:`tombo_tpu_torch.device`).
+layout follows the JAX package (``ops/``, ``pipeline/``, ``parallel/``,
+``io/``) so each function has an obvious counterpart there.  Entry points
+take ``device=None``, which means the CUDA card; without a card they
+raise unless ``device="cpu"`` is passed (see :mod:`tombo_tpu_torch.device`).
 """
 
 __version__ = "0.1.0"

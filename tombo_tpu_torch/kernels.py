@@ -23,9 +23,11 @@ import time
 from typing import Dict, List
 
 SOURCES = ("banded_dp", "banded_dp_chunked", "count_le")
-# the kernels, each launched by one wrapper: K1, K2, K2', K5
+# the kernels, each launched by one wrapper: K1, K2, K2', K5; and K3, the
+# read-sharded DP, which counts one per shard it launches on a card (each
+# such launch is one of K1, or K2 then K2', and counts there too)
 KERNELS = ("banded_dp", "banded_dp_chunked_fwd", "banded_dp_chunked_tb",
-           "count_le")
+           "count_le", "banded_dp_sharded")
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -125,7 +127,9 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def stream_handle(device) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``device``, for a launch."""
+    """PyTorch's current stream on ``device``, for a launch.  The launch
+    itself goes to the thread's current device, so a wrapper calls the
+    library inside ``torch.cuda.device(device)``."""
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 

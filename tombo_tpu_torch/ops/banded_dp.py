@@ -1,7 +1,8 @@
 """Adaptive banded DP + traceback: the CUDA kernels' wrappers, their plain
-PyTorch versions and the layout planner that picks one (counterpart of
-``tombo_tpu/ops/pallas_dp.py`` ``adaptive_banded_dp_tb``,
-``adaptive_banded_dp_tb_chunked`` and ``plan_dp_layout``).
+PyTorch versions, the layout planner that picks one and the read-sharded
+launcher (counterpart of ``tombo_tpu/ops/pallas_dp.py``
+``adaptive_banded_dp_tb``, ``adaptive_banded_dp_tb_chunked``,
+``plan_dp_layout`` and ``adaptive_banded_dp_tb_sharded``).
 
 :func:`adaptive_banded_dp_tb` launches the fused kernel
 ``csrc/banded_dp.cu`` (K1) on a CUDA tensor and runs
@@ -11,16 +12,22 @@ sequence-chunked pair ``csrc/banded_dp_chunked.cu`` (K2 forward, K2'
 traceback) or runs :func:`adaptive_banded_dp_tb_chunked_plain`.  All take
 the same arguments (the chunked ones also ``chunk_rows``) and return
 (segs (B, L+1) int32, band_error (B,) bool, bound_error (B,) bool,
-final_fwd (B, bw)), the same values from either layout.  Start discovery
-uses K1 with ``starts = arange`` covering every row and no masking
-(:func:`start_dp_segs`)."""
+final_fwd (B, bw)), the same values from either layout.
+:func:`adaptive_banded_dp_tb_sharded` (K3) splits a batch over the
+devices of a reads mesh and launches K1, or K2 then K2', on each device
+over its own shard; shard by shard, its plain version is theirs.  Start
+discovery uses K1 with ``starts = arange`` covering every row and no
+masking (:func:`start_dp_segs`)."""
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import kernels
+from ..device import resolve_mesh
+from ..parallel.mesh import gather, shard_batch
 from . import dp
 from .dp import DpParams, StartDpParams
 
@@ -193,9 +200,10 @@ def adaptive_banded_dp_tb(event_means, n_events, ref_means, ref_sds,
     bound_err = torch.empty(B, dtype=torch.uint8, device=dev)
     ffwd = torch.empty((B, bw), dtype=torch.float32, device=dev)
     p = kernels.ptr
-    _check_launch(_kernel_fn("banded_dp", "tombo_banded_dp")(
-        *args, p(moves), p(bstarts), p(segs), p(band_err), p(bound_err),
-        p(ffwd), kernels.stream_handle(dev)), "banded_dp")
+    with torch.cuda.device(dev):
+        _check_launch(_kernel_fn("banded_dp", "tombo_banded_dp")(
+            *args, p(moves), p(bstarts), p(segs), p(band_err),
+            p(bound_err), p(ffwd), kernels.stream_handle(dev)), "banded_dp")
     return segs, band_err.bool(), bound_err.bool(), ffwd
 
 
@@ -227,19 +235,68 @@ def adaptive_banded_dp_tb_chunked(event_means, n_events, ref_means, ref_sds,
     band_err = torch.empty(B, dtype=torch.uint8, device=dev)
     ffwd = torch.empty((B, bw), dtype=torch.float32, device=dev)
     last_bs = torch.empty(B, dtype=torch.int32, device=dev)
-    p, stream = kernels.ptr, kernels.stream_handle(dev)
-    _check_launch(_kernel_fn("banded_dp_chunked",
-                             "tombo_banded_dp_chunked_fwd")(
-        *args, Lc, p(ckpt), p(ckpt_start), p(band_err), p(ffwd),
-        p(last_bs), stream), "banded_dp_chunked_fwd")
     tile = torch.empty((B, Lc, bw), dtype=torch.uint8, device=dev)
     segs = torch.empty((B, L + 1), dtype=torch.int32, device=dev)
     bound_err = torch.empty(B, dtype=torch.uint8, device=dev)
-    _check_launch(_kernel_fn("banded_dp_chunked",
-                             "tombo_banded_dp_chunked_tb")(
-        *args, Lc, p(ckpt), p(ckpt_start), p(ffwd), p(last_bs), p(tile),
-        p(segs), p(bound_err), stream), "banded_dp_chunked_tb")
+    p, stream = kernels.ptr, kernels.stream_handle(dev)
+    with torch.cuda.device(dev):
+        _check_launch(_kernel_fn("banded_dp_chunked",
+                                 "tombo_banded_dp_chunked_fwd")(
+            *args, Lc, p(ckpt), p(ckpt_start), p(band_err), p(ffwd),
+            p(last_bs), stream), "banded_dp_chunked_fwd")
+        _check_launch(_kernel_fn("banded_dp_chunked",
+                                 "tombo_banded_dp_chunked_tb")(
+            *args, Lc, p(ckpt), p(ckpt_start), p(ffwd), p(last_bs),
+            p(tile), p(segs), p(bound_err), stream), "banded_dp_chunked_tb")
     return segs, band_err.bool(), bound_err.bool(), ffwd
+
+
+def adaptive_banded_dp_tb_sharded(mesh, dp_args, params: DpParams,
+                                  n_rows: int, prefix_rows: int,
+                                  band_bound_thresh: int, layout):
+    """The adaptive DP and traceback data parallel over the reads axis of a
+    mesh (K3): each shard of reads runs K1 (``layout`` ``("fused",)``) or
+    K2 then K2' (``("chunked", Lc)``) on its own device.  The recurrence
+    is independent per read, so no shard needs another's data.
+
+    ``dp_args`` is either the nine batch-axis arrays that
+    :func:`adaptive_banded_dp_tb` takes, whole and on any device (they are
+    split with :func:`parallel.mesh.shard_batch`), or one such 9-tuple per
+    mesh device, already on it, where ``None`` or zero rows mark an empty
+    shard.  ``layout`` is chosen once for the whole batch.  Every shard's
+    launch is issued before any result moves, so shards on different
+    cards run side by side; an empty shard launches nothing, and a CPU
+    shard runs the plain version.  Returns (segs, band_error,
+    bound_error, final_fwd) of the whole batch in read order, on
+    ``mesh[0]``."""
+    mesh = resolve_mesh(mesh)
+    if torch.is_tensor(dp_args[0]) or isinstance(dp_args[0], np.ndarray):
+        shards = shard_batch(mesh, *dp_args)
+    elif len(dp_args) == len(mesh):
+        shards = dp_args
+    else:
+        raise ValueError("sharded DP: %d shards for a mesh of %d" % (
+            len(dp_args), len(mesh)))
+    if layout[0] == "fused":
+        fn, kw = adaptive_banded_dp_tb, {}
+    elif layout[0] == "chunked":
+        fn, kw = adaptive_banded_dp_tb_chunked, {"chunk_rows": layout[1]}
+    else:
+        raise ValueError("sharded DP: unknown layout %r" % (layout,))
+    outs = []
+    for dev, args in zip(mesh, shards):
+        if args is None or args[0].shape[0] == 0:
+            continue
+        if args[0].device != dev:
+            raise ValueError("sharded DP: a shard on %s for mesh device %s"
+                             % (args[0].device, dev))
+        outs.append(fn(*args, params, n_rows, prefix_rows,
+                       band_bound_thresh, **kw))
+        if dev.type == "cuda":
+            kernels.count_launch("banded_dp_sharded")
+    if not outs:
+        raise ValueError("sharded DP: the batch holds no read")
+    return tuple(gather(mesh, [o[i] for o in outs]) for i in range(4))
 
 
 def start_dp_segs(em_rows, rm, rs, sp: StartDpParams):

@@ -187,8 +187,9 @@ def count_le(keys_i32: torch.Tensor, pivots_i32: torch.Tensor
     keys = keys_i32.contiguous()
     piv = pivots_i32.contiguous()
     out = torch.zeros((B, P), dtype=torch.int32, device=dev)
-    err = _count_fn()(kernels.ptr(keys), M, kernels.ptr(piv), P, B,
-                      kernels.ptr(out), kernels.stream_handle(dev))
+    with torch.cuda.device(dev):
+        err = _count_fn()(kernels.ptr(keys), M, kernels.ptr(piv), P, B,
+                          kernels.ptr(out), kernels.stream_handle(dev))
     if err != 0:
         raise RuntimeError("count_le kernel launch failed (error %d)" % err)
     kernels.count_launch("count_le")

@@ -20,14 +20,20 @@ beyond the device caps) finish in numpy.  The PyTorch-side parts are plain
 tensor code; the kernels are ``ops/banded_dp.py``'s (fused and chunked DP)
 and ``ops/rescale.py``'s ``count_le``.  On a CPU device every kernel
 wrapper runs its plain version.  A batch splits into signal-length groups
-(``_length_groups``); each group's adaptive DP is one launch of the fused
-kernel, or one of each chunked kernel.
+(``_length_groups``).
 
-Not ported in this slice: RNA, multi-GPU meshes and constant-scale
-normalization raise ``NotImplementedError``.  The float64 parity mode
-(CPU) takes the JAX package's float64 lane where it differs from the
-float32 one: rescale passes re-select changepoints, and deletion-fix
-reads finish on the host.
+Every group runs over a reads mesh (``parallel/mesh.py``): its live reads
+split into contiguous shards, one per mesh device, and each device stage
+runs once per shard on that shard's device, at the shapes of the whole
+group, so results do not depend on the shard count.  The group's adaptive
+DP is one call of the read-sharded launcher (K3), which launches the
+fused kernel, or one of each chunked kernel, per shard.  ``mesh=None`` is
+a mesh of the one ``device``.
+
+Not ported in this slice: RNA and constant-scale normalization raise
+``NotImplementedError``.  The float64 parity mode (CPU) takes the JAX
+package's float64 lane where it differs from the float32 one: rescale
+passes re-select changepoints, and deletion-fix reads finish on the host.
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ import torch
 
 from .. import config
 from ..config import MASK_FILL_Z_SCORE, ResquiggleParams, SIG_MATCH_THRESH
-from ..device import DeviceLike, resolve_device, resolve_dtype
+from ..device import DeviceLike, resolve_device, resolve_dtype, resolve_mesh
 from ..errors import TomboError
 from ..ops import banded_dp, delfix, rescale
 from ..ops import normalize as nrm
@@ -49,6 +55,7 @@ from ..ops import segment as seg
 from ..ops import select as sel
 from ..ops.dp import DpParams, StartDpParams
 from ..ops.precision import prefix_sums
+from ..parallel.mesh import shard_sizes
 from ..seq import encode_seq, seq_to_kmer_codes
 from ..types import DpResults, ResquiggleResults, ScaleValues, SeqSampleType
 from . import resquiggle as rsq
@@ -100,6 +107,8 @@ class _ReadState:
     genome_seq_trim: Optional[str] = None
     use_static: bool = False
     n_ev: int = 0
+    # the read's mesh shard, and its row in that shard's device context
+    shard: int = 0
     dev_row: int = -1
     mapped_start: int = 0
     events_per_base: float = 0.0
@@ -394,7 +403,10 @@ class BatchedResquiggler:
     """Drive batches of mapped DNA reads through the device stages.
 
     ``device=None`` means the CUDA card; ``device="cpu"`` runs every
-    kernel's plain PyTorch version."""
+    kernel's plain PyTorch version.  ``mesh`` (a list of devices, or
+    ``parallel.mesh.make_mesh()``) shards every length group's reads over
+    its devices; results land on ``mesh[0]`` and equal the 1-device
+    lane's read for read."""
 
     def __init__(self, std_ref, rsqgl_params: ResquiggleParams,
                  seq_samp_type: SeqSampleType,
@@ -405,15 +417,19 @@ class BatchedResquiggler:
             raise NotImplementedError(
                 "RNA re-squiggle is not ported yet (ROADMAP.md, Queue 1: "
                 "RNA)")
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-GPU re-squiggle is not ported yet (ROADMAP.md, "
-                "Queue 1: multi-GPU)")
         if const_scale is not None:
             raise NotImplementedError(
                 "constant-scale normalization is not ported yet "
                 "(ROADMAP.md, Queue 1: CLI and runner)")
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.mesh = resolve_mesh([resolve_device(device)])
+        else:
+            self.mesh = resolve_mesh(mesh)
+            if device is not None and \
+                    resolve_device(device).type != self.mesh[0].type:
+                raise ValueError("device %s is not of the mesh's type %s" % (
+                    device, self.mesh[0].type))
+        self.device = self.mesh[0]
         self.dtype = resolve_dtype(dtype, self.device)
         self.np_dtype = (np.float64 if self.dtype == torch.float64
                          else np.float32)
@@ -426,15 +442,15 @@ class BatchedResquiggler:
                 seq_samp_type.name, use_save_bandwidth=True).bandwidth)
 
     # ------------------------------------------------------------ helpers
-    def _t(self, arr, float_=False) -> torch.Tensor:
+    def _t(self, arr, float_=False, device=None) -> torch.Tensor:
         arr = np.asarray(arr)
         if float_:
             arr = arr.astype(self.np_dtype)
         elif arr.dtype != np.bool_:
             arr = arr.astype(np.int64)
-        return torch.as_tensor(arr).to(self.device)
+        return torch.as_tensor(arr).to(device or self.device)
 
-    def _levels(self, live, width: int, clip: bool = False):
+    def _levels(self, live, width: int, clip: bool = False, device=None):
         """(B, width) expected means and sds, padded with 1.0; ``clip``
         crops each read to ``width`` (reads shorter than ``width`` become
         all-padding rows)."""
@@ -448,7 +464,7 @@ class BatchedResquiggler:
             else:
                 m = min(n, width)
                 rm[i, :m], rs[i, :m] = s.ref_means[:m], s.ref_sds[:m]
-        return self._t(rm, True), self._t(rs, True)
+        return self._t(rm, True, device), self._t(rs, True, device)
 
     def _start_params(self, num_events: int) -> StartDpParams:
         p = self.params
@@ -461,39 +477,65 @@ class BatchedResquiggler:
     def _np(*ts):
         return [t.cpu().numpy() for t in ts]
 
+    def _shards(self, reads):
+        """``reads`` by mesh shard: (shard, its reads in order) for every
+        shard that holds one."""
+        by = [[] for _ in self.mesh]
+        for s in reads:
+            by[s.shard].append(s)
+        return [(d, r) for d, r in enumerate(by) if r]
+
     # ------------------------------------------------------ stage drivers
     def _segment_batch(self, states: List[_ReadState]):
-        """Stages 1-3 (+ start DP): normalize, select, event means."""
-        p = self.params
+        """Stages 1-3 (+ start DP): normalize, select, event means.  The
+        live reads split into contiguous shards over the mesh, each run on
+        its device at the group's shape buckets (signal and changepoint
+        widths), so a shard runs the shapes of the unsharded group.
+        Returns one context per mesh device (None for an empty shard)."""
         live = [s for s in states if s.error is None]
         if not live:
             return None
-        B = len(live)
-        sig_lens = np.array([s.raw.shape[0] for s in live], np.int64)
-        raw_pad = np.zeros((B, _sig_bucket(int(sig_lens.max()))),
-                           self.np_dtype)
-        for i, s in enumerate(live):
-            raw_pad[i, :s.raw.shape[0]] = s.raw
-            s.dev_row = i
-        raw_j = torch.as_tensor(raw_pad).to(self.device)
-        lens_j = self._t(sig_lens)
-        nb = p.start_n_bases
-        rm_sj, rs_sj = self._levels(live, nb, clip=True)
-        sp = self._start_params(p.start_bw)
-
+        k = 0
+        for d, n in enumerate(shard_sizes(len(live), self.mesh)):
+            for i, s in enumerate(live[k:k + n]):
+                s.shard, s.dev_row = d, i
+            k += n
+        sig_w = _sig_bucket(max(s.raw.shape[0] for s in live))
         # rescale passes keep the first pass's changepoints on the float32
         # lane; the float64 parity mode re-selects, as the JAX package's
         # float64 lane does (selection is invariant under the affine
         # re-normalization only in exact arithmetic)
-        if self.dtype != torch.float64 and all(
-                s.map_res.scale_values is not None and s.cpts is not None
-                for s in live):
-            return self._segment_rescale(live, raw_j, lens_j, rm_sj, rs_sj,
-                                         sp)
+        rescale_pass = self.dtype != torch.float64 and all(
+            s.map_res.scale_values is not None and s.cpts is not None
+            for s in live)
+        cpts_w = _pow2_bucket(max(
+            s.cpts.shape[0] if rescale_pass else s.num_events
+            for s in live), 256)
+        ctx = [None] * len(self.mesh)
+        for d, reads in self._shards(live):
+            ctx[d] = self._segment_shard(reads, self.mesh[d], sig_w, cpts_w,
+                                         rescale_pass)
+        return ctx
+
+    def _segment_shard(self, live, dev, sig_w: int, cpts_w: int,
+                       rescale_pass: bool):
+        p = self.params
+        B = len(live)
+        sig_lens = np.array([s.raw.shape[0] for s in live], np.int64)
+        raw_pad = np.zeros((B, sig_w), self.np_dtype)
+        for i, s in enumerate(live):
+            raw_pad[i, :s.raw.shape[0]] = s.raw
+        raw_j = torch.as_tensor(raw_pad).to(dev)
+        lens_j = self._t(sig_lens, device=dev)
+        rm_sj, rs_sj = self._levels(live, p.start_n_bases, clip=True,
+                                    device=dev)
+        sp = self._start_params(p.start_bw)
+        if rescale_pass:
+            return self._segment_rescale(live, dev, raw_j, lens_j, rm_sj,
+                                         rs_sj, sp, cpts_w)
 
         w = p.running_stat_width
         num_cpts = np.array([s.num_events for s in live], np.int64)
-        max_cpts = _pow2_bucket(int(num_cpts.max()), 256)
         has_sv = np.array([s.map_res.scale_values is not None
                            for s in live])
         sv_shift, sv_scale = np.zeros(B), np.ones(B)
@@ -507,14 +549,14 @@ class BatchedResquiggler:
                     sv_lower[i] = sv.lower_lim
                 if sv.upper_lim is not None:
                     sv_upper[i] = sv.upper_lim
+        t = lambda a, f=False: self._t(a, f, dev)
         (norm_j, em_j, cpts_j, status_j, shift, scale, lower, upper,
          start_segs_j, start_score_j) = _stage_a_dna(
-            raw_j, lens_j, self._t(has_sv), self._t(sv_shift, True),
-            self._t(sv_scale, True), self._t(sv_lower, True),
-            self._t(sv_upper, True), self._t(num_cpts), rm_sj, rs_sj,
+            raw_j, lens_j, t(has_sv), t(sv_shift, True), t(sv_scale, True),
+            t(sv_lower, True), t(sv_upper, True), t(num_cpts), rm_sj, rs_sj,
             (None if self.outlier_thresh is None
              else float(self.outlier_thresh)), w, p.min_obs_per_base,
-            max_cpts, sp)
+            cpts_w, sp)
         (cpts_np, status, shift, scale, lower, upper, s0, sN,
          score) = self._np(cpts_j, status_j, shift, scale, lower, upper,
                            start_segs_j[:, 0], start_segs_j[:, -1],
@@ -536,11 +578,12 @@ class BatchedResquiggler:
                 "start": (s0.astype(np.int64), sN.astype(np.int64),
                           score.astype(np.float64))}
 
-    def _segment_rescale(self, live, raw_j, lens_j, rm_sj, rs_sj, sp):
+    def _segment_rescale(self, live, dev, raw_j, lens_j, rm_sj, rs_sj, sp,
+                         cpts_w: int):
         """Rescale-pass segmentation reusing first-pass changepoints."""
         B = len(live)
         n_cpts = np.array([s.cpts.shape[0] for s in live], np.int64)
-        cpts = np.zeros((B, _pow2_bucket(int(n_cpts.max()), 256)), np.int64)
+        cpts = np.zeros((B, cpts_w), np.int64)
         sv_shift, sv_scale = np.zeros(B), np.ones(B)
         sv_lower, sv_upper = np.full(B, np.nan), np.full(B, np.nan)
         for i, s in enumerate(live):
@@ -551,11 +594,12 @@ class BatchedResquiggler:
                 sv_lower[i] = sv.lower_lim
             if sv.upper_lim is not None:
                 sv_upper[i] = sv.upper_lim
-        cpts_j = self._t(cpts)
+        t = lambda a, f=False: self._t(a, f, dev)
+        cpts_j = t(cpts)
         norm_j, em_j, start_segs_j, start_score_j = _stage_a_rescale(
-            raw_j, lens_j, self._t(sv_shift, True), self._t(sv_scale, True),
-            self._t(sv_lower, True), self._t(sv_upper, True), cpts_j,
-            self._t(n_cpts), rm_sj, rs_sj, sp)
+            raw_j, lens_j, t(sv_shift, True), t(sv_scale, True),
+            t(sv_lower, True), t(sv_upper, True), cpts_j, t(n_cpts), rm_sj,
+            rs_sj, sp)
         s0, sN, score = self._np(start_segs_j[:, 0], start_segs_j[:, -1],
                                  start_score_j)
         for i, s in enumerate(live):
@@ -594,40 +638,48 @@ class BatchedResquiggler:
                 s.use_static = True
 
     def _start_discovery(self, states, ctx, start_bw: int,
-                         check_score: bool, precomputed=None):
-        """Static-band start discovery + validity score; returns the reads
-        whose start failed the score check."""
+                         check_score: bool, precomputed: bool = False):
+        """Static-band start discovery + validity score (``precomputed``:
+        stage A's, else a start DP per shard); returns the reads whose
+        start failed the score check."""
         p = self.params
         live = [s for s in states if s.error is None and not s.use_static]
         if not live:
             return []
         nb = p.start_n_bases
         need = nb + start_bw
-        if precomputed is not None:
-            rows = [s.dev_row for s in live]
-            seg0, segN, score = (a[rows] for a in precomputed)
+        shards = self._shards(live)
+        if precomputed:
+            found = [(reads, [a[[s.dev_row for s in reads]]
+                              for a in ctx[d]["start"]])
+                     for d, reads in shards]
         else:
-            if ctx["em"].shape[1] < need:
-                # every live read has >= need events, but the batch-wide
+            if ctx[shards[0][0]]["em"].shape[1] < need:
+                # every live read has >= need events, but the group-wide
                 # padded width can still be smaller
                 for s in live:
                     s.use_static = True
                 return []
-            rows = self._t([s.dev_row for s in live])
-            rm_sj, rs_sj = self._levels(live, nb, clip=True)
-            segs, score = _start_dp_with_score(
-                ctx["em"][rows][:, :need], rm_sj, rs_sj,
-                self._start_params(start_bw))
-            seg0, segN, score = self._np(segs[:, 0], segs[:, -1], score)
+            sp = self._start_params(start_bw)
+            queued = []
+            for d, reads in shards:
+                dev = self.mesh[d]
+                rows = self._t([s.dev_row for s in reads], device=dev)
+                rm_sj, rs_sj = self._levels(reads, nb, clip=True, device=dev)
+                segs, score = _start_dp_with_score(
+                    ctx[d]["em"][rows][:, :need], rm_sj, rs_sj, sp)
+                queued.append((reads, (segs[:, 0], segs[:, -1], score)))
+            found = [(reads, self._np(*out)) for reads, out in queued]
         failed = []
         thresh = SIG_MATCH_THRESH[self.seq_samp_type.name]
-        for i, s in enumerate(live):
-            if check_score and (not np.isfinite(score[i]) or
-                                score[i] > thresh):
-                failed.append(s)
-                continue
-            s.events_per_base = (int(segN[i]) - int(seg0[i])) / (nb + 1)
-            s.mapped_start = int(seg0[i])
+        for reads, (seg0, segN, score) in found:
+            for i, s in enumerate(reads):
+                if check_score and (not np.isfinite(score[i]) or
+                                    score[i] > thresh):
+                    failed.append(s)
+                    continue
+                s.events_per_base = (int(segN[i]) - int(seg0[i])) / (nb + 1)
+                s.mapped_start = int(seg0[i])
         return failed
 
     def _adaptive_batch(self, states: List[_ReadState], ctx):
@@ -659,153 +711,188 @@ class BatchedResquiggler:
             self._adaptive_device_call(live, ctx)
 
     def _adaptive_device_call(self, live: List[_ReadState], ctx):
+        """The group's adaptive DP: one read-sharded call (K3) over every
+        shard's DP inputs, at shapes and a layout chosen for the whole
+        group; then the device finalize per shard."""
         p = self.params
         bw = p.bandwidth
+        shards = self._shards(live)
+        live = [s for _, reads in shards for s in reads]     # K3's order
         L_max = _pow2_bucket(max(s.ref_means.shape[0] for s in live), 256)
         E_max = _pow2_bucket(
             max(s.n_ev - s.events_start_clip for s in live) + bw, 256)
-        rows = self._t([s.dev_row for s in live])
-        clips = self._t([s.events_start_clip for s in live])
-        n_events = self._t([s.n_ev - s.events_start_clip for s in live])
-        seq_lens = self._t([s.ref_means.shape[0] for s in live])
         pstarts, pvalid, pend, start_rows, P_max = \
             _build_masked_plans_batch(live, p)
-        em_j = _gather_clip_rows(ctx["em"], rows, clips, E_max)
         dpp = DpParams(
             z_shift=p.z_shift, skip_pen=p.skip_pen, stay_pen=p.stay_pen,
             mask_fill_z_score=MASK_FILL_Z_SCORE,
             max_half_z_score=p.max_half_z_score or -1.0, bandwidth=bw)
-        rm_j, rs_j = self._levels(live, L_max)
-        dp_args = (em_j, n_events, rm_j, rs_j, seq_lens, self._t(pstarts),
-                   self._t(pvalid), self._t(pend), self._t(start_rows), dpp,
-                   L_max, P_max, p.band_bound_thresh)
+        dp_args = [None] * len(self.mesh)
+        dev_in = {}
+        k = 0
+        for d, reads in shards:
+            dev = self.mesh[d]
+            t = lambda a, f=False: self._t(a, f, dev)
+            sl = slice(k, k + len(reads))
+            k += len(reads)
+            rows = t([s.dev_row for s in reads])
+            clips = t([s.events_start_clip for s in reads])
+            n_events = t([s.n_ev - s.events_start_clip for s in reads])
+            seq_lens = t([s.ref_means.shape[0] for s in reads])
+            rm_j, rs_j = self._levels(reads, L_max, device=dev)
+            em_j = _gather_clip_rows(ctx[d]["em"], rows, clips, E_max)
+            dp_args[d] = (em_j, n_events, rm_j, rs_j, seq_lens,
+                          t(pstarts[sl]), t(pvalid[sl]), t(pend[sl]),
+                          t(start_rows[sl]))
+            dev_in[d] = (rows, clips, n_events, seq_lens, rm_j, rs_j)
         # fused while one read's (L, bw) move codes stay small, else
         # chunked along the rows (long reads, the save-bandwidth retry)
-        layout = banded_dp.plan_dp_layout(L_max, bw)
-        if layout[0] == "fused":
-            segs_j, band_err, bound_err, _ = \
-                banded_dp.adaptive_banded_dp_tb(*dp_args)
-        else:
-            segs_j, band_err, bound_err, _ = \
-                banded_dp.adaptive_banded_dp_tb_chunked(
-                    *dp_args, chunk_rows=layout[1])
-        seq_segs_j, rsrtr_j, has_del_j = _stage_finalize(
-            ctx["cpts"], rows, clips, segs_j, seq_lens, n_events, L_max)
-        band_err, bound_err, seq_segs, rsrtr, has_del = self._np(
-            band_err, bound_err, seq_segs_j, rsrtr_j, has_del_j)
-        for i, s in enumerate(live):
-            if band_err[i]:
-                s.error = ("Adaptive signal to sequence alignment extended "
-                           "beyond raw signal")
-                continue
-            if bound_err[i]:
-                s.error = ("Read event to sequence alignment extends beyond "
-                           "bandwidth")
-                continue
-            s.dp_segs = seq_segs[i, :s.ref_means.shape[0] + 1].astype(
-                np.int64)
-            s.dp_rsrtr = int(rsrtr[i])
-            s.has_del = bool(has_del[i])
-        self._delfix_and_fit(live, ctx, rows, rsrtr_j, seq_segs_j, rm_j,
-                             rs_j, seq_lens)
+        segs_j, band_err, bound_err, _ = \
+            banded_dp.adaptive_banded_dp_tb_sharded(
+                self.mesh, dp_args, dpp, L_max, P_max, p.band_bound_thresh,
+                banded_dp.plan_dp_layout(L_max, bw))
+        band_err, bound_err = self._np(band_err, bound_err)
+        segs_by = dict(zip([d for d, _ in shards],
+                           segs_j.split([len(r) for _, r in shards])))
+        fin = {}
+        for d, reads in shards:
+            rows, clips, n_events, seq_lens = dev_in[d][:4]
+            fin[d] = _stage_finalize(
+                ctx[d]["cpts"], rows, clips, segs_by[d].to(self.mesh[d]),
+                seq_lens, n_events, L_max)
+        k = 0
+        for d, reads in shards:
+            seq_segs, rsrtr, has_del = self._np(*fin[d])
+            for i, s in enumerate(reads):
+                if band_err[k + i]:
+                    s.error = ("Adaptive signal to sequence alignment "
+                               "extended beyond raw signal")
+                    continue
+                if bound_err[k + i]:
+                    s.error = ("Read event to sequence alignment extends "
+                               "beyond bandwidth")
+                    continue
+                s.dp_segs = seq_segs[i, :s.ref_means.shape[0] + 1].astype(
+                    np.int64)
+                s.dp_rsrtr = int(rsrtr[i])
+                s.has_del = bool(has_del[i])
+            k += len(reads)
+        self._delfix_and_fit(shards, ctx, {
+            d: (rows, fin[d][1], fin[d][0], rm_j, rs_j, seq_lens)
+            for d, (rows, _, _, seq_lens, rm_j, rs_j) in dev_in.items()})
 
-    def _delfix_and_fit(self, live, ctx, rows_j, rsrtr_j, seq_segs_j, rm_j,
-                        rs_j, seq_lens_j):
+    def _delfix_and_fit(self, shards, ctx, dev_in):
         """Deletion-fix windows planned on the host from the segment
-        tables, then one device call: window DP + fit on the fixed table.
-        Reads whose windows exceed the device caps go to the host lane."""
+        tables, then one device call per shard: window DP + fit on the
+        fixed table.  ``dev_in[d]`` holds shard d's device (rows, rsrtr,
+        seq_segs, rm, rs, seq_lens).  Reads whose windows exceed the
+        device caps go to the host lane."""
         p = self.params
-        win_i, win_bs, win_nb, win_t, win_rel = [], [], [], [], []
+        wins = {d: ([], [], [], [], []) for d, _ in shards}
         fit_reads = []
         w = config.DEL_FIX_WINDOW
         min_sig_per_base = p.raw_min_obs_per_base * config.EXTRA_SIG_FACTOR
-        for i, s in enumerate(live):
-            if s.error is not None or s.dp_segs is None:
-                continue
-            if not s.has_del:
-                fit_reads.append(s)
-                continue
-            if self.dtype == torch.float64:
-                # host lane, as the JAX package's float64 lane: the device
-                # window DP is the same recurrence in prefix-sum form,
-                # which rounds differently where integer signals tie
-                continue
-            segs = s.dp_segs
-            # vectorized fast path of plan_del_fix_windows: deletion
-            # clusters with gaps > 2w map one-to-one to merged windows,
-            # final unless too small; else the exact host planner
-            dels = np.flatnonzero(np.diff(segs) == 0)
-            if dels.size == 0:
-                s.has_del = False
-                fit_reads.append(s)
-                continue
-            brk = np.flatnonzero(np.diff(dels) > 2 * w) + 1
-            first = dels[np.concatenate([[0], brk])]
-            last = dels[np.concatenate([brk - 1, [dels.shape[0] - 1]])]
-            ws_arr = np.maximum(first - w, 0)
-            we_arr = np.minimum(last + w + 1, segs.shape[0] - 1)
-            n_ev = we_arr - ws_arr
-            sig_len = segs[we_arr] - segs[ws_arr]
-            if np.any(sig_len <= (n_ev + 1) * min_sig_per_base):
-                try:
-                    windows = rsq.plan_del_fix_windows(
-                        _pytypes.SimpleNamespace(segs=segs), p)
-                except TomboError as e:
-                    s.error = str(e)
+        for d, reads in shards:
+            win_i, win_bs, win_nb, win_t, win_rel = wins[d]
+            for i, s in enumerate(reads):
+                if s.error is not None or s.dp_segs is None:
                     continue
-                if not windows:
+                if not s.has_del:
+                    fit_reads.append(s)
+                    continue
+                if self.dtype == torch.float64:
+                    # host lane, as the JAX package's float64 lane: the
+                    # device window DP is the same recurrence in
+                    # prefix-sum form, which rounds differently where
+                    # integer signals tie
+                    continue
+                segs = s.dp_segs
+                # vectorized fast path of plan_del_fix_windows: deletion
+                # clusters with gaps > 2w map one-to-one to merged
+                # windows, final unless too small; else the exact host
+                # planner
+                dels = np.flatnonzero(np.diff(segs) == 0)
+                if dels.size == 0:
                     s.has_del = False
                     fit_reads.append(s)
                     continue
-                ws_arr = np.array([a for a, _ in windows])
-                we_arr = np.array([b for _, b in windows])
+                brk = np.flatnonzero(np.diff(dels) > 2 * w) + 1
+                first = dels[np.concatenate([[0], brk])]
+                last = dels[np.concatenate([brk - 1, [dels.shape[0] - 1]])]
+                ws_arr = np.maximum(first - w, 0)
+                we_arr = np.minimum(last + w + 1, segs.shape[0] - 1)
                 n_ev = we_arr - ws_arr
                 sig_len = segs[we_arr] - segs[ws_arr]
-            if n_ev.max() > _DELFIX_NB_CAP or sig_len.max() > _DELFIX_T_CAP:
-                continue                      # host lane (s.has_del True)
-            s.del_windows = (list(zip(ws_arr.tolist(), we_arr.tolist())),
-                             len(win_i))
-            win_i.extend([i] * ws_arr.shape[0])
-            win_bs.extend(ws_arr.tolist())
-            win_nb.extend(n_ev.tolist())
-            win_t.extend(sig_len.tolist())
-            win_rel.extend(segs[ws_arr].tolist())
-            fit_reads.append(s)
+                if np.any(sig_len <= (n_ev + 1) * min_sig_per_base):
+                    try:
+                        windows = rsq.plan_del_fix_windows(
+                            _pytypes.SimpleNamespace(segs=segs), p)
+                    except TomboError as e:
+                        s.error = str(e)
+                        continue
+                    if not windows:
+                        s.has_del = False
+                        fit_reads.append(s)
+                        continue
+                    ws_arr = np.array([a for a, _ in windows])
+                    we_arr = np.array([b for _, b in windows])
+                    n_ev = we_arr - ws_arr
+                    sig_len = segs[we_arr] - segs[ws_arr]
+                if (n_ev.max() > _DELFIX_NB_CAP or
+                        sig_len.max() > _DELFIX_T_CAP):
+                    continue                  # host lane (s.has_del True)
+                s.del_windows = (list(zip(ws_arr.tolist(), we_arr.tolist())),
+                                 len(win_i))
+                win_i.extend([i] * ws_arr.shape[0])
+                win_bs.extend(ws_arr.tolist())
+                win_nb.extend(n_ev.tolist())
+                win_t.extend(sig_len.tolist())
+                win_rel.extend(segs[ws_arr].tolist())
+                fit_reads.append(s)
         if not fit_reads:
             return
 
+        # the group's shapes on every shard: sample points, window pads
         max_n = config.MAX_POINTS_FOR_THEIL_SEN
-        L_max = seq_segs_j.shape[1] - 1
-        samp_j = None
-        if any(s.ref_means.shape[0] > max_n for s in live):
-            samp_np = np.zeros((len(live), max_n), np.int64)
-            for i, s in enumerate(live):
-                n = s.ref_means.shape[0]
-                samp_np[i] = (_ts_sample_idx(n, max_n) if n > max_n else
-                              np.pad(np.arange(n), (0, max_n - n)))
-            samp_j = self._t(samp_np)
-        tri = rescale.tri_indices(max_n if samp_j is not None else L_max,
-                                  self.device)
-        if not win_i:
-            # one inert window keeps the call shape-valid
-            win_i, win_bs, win_nb, win_t, win_rel = [0], [0], [0], [2], [0]
+        L_max = next(iter(dev_in.values()))[2].shape[1] - 1
+        sampled = any(s.ref_means.shape[0] > max_n
+                      for _, reads in shards for s in reads)
+        nb_pad = max([2] + [n for v in wins.values() for n in v[2]])
+        t_pad = max([2] + [n for v in wins.values() for n in v[3]])
         mhz = p.max_half_z_score
-        (bounds_j, fail_j, shc_j, scc_j, fscore_j, fchanged_j,
-         fok_j) = _stage_delfix_fit(
-            ctx["norm"], rows_j, rsrtr_j, seq_segs_j, rm_j, rs_j,
-            seq_lens_j, self._t(win_i), self._t(win_bs), self._t(win_nb),
-            self._t(win_t), self._t(win_rel),
-            float(mhz if mhz is not None else 0.0), samp_j, tri,
-            nb_pad=max(2, max(win_nb)), t_pad=max(2, max(win_t)),
-            min_obs=p.raw_min_obs_per_base, winsorize=mhz is not None,
-            shift_thresh=float(config.SHIFT_CHANGE_THRESH),
-            scale_thresh=float(config.SCALE_CHANGE_THRESH))
-        (bounds, fail, f_shc, f_scc, f_score, f_changed, f_ok) = self._np(
-            bounds_j, fail_j, shc_j, scc_j, fscore_j, fchanged_j, fok_j)
+        fit_shards = {s.shard for s in fit_reads}
+        queued = {}
+        for d, reads in shards:
+            if d not in fit_shards:
+                continue
+            dev = self.mesh[d]
+            samp_j = None
+            if sampled:
+                samp_np = np.zeros((len(reads), max_n), np.int64)
+                for i, s in enumerate(reads):
+                    n = s.ref_means.shape[0]
+                    samp_np[i] = (_ts_sample_idx(n, max_n) if n > max_n else
+                                  np.pad(np.arange(n), (0, max_n - n)))
+                samp_j = self._t(samp_np, device=dev)
+            tri = rescale.tri_indices(max_n if sampled else L_max, dev)
+            # one inert window keeps a call without windows shape-valid
+            win = wins[d] if wins[d][0] else ([0], [0], [0], [2], [0])
+            rows_j, rsrtr_j, seq_segs_j, rm_j, rs_j, seq_lens_j = dev_in[d]
+            queued[d] = _stage_delfix_fit(
+                ctx[d]["norm"], rows_j, rsrtr_j, seq_segs_j, rm_j, rs_j,
+                seq_lens_j, *[self._t(a, device=dev) for a in win],
+                float(mhz if mhz is not None else 0.0), samp_j, tri,
+                nb_pad=nb_pad, t_pad=t_pad, min_obs=p.raw_min_obs_per_base,
+                winsorize=mhz is not None,
+                shift_thresh=float(config.SHIFT_CHANGE_THRESH),
+                scale_thresh=float(config.SCALE_CHANGE_THRESH))
+        # (bounds, fail, shift_corr, scale_corr, score, changed, fit_ok)
+        res = {d: self._np(*out) for d, out in queued.items()}
 
         for s in fit_reads:
             if s.del_windows is None:
                 continue
+            bounds, fail = res[s.shard][:2]
             windows, w0 = s.del_windows
             segs = s.dp_segs
             ok = True
@@ -827,22 +914,27 @@ class BatchedResquiggler:
                 continue
             s.del_fixed = True
         fit_ids = {id(s) for s in fit_reads}
-        for i, s in enumerate(live):
-            if (s.error is None and id(s) in fit_ids and
-                    (s.has_del is False or s.del_fixed)):
-                s.dev_fit = (float(f_shc[i]), float(f_scc[i]),
-                             float(f_score[i]), bool(f_changed[i]),
-                             bool(f_ok[i]))
+        for d, reads in shards:
+            if d not in res:
+                continue
+            f_shc, f_scc, f_score, f_changed, f_ok = res[d][2:]
+            for i, s in enumerate(reads):
+                if (s.error is None and id(s) in fit_ids and
+                        (s.has_del is False or s.del_fixed)):
+                    s.dev_fit = (float(f_shc[i]), float(f_scc[i]),
+                                 float(f_score[i]), bool(f_changed[i]),
+                                 bool(f_ok[i]))
 
     def _static_reads(self, states: List[_ReadState], ctx):
         """Short-read static-band assignment (host, numpy)."""
         need = [s for s in states if s.error is None and s.use_static and
                 s.event_means is None]
         if need and ctx is not None:
-            em_rows, = self._np(ctx["em"][self._t([s.dev_row
-                                                  for s in need])])
-            for s, row in zip(need, em_rows):
-                s.event_means = row.astype(np.float64)[:s.n_ev]
+            for d, reads in self._shards(need):
+                em_rows, = self._np(ctx[d]["em"][self._t(
+                    [s.dev_row for s in reads], device=self.mesh[d])])
+                for s, row in zip(reads, em_rows):
+                    s.event_means = row.astype(np.float64)[:s.n_ev]
         for s in states:
             if s.error is not None or not s.use_static:
                 continue
@@ -965,8 +1057,7 @@ class BatchedResquiggler:
         ctx = self._segment_batch(states)
         if ctx is not None:
             failed_start = self._start_discovery(
-                states, ctx, p.start_bw, check_score=True,
-                precomputed=ctx["start"])
+                states, ctx, p.start_bw, check_score=True, precomputed=True)
             # save-bandwidth start retry without score check, so no read
             # fails it (reference: tombo/resquiggle.py:996-1006)
             for s in failed_start:
@@ -1032,7 +1123,7 @@ class BatchedResquiggler:
         if retry:
             saver = BatchedResquiggler(
                 self.std_ref, self.save_params, self.seq_samp_type,
-                self.outlier_thresh, self.dtype, device=self.device)
+                self.outlier_thresh, self.dtype, mesh=self.mesh)
             retry_out = saver.resquiggle_batch(
                 [s.map_res.replace(scale_values=None) for s in retry],
                 max_scaling_iters=max_scaling_iters)
