@@ -30,6 +30,7 @@ non-zero without the status line.
 """
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -134,6 +135,33 @@ def kernel_device_ms(fn, reps, names):
     return {n: {"ms": statistics.mean(v) if v else "not measured",
                 "recorded": len(v), "launched": reps}
             for n, v in out.items()}
+
+
+_PTXAS_ENTRY = re.compile(
+    r"Compiling entry function '\w*?\d([a-z_]+_kernel)(I\w*?E)?Ev")
+_PTXAS_NUM = re.compile(r"(\d+) (bytes stack frame|bytes spill stores|bytes spill "
+                        r"loads|registers|bytes smem)")
+
+
+def ptxas_summary(log):
+    """One line per kernel instance from nvcc -Xptxas -v: the kernel and
+    its template arguments, registers, static shared memory, stack frame
+    and spill bytes."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(2) or "")
+            cur = {"kernel": "%s<%s>" % (m.group(1), ",".join(args))}
+            out.append(cur)
+        elif cur is not None:
+            for n, what in _PTXAS_NUM.findall(line):
+                cur[what.replace("bytes ", "")] = int(n)
+    return ["%(kernel)s: %(registers)s registers, %(smem)s bytes smem, "
+            "%(stack frame)s bytes stack, spills %(spill stores)s stores / "
+            "%(spill loads)s loads" % dict(
+                {"registers": "?", "smem": 0, "stack frame": "?",
+                 "spill stores": "?", "spill loads": "?"}, **e) for e in out]
 
 
 def build_reads(read_lens, seed, ref_len):
@@ -305,12 +333,17 @@ def device_profile(br, batch):
                     for k, (us, n) in top]}
 
 
-def k1_bound_ms(args, bw):
+def k1_bound_ms(args, bw, io_bytes=False):
+    """K1's least time: the larger of its input and output bytes over the
+    memory rate and its operations over the float32 rate; with io_bytes,
+    the bytes alone."""
     em, nev, rm, rs, sl, ps, pv, pe, sr = args[:9]
     B, E = em.shape
     L = args[10]
     nbytes = (B * E * 4 + 4 * B * 4 + 2 * rm.numel() * 4 + 2 * ps.numel() * 4
               + B * (L + 1) * 4 + 2 * B + B * bw * 4)
+    if io_bytes:
+        return nbytes
     cells = int(torch.clamp(sl.long(), max=L).sum()) * bw
     ops = cells * K1_OPS_PER_CELL
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
@@ -457,9 +490,8 @@ def main():
         print("kernel build (%s)" % ", ".join(
             "%s %.1f s" % kv for kv in kernels.BUILD_SECONDS.items()))
         for name, log in kernels.BUILD_LOG.items():
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print("  ptxas %s: %s" % (name, line.strip()))
+            for line in ptxas_summary(log):
+                print("  ptxas %s: %s" % (name, line))
 
     # ---- phase 2: the 1 kb path on the card
     with phase("1 kb path"):
@@ -670,11 +702,11 @@ def main():
 
     # ---- phase 7: the chunked pair at the captured long shape
     with phase("chunked pair vs K1 and plain, long shape"):
-        size, args, kw = max(
+        size, all_args, kw = max(
             rec_ch.calls.values(),
             key=lambda v: v[0] * v[1][10] * v[1][9].bandwidth)
         args = tuple(a[:CHUNKED_SLICE] if torch.is_tensor(a) else a
-                     for a in args)
+                     for a in all_args)
         Lc = kw["chunk_rows"]
         B, L, bw = args[0].shape[0], args[10], args[9].bandwidth
         co = k2(*args, **kw)
@@ -706,26 +738,42 @@ def main():
                                    "chunked_tb_kernel"))
         pair_ms = cuda_ms(lambda: k2(*args, **kw), 5)
         fwd_ms, tb_ms = pair_split_ms(lambda: k2(*args, **kw), 5)
+        # the whole captured call, every read of it
+        all_fwd_ms, all_tb_ms = pair_split_ms(lambda: k2(*all_args, **kw), 3)
         k1_ms = cuda_ms(lambda: k1(*args), 5)
         sl_sum = int(torch.clamp(args[4].long(), max=L).sum())
         k2_bound, k2_by = k1_bound_ms(args, bw)
-        # the TPU traceback's own traffic: moves, band starts, segs
-        tb_bytes = sl_sum * bw + sl_sum * 4 + B * (L + 1) * 4
-        tb_bound = 1e3 * tb_bytes / HBM_BYTES_PER_S
+        # K2' moves no move code through device memory: it reads the DP
+        # inputs, K2's checkpoints, final row and band starts and writes
+        # segs and the bound flags; its recompute repeats K2's operations
+        lc_k = banded_dp.tile_rows(bw, min(Lc, L))
+        n_ck = -(-L // lc_k)
+        tb_bytes = (k1_bound_ms(args, bw, io_bytes=True) +
+                    B * n_ck * (bw * 4 + 4) + B * 4)
+        tb_bytes_ms = 1e3 * tb_bytes / HBM_BYTES_PER_S
         recompute_ms = 1e3 * sl_sum * bw * K1_OPS_PER_CELL / F32_OPS_PER_S
+        tb_bound = max(tb_bytes_ms, recompute_ms)
+        tb_by = "operations" if recompute_ms >= tb_bytes_ms else "bytes"
+        tb_smem, clusters = banded_dp.chunked_tb_occupancy(bw, lc_k)
         long_shape = {
-            "B": B, "L": L, "bw": bw, "Lc": Lc, "reads_in_call": size,
+            "B": B, "L": L, "bw": bw, "Lc": Lc, "Lc_k": lc_k,
+            "cluster_blocks": banded_dp.CLUSTER_BLOCKS,
+            "active_clusters": clusters, "tb_smem_bytes": tb_smem,
+            "reads_in_call": size,
             "bitwise_k1": True, "segs_equal_frac_plain": frac,
             "flags_equal_plain": same_flags, "final_fwd_err_plain": ferr,
             "pair_ms": pair_ms, "k1_ms": k1_ms, "fwd_ms": fwd_ms,
             "tb_ms": tb_ms, "profiler_ms": dev_ms,
+            "all_reads": {"B": size, "fwd_ms": all_fwd_ms,
+                          "tb_ms": all_tb_ms},
             "plain_pair_ms": plain_pair_ms, "plain_fwd_ms": plain_fwd_ms,
             "k1_peak_bytes": peak_bytes(lambda: k1(*args)),
             "pair_peak_bytes": peak_bytes(lambda: k2(*args, **kw)),
             "k1_move_bytes": B * L * bw,
-            "pair_scratch_bytes": B * (-(-L // Lc) * (bw * 4 + 4) +
-                                       Lc * bw),
-            "tb_bound_ms": tb_bound, "recompute_ops_bound_ms": recompute_ms}
+            "pair_scratch_bytes": B * banded_dp.chunked_scratch_bytes(
+                L, bw, lc_k),
+            "tb_bound_ms": tb_bound, "tb_bytes_bound_ms": tb_bytes_ms,
+            "recompute_ops_bound_ms": recompute_ms}
         print("chunked pair at the captured long shape: %s" % json.dumps(
             long_shape))
 
@@ -847,7 +895,8 @@ def main():
         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"], "library_ms": None, "shapes": k1_shapes})
-    ch_shape = {"B": B, "L": L, "bw": bw, "Lc": Lc}
+    ch_shape = {"B": B, "L": L, "bw": bw, "Lc": Lc, "Lc_k": lc_k,
+                "cluster_blocks": banded_dp.CLUSTER_BLOCKS}
     entries.append({
         "name": "banded_dp_chunked_fwd", "route": "cuda",
         "source": "tombo_tpu_torch/csrc/banded_dp_chunked.cu",
@@ -863,8 +912,12 @@ def main():
         "launches": launches_m["banded_dp_chunked_tb"],
         "max_abs_err": seg_err, "ms": tb_ms,
         "plain_ms": plain_pair_ms - plain_fwd_ms, "bound_ms": tb_bound,
-        "bound_by": "bytes", "library_ms": None, "shape": ch_shape,
-        "recompute_ops_bound_ms": recompute_ms})
+        "bound_by": tb_by,
+        "bound_note": "recompute operations or own input and output "
+                      "bytes, the larger; move codes stay in shared memory",
+        "library_ms": None, "shape": ch_shape,
+        "recompute_ops_bound_ms": recompute_ms,
+        "bytes_bound_ms": tb_bytes_ms})
     k5_entry["launches_mixed"] = launches_m["count_le"]
     entries.append(k5_entry)
     k3m = k3_shapes[0]

@@ -69,9 +69,70 @@ def test_chunked_plain_equals_fused_plain(seed, Lc):
 
 
 def _scratch_bytes(n_rows, bw, Lc):
-    """Per-read device scratch of the chunked pair: one forward-row
-    checkpoint (bw floats + band start) per chunk, one (Lc, bw) tile."""
-    return -(-n_rows // Lc) * (bw * 4 + 4) + Lc * bw
+    """Per-read device scratch of the chunked pair at the chunk rows the
+    kernels take for ``Lc``: one forward-row checkpoint (bw floats + band
+    start) per chunk; the move tiles stay in shared memory."""
+    return t_bdp.chunked_scratch_bytes(n_rows, bw, t_bdp.tile_rows(bw, Lc))
+
+
+@pytest.mark.parametrize("bw", [1, 32, 300, 750, 1500, 2500, 4096])
+def test_tile_rows_fit_the_shared_memory_budget(bw):
+    """Lc_k: at least 1, at most chunk_rows, its tile plus the row loop's
+    buffers within the block's budget, and the most rows that fit.  Two
+    blocks share an SM while a tile there keeps CHUNK_ROWS / 2 rows."""
+    budget = t_bdp.tb_smem_budget(bw)
+    assert budget in (t_bdp.TB_SMEM_HALF, t_bdp.TB_SMEM_BUDGET)
+    assert 2 * (t_bdp.TB_SMEM_HALF + 2048) <= 233472   # one H100 SM
+    assert t_bdp.TB_SMEM_BUDGET + 1024 <= 232448       # one H100 block
+    for chunk_rows in (1, 48, 512):
+        lc = t_bdp.tile_rows(bw, chunk_rows)
+        assert 1 <= lc <= chunk_rows
+        assert t_bdp.tb_smem_bytes(lc, bw) <= budget
+        if lc < chunk_rows:
+            assert t_bdp.tb_smem_bytes(lc + 1, bw) > budget
+    if budget == t_bdp.TB_SMEM_HALF:
+        assert t_bdp.tile_rows(bw) >= t_bdp.CHUNK_ROWS // 2
+    expect = {300: 351, 1500: 135, 4096: 39}
+    if bw in expect:
+        assert t_bdp.tile_rows(bw) == expect[bw]
+
+
+@pytest.mark.parametrize("bw,L", [(1500, 300), (4096, 100)])
+def test_chunked_plain_split_at_tile_rows_equals_fused_f64(bw, L):
+    """Split where the kernels split (Lc_k below chunk_rows: 135 rows at
+    bw 1500, 39 at 4096), the plain chunked pair is the fused plain
+    version bit for bit at float64, directly and through the wrapper."""
+    args, _ = _mk_case(bw + L, B=2, L_max=L, P_max=16, bw=bw,
+                       E_max=2 * bw + L)
+    args = [torch.tensor(a.astype(np.float64) if a.dtype == np.float32
+                         else a) for a in args]
+    p = _params(bw, t_dp.DpParams)
+    lc = t_bdp.tile_rows(bw)
+    assert lc < L
+    fused = t_bdp.adaptive_banded_dp_tb_plain(*args, p, L, 16, 10)
+    split = t_bdp.adaptive_banded_dp_tb_chunked_plain(*args, p, L, 16, 10,
+                                                      chunk_rows=lc)
+    wrapped = t_bdp.adaptive_banded_dp_tb_chunked(*args, p, L, 16, 10)
+    for a, b, c in zip(fused, split, wrapped):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("n_rows,bw,chunk_rows", [
+    (32768, 300, 512), (8192, 1500, 512), (4096, 4096, 512), (100, 32, 64),
+    (1, 300, 512)])
+def test_chunked_scratch_is_checkpoints_only(n_rows, bw, chunk_rows):
+    """The wrapper's device scratch is one checkpoint per Lc_k rows,
+    ceil(L / Lc_k) * (4 bw + 4) bytes a read, and no (Lc, bw) move tile:
+    chunked_scratch allocates exactly what chunked_scratch_bytes states."""
+    lc = t_bdp.tile_rows(bw, min(chunk_rows, n_rows))
+    per_read = t_bdp.chunked_scratch_bytes(n_rows, bw, lc)
+    assert per_read == -(-n_rows // lc) * (4 * bw + 4)
+    ckpt, start = t_bdp.chunked_scratch(3, n_rows, bw, lc, "cpu")
+    nbytes = ckpt.numel() * ckpt.element_size() + \
+        start.numel() * start.element_size()
+    assert nbytes == 3 * per_read
+    if n_rows == 32768:     # 94 checkpoints; no 512 x 300 move tile
+        assert per_read == 94 * 1204
 
 
 @pytest.mark.parametrize("bw", [300, 500, 750, 1500, 2500])
@@ -91,10 +152,12 @@ def test_plan_routes_the_path_shapes():
     plan = t_bdp.plan_dp_layout
     # the chunked tile does not depend on the read's length ...
     assert plan(4096, 2500) == plan(131072, 2500) == ("chunked", 512)
-    # ... and at 131,072 rows its scratch is under 1/50 of K1's moves
+    # ... and at 131,072 rows its scratch, one checkpoint per Lc_k rows
+    # (4 bytes a band position per Lc_k rows: 512 rows at bw 300, 75 at
+    # 2500), is under 1/15 of K1's moves
     for bw in (300, 1500, 2500):
         Lc = plan(131072, bw)[1]
-        assert _scratch_bytes(131072, bw, Lc) * 50 < 131072 * bw
+        assert _scratch_bytes(131072, bw, Lc) * 15 < 131072 * bw
     # a 30 kb read at the save bandwidth, and at the main bandwidth
     assert plan(32768, 1500)[0] == "chunked"
     assert plan(32768, 300)[0] == "chunked"

@@ -90,14 +90,33 @@ def _assert_dp_close(k, q, seq_lens, L):
     assert float((k[3] - q[3]).abs().max()) <= 1e-3
 
 
-@pytest.mark.parametrize("bw,L,Lc", [(32, 256, 64), (300, 2048, 512),
-                                     (1500, 1024, 256), (2500, 256, 128)])
-def test_chunked_kernels_equal_fused_kernel(card, bw, L, Lc):
-    B, P = 8, 64
-    args = [a.to(card) for a in _dp_case(bw + L, B, L, P, bw, 2 * L + bw)]
+# (bw, L, Lc, B, edge): the pair's shapes.  Lc is the chunk_rows asked
+# for; the kernels chunk at banded_dp.tile_rows(bw, Lc), below it at bw
+# 1500 (135) and 4096 (39).  With 8 blocks a cluster: (300, 2048, 512)
+# has fewer chunks than a cluster, (300, 2600, 128) up to 21 (no multiple
+# of 8), B 1 one cluster; edge sets seq_lens 0, 1, L and L + 5.
+PAIR_SHAPES = [(32, 256, 64, 8, False), (300, 2048, 512, 8, False),
+               (1500, 1024, 256, 8, False), (2500, 256, 128, 8, False),
+               (300, 2600, 128, 8, False), (300, 2048, 512, 1, False),
+               (300, 1024, 256, 8, True), (1500, 8192, 512, 8, False),
+               (4096, 512, 512, 4, True)]
+
+
+def _pair_case(bw, L, B, edge):
+    P = 64
+    args = _dp_case(bw + L, B, L, P, bw, 2 * L + bw)
+    if edge:
+        args[4][:4] = torch.tensor([0, 1, L, L + 5])
     p = dp.DpParams(z_shift=2.0, skip_pen=4.2, stay_pen=4.2,
                     mask_fill_z_score=-15.0, max_half_z_score=20.0,
                     bandwidth=bw)
+    return args, p, P
+
+
+@pytest.mark.parametrize("bw,L,Lc,B,edge", PAIR_SHAPES)
+def test_chunked_kernels_equal_fused_kernel(card, bw, L, Lc, B, edge):
+    args, p, P = _pair_case(bw, L, B, edge)
+    args = [a.to(card) for a in args]
     before = dict(kernels.LAUNCHES)
     c = banded_dp.adaptive_banded_dp_tb_chunked(*args, p, L, P, 10,
                                                 chunk_rows=Lc)
@@ -114,20 +133,18 @@ def test_chunked_kernels_equal_fused_kernel(card, bw, L, Lc):
     _assert_dp_close(c, q, args[4], L)
 
 
-@pytest.mark.parametrize("bw,L,Lc", [(32, 256, 64), (300, 2048, 512),
-                                     (1500, 1024, 256), (2500, 256, 128)])
-def test_sharded_dp_equals_k1_and_pair(card, bw, L, Lc):
+@pytest.mark.parametrize("bw,L,Lc,B,edge", PAIR_SHAPES)
+def test_sharded_dp_equals_k1_and_pair(card, bw, L, Lc, B, edge):
     """K3 over two shards on one card, in both layouts, bitwise the
-    unsharded K1 and K2/K2' on the same inputs."""
-    B, P = 8, 64
-    args = [a.to(card) for a in _dp_case(bw + L, B, L, P, bw, 2 * L + bw)]
-    p = dp.DpParams(z_shift=2.0, skip_pen=4.2, stay_pen=4.2,
-                    mask_fill_z_score=-15.0, max_half_z_score=20.0,
-                    bandwidth=bw)
+    unsharded K1 and K2/K2' on the same inputs, one launch per non-empty
+    shard."""
+    args, p, P = _pair_case(bw, L, B, edge)
+    args = [a.to(card) for a in args]
     fused = banded_dp.adaptive_banded_dp_tb(*args, p, L, P, 10)
     pair = banded_dp.adaptive_banded_dp_tb_chunked(*args, p, L, P, 10,
                                                    chunk_rows=Lc)
     mesh = pmesh.make_mesh(["cuda", "cuda"])
+    n_shards = sum(1 for n in pmesh.shard_sizes(B, mesh) if n)
     for layout, names in ((("fused",), ("banded_dp",)),
                           (("chunked", Lc), ("banded_dp_chunked_fwd",
                                              "banded_dp_chunked_tb"))):
@@ -136,7 +153,7 @@ def test_sharded_dp_equals_k1_and_pair(card, bw, L, Lc):
                                                       10, layout)
         torch.cuda.synchronize()
         assert kernels.LAUNCHES == dict(
-            before, **{n: before[n] + 2
+            before, **{n: before[n] + n_shards
                        for n in names + ("banded_dp_sharded",)})
         for a, f, c in zip(out, fused, pair):
             assert a.device == mesh[0]

@@ -51,12 +51,15 @@ __global__ void __launch_bounds__(NT) banded_dp_kernel(DpIn a, Out o) {
   __syncthreads();
 
   long long prev_start = v.ps[0];
+  long long last_bs = prev_start;   // band start of row seq_len - 1
   bool band_err = false;
   for (int r = 0; r < L; ++r) {
     const long long bs = dp_row<MAXI>(a, v, r, fprev, fcur, prev_start,
                                       band_err, mv_out + (size_t)r * bw, sc);
-    if (r == v.sl - 1)
+    if (r == v.sl - 1) {
       for (int q = tid; q < bw; q += NT) ffin[q] = fcur[q];
+      last_bs = bs;
+    }
     if (tid == 0) bst[r] = (int)bs;
     prev_start = bs;
     float* t = fprev; fprev = fcur; fcur = t;
@@ -71,7 +74,7 @@ __global__ void __launch_bounds__(NT) banded_dp_kernel(DpIn a, Out o) {
   if (tid < 32) {
     const int sl = v.sl;
     int* segs = o.segs + (size_t)b * (L + 1);
-    const long long init = (long long)top + bst[sl >= 1 ? sl - 1 : 0];
+    const long long init = (long long)top + last_bs;
     long long ep = init;
     bool berr = false;
     for (int r = L - 1; r >= 0; --r) {
@@ -85,7 +88,7 @@ __global__ void __launch_bounds__(NT) banded_dp_kernel(DpIn a, Out o) {
     }
     if (tid == 0) {
       segs[L] = 0;
-      segs[sl] = (int)(init + 1);
+      if (sl <= L) segs[sl] = (int)(init + 1);   // a read past L has none
       o.bound_err[b] = berr ? 1 : 0;
     }
   }

@@ -1,6 +1,6 @@
 // Sequence-chunked adaptive banded DP + traceback for long reads: a
-// forward kernel (K2) and a traceback kernel (K2'), one thread block per
-// read each.
+// forward kernel (K2), one block per read, and a traceback kernel (K2'),
+// one thread-block cluster per read.
 //
 // Replaces the Pallas TPU kernels of tombo_tpu/ops/pallas_dp.py
 // adaptive_banded_dp_tb_chunked: the forward (_make_fwd_chunk_kernel,
@@ -14,31 +14,49 @@
 // independent of read length but still writes all (B, L, bw) int8 move
 // codes to HBM.  On the H100 the move matrix is what grows: the fused
 // kernel keeps L * bw bytes per read in device memory (49 MB for a 32 kb
-// read at the save bandwidth 1500).  Here no move matrix exists:
-//   K2  runs every row of the read once, storing no moves.  Before each
-//       Lc-row chunk it writes a checkpoint of the carried state: the
-//       forward row (bw floats) and the band start.  At the end it writes
-//       the band error flag, the final forward row and its band start.
-//   K2' walks the chunks last to first.  For each it restores the
-//       checkpoint, recomputes the chunk's moves and band starts with the
-//       same row step (dp_row.cuh) into a per-read (Lc, bw) uint8 tile,
-//       then one warp walks the tile back, carrying the event position and
-//       bound error flag into the chunk below.
-// Per-read device scratch is ceil(L/Lc) * (bw * 4 + 4) + Lc * bw bytes.
-// Rows past a read's length do not change the carried state, so both
-// kernels stop at the read's own length rather than the batch's L.
+// read at the save bandwidth 1500).  Here no move code leaves the chip:
+//   K2  runs every row of the read once with the row step of
+//       dp_row_lat.cuh, storing no moves.  Before every Lc-row chunk it
+//       writes a checkpoint of the carried state: the forward row (bw
+//       floats) and the band start.  At the end it writes the band error
+//       flag, the final forward row and its band start.
+//   K2' gives each read a cluster of G blocks.  The read's chunks are
+//       taken last to first, G at a time (a window): block g restores
+//       the checkpoint of the window's g-th chunk from the top and
+//       recomputes the chunk's move codes and band starts with the same
+//       row step into its own shared memory (an (Lc, bw) uint8 tile and
+//       Lc ints), all G chunks side by side.  Then the walk passes down
+//       the cluster: the block with the window's highest chunk walks its
+//       tile back with one warp (dp_row.cuh tb_row) and writes the event
+//       position and bound flag into the next block's shared memory
+//       (distributed shared memory), and the cluster meets at
+//       cluster.sync() before the next block walks.  The last block of a
+//       window hands on to the first block of the next window.
+// Per-read device scratch is ceil(L/Lc) * (bw * 4 + 4) bytes.  Lc is the
+// tile rows that fit a block's shared-memory budget at this bw
+// (ops/banded_dp.py tile_rows: half an SM at bw 300, so two blocks share
+// one).  Rows past a read's length do not change the carried state,
+// so both kernels stop at the read's own length rather than the batch's L.
 //
-// What bounds it: as the fused kernel, the latency of the sequential row
-// step (a block argmax and two block scans per row), not bytes or FLOPs.
-// The recompute runs each row step a second time, so the pair does about
-// twice the fused kernel's row steps on the rows a read has.
+// What bounds it: the latency of the sequential row step, not bytes or
+// FLOPs.  K2 runs a read's rows one after another (dp_row_lat.cuh: a
+// block of only the warps that hold band positions, three barriers a
+// row).  K2' recomputes G chunks at a time, so its recompute takes about
+// 1/G of K2's rows in sequence, and its walk, one warp reading shared
+// memory row by row, takes the rest: the walk is the only part of the
+// traceback that has to run in order.
 // Build with -fmad=false (dp_row.cuh, Precision): the recomputed rows are
 // bitwise the forward rows only if both are compiled alike.
-#include "dp_row.cuh"
+#include <cooperative_groups.h>
+
+#include "dp_row_lat.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace dprow;
+using dplat::LatRows;
+using dplat::Slots;
 
 struct FwdOut {
   int Lc;
@@ -50,119 +68,184 @@ struct TbArgs {
   int Lc;
   const float* ckpt; const int* ckpt_start;
   const float* ffwd; const int* last_bs;
-  uint8_t* tile;                    // (B, Lc, bw)
   int* segs; uint8_t* bound_err;
+};
+
+// walk state handed from one block of the cluster to the next
+struct Carry {
+  long long ep;
+  int berr;
 };
 
 template <int MAXI>
 __global__ void __launch_bounds__(NT) chunked_fwd_kernel(DpIn a, FwdOut o) {
-  extern __shared__ float smem[];
-  __shared__ Scratch sc;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ Slots slots;
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
   const int bw = a.bw, L = a.L, Lc = o.Lc;
   const int n_chunks = (L + Lc - 1) / Lc;
   const ReadView v(a, b);
-
-  float* fprev = smem;
-  float* fcur = smem + bw;
-  float* ffin = smem + 2 * bw;
+  LatRows<MAXI, false> rw(a, v, slots, smem);
   float* ck = o.ckpt + (size_t)b * n_chunks * bw;
   int* cks = o.ckpt_start + (size_t)b * n_chunks;
 
-  for (int q = tid; q < bw; q += NT) { fprev[q] = 0.f; ffin[q] = 0.f; }
-  __syncthreads();
-
-  long long prev_start = v.ps[0];
-  long long last_bs = prev_start;
-  bool band_err = false;
+  const long long ps0 = v.ps[0];
   const int rows = v.sl < L ? v.sl : L;
-  for (int r = 0; r < rows; ++r) {
-    if (r % Lc == 0) {
-      for (int q = tid; q < bw; q += NT)
-        ck[(size_t)(r / Lc) * bw + q] = fprev[q];
-      if (tid == 0) cks[r / Lc] = (int)prev_start;
+  for (int q = tid; q < bw; q += nt) rw.fprev()[q] = 0.f;
+  rw.begin(0, rows, ps0);
+  for (int r = 0, c = 0; r < rows; ++r) {
+    if (r == c * Lc) {           // the state before chunk c
+      const float* fp = rw.fprev();
+      for (int q = tid; q < bw; q += nt) ck[(size_t)c * bw + q] = fp[q];
+      if (tid == 0) cks[c] = (int)rw.prev_start;
+      ++c;
     }
-    const long long bs = dp_row<MAXI>(a, v, r, fprev, fcur, prev_start,
-                                      band_err, nullptr, sc);
-    if (r == v.sl - 1) {
-      for (int q = tid; q < bw; q += NT) ffin[q] = fcur[q];
-      last_bs = bs;
-    }
-    prev_start = bs;
-    float* t = fprev; fprev = fcur; fcur = t;
-    __syncthreads();
+    rw.step(r, nullptr);
   }
 
-  for (int q = tid; q < bw; q += NT) o.ffwd[(size_t)b * bw + q] = ffin[q];
+  // the final row is row seq_len - 1 where the read has one within L
+  const bool fin = v.sl >= 1 && v.sl <= L;
+  const float* fp = rw.fprev();
+  for (int q = tid; q < bw; q += nt)
+    o.ffwd[(size_t)b * bw + q] = fin ? fp[q] : 0.f;
   if (tid == 0) {
-    o.band_err[b] = band_err ? 1 : 0;
-    o.last_bs[b] = (int)last_bs;
+    o.band_err[b] = rw.band_err ? 1 : 0;
+    o.last_bs[b] = (int)(fin ? rw.prev_start : ps0);
   }
 }
 
 template <int MAXI>
 __global__ void __launch_bounds__(NT) chunked_tb_kernel(DpIn a, TbArgs o) {
-  extern __shared__ float smem[];
-  __shared__ Scratch sc;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ Slots slots;
+  __shared__ Carry carry;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks();
+  const int g = (int)cluster.block_rank();
+  const int b = blockIdx.x / G;
+  const int tid = threadIdx.x, nt = blockDim.x;
   const int bw = a.bw, L = a.L, Lc = o.Lc;
   const int n_chunks = (L + Lc - 1) / Lc;
   const ReadView v(a, b);
-
-  float* fprev = smem;
-  float* fcur = smem + bw;
-  int* tile_bs = (int*)(smem + 2 * bw);          // (Lc,) band starts
-  uint8_t* tile = o.tile + (size_t)b * Lc * bw;
+  LatRows<MAXI, true> rw(a, v, slots, smem);
+  int* tile_bs = (int*)rw.end();                       // (Lc,)
+  uint8_t* tile = (uint8_t*)(tile_bs + Lc);            // (Lc, bw)
   const float* ck = o.ckpt + (size_t)b * n_chunks * bw;
   const int* cks = o.ckpt_start + (size_t)b * n_chunks;
   int* segs = o.segs + (size_t)b * (L + 1);
   const int sl = v.sl;
   const int rows = sl < L ? sl : L;
+  const int C = (rows + Lc - 1) / Lc;                  // this read's chunks
+  const int n_win = (C + G - 1) / G;
 
-  // the walk starts at the first argmax of the read's last row
-  const long long init =
-      (long long)row_argmax(o.ffwd + (size_t)b * bw, bw, sc) + o.last_bs[b];
-  for (int r = rows + tid; r <= L; r += NT) segs[r] = 0;
-  __syncthreads();
+  // block 0: the walk starts at the first argmax of the read's last row
+  long long init = 0;
+  if (g == 0) {
+    init = (long long)dplat::row_first_argmax(o.ffwd + (size_t)b * bw, bw,
+                                              slots, false) +
+           o.last_bs[b];
+    for (int r = rows + tid; r <= L; r += nt) segs[r] = 0;
+    if (tid == 0) { carry.ep = init; carry.berr = 0; }
+  }
+  cluster.sync();              // every block running, block 0's carry set
 
-  long long ep = init;
-  bool berr = false;
-  for (int c = (rows - 1) / Lc; rows > 0 && c >= 0; --c) {
+  // Every block of the cluster meets every cluster.sync() below: the
+  // window and hop counts depend only on the read, and a block whose
+  // chunk lies before row 0 skips its work, not the syncs.
+  for (int w = 0; w < n_win; ++w) {
+    const int c = C - 1 - w * G - g;
     const int r0 = c * Lc;
     const int r1 = r0 + Lc < rows ? r0 + Lc : rows;
-    for (int q = tid; q < bw; q += NT) fprev[q] = ck[(size_t)c * bw + q];
-    long long prev_start = cks[c];
-    bool unused = false;
-    __syncthreads();
-    for (int r = r0; r < r1; ++r) {
-      const long long bs = dp_row<MAXI>(a, v, r, fprev, fcur, prev_start,
-                                        unused, tile + (size_t)(r - r0) * bw,
-                                        sc);
-      if (tid == 0) tile_bs[r - r0] = (int)bs;
-      prev_start = bs;
-      float* t = fprev; fprev = fcur; fcur = t;
-      __syncthreads();
-    }
-    if (tid < 32) {
-      for (int r = r1 - 1; r >= r0; --r) {
-        ep = tb_row(tile + (size_t)(r - r0) * bw, tile_bs[r - r0], ep, bw,
-                    a.bound_thresh, berr);
-        if (tid == 0) segs[r] = (int)(ep + 1);
+    if (c >= 0) {
+      for (int q = tid; q < bw; q += nt)
+        rw.fprev()[q] = ck[(size_t)c * bw + q];
+      rw.begin(r0, r1, cks[c]);
+      for (int r = r0; r < r1; ++r) {
+        const long long bs = rw.step(r, tile + (size_t)(r - r0) * bw);
+        if (tid == 0) tile_bs[r - r0] = (int)bs;
       }
+      __syncthreads();         // the tile is whole
     }
-    __syncthreads();
+    for (int h = 0; h < G; ++h) {
+      if (h == g && c >= 0 && tid < 32) {
+        long long ep = carry.ep;
+        bool berr = carry.berr != 0;
+        for (int r = r1 - 1; r >= r0; --r) {
+          ep = tb_row(tile + (size_t)(r - r0) * bw, tile_bs[r - r0], ep, bw,
+                      a.bound_thresh, berr);
+          if (tid == 0) segs[r] = (int)(ep + 1);
+        }
+        if (tid == 0) {
+          if (c > 0) {
+            Carry* nxt = cluster.map_shared_rank(&carry, (g + 1) % G);
+            nxt->ep = ep;
+            nxt->berr = berr ? 1 : 0;
+          } else {
+            o.bound_err[b] = berr ? 1 : 0;
+          }
+        }
+      }
+      cluster.sync();
+    }
   }
-  if (tid == 0) {
-    segs[sl] = (int)(init + 1);
-    o.bound_err[b] = berr ? 1 : 0;
+  if (g == 0 && tid == 0) {
+    if (sl <= L) segs[sl] = (int)(init + 1);
+    if (C == 0) o.bound_err[b] = 0;
   }
+  cluster.sync();              // no block leaves while another may reach it
 }
 
 bool bad_shape(int B, int L, int bw, int P, int Lc) {
   return bw < 1 || bw > NT * MAXI_CAP || B < 1 || L < 1 || P < 1 ||
          Lc < 1;
+}
+
+// the instance for bandwidth bw: MAXI >= positions per thread
+template <typename K>
+K* pick(int bw, K* k2, K* k4, K* k8, K* k16) {
+  const int ipt = dplat::pos_per_thread(bw);
+  return ipt <= 2 ? k2 : ipt <= 4 ? k4 : ipt <= 8 ? k8 : k16;
+}
+
+using FwdKernel = void(DpIn, FwdOut);
+using TbKernel = void(DpIn, TbArgs);
+
+FwdKernel* fwd_kernel(int bw) {
+  return pick<FwdKernel>(bw, chunked_fwd_kernel<2>, chunked_fwd_kernel<4>,
+                         chunked_fwd_kernel<8>, chunked_fwd_kernel<16>);
+}
+
+TbKernel* tb_kernel(int bw) {
+  return pick<TbKernel>(bw, chunked_tb_kernel<2>, chunked_tb_kernel<4>,
+                        chunked_tb_kernel<8>, chunked_tb_kernel<16>);
+}
+
+size_t tb_smem(int bw, int Lc) {
+  return dplat::rows_smem_bytes(bw) + (size_t)Lc * (bw + 4);
+}
+
+// the launch configuration of K2': one cluster of G blocks per read (G <=
+// 8, the portable cluster size)
+cudaError_t tb_config(TbKernel* k, int B, int bw, int Lc, int G,
+                      cudaStream_t st, cudaLaunchConfig_t& cfg,
+                      cudaLaunchAttribute* attr) {
+  const size_t smem = tb_smem(bw, Lc);
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((unsigned)B * G);
+  cfg.blockDim = dim3(dplat::block_threads(bw));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -180,13 +263,15 @@ extern "C" int tombo_banded_dp_chunked_fwd(
          P, start_rows, L, bw, z_shift, skip_pen, stay_pen, mask_fill,
          max_half_z, bound_thresh};
   FwdOut o{Lc, ckpt, ckpt_start, band_err, ffwd, last_bs};
-  const int ipt = (bw + NT - 1) / NT;
-  const size_t smem = (size_t)3 * bw * sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (ipt <= 2) return launch(chunked_fwd_kernel<2>, B, smem, st, a, o);
-  if (ipt <= 4) return launch(chunked_fwd_kernel<4>, B, smem, st, a, o);
-  if (ipt <= 8) return launch(chunked_fwd_kernel<8>, B, smem, st, a, o);
-  return launch(chunked_fwd_kernel<16>, B, smem, st, a, o);
+  FwdKernel* k = fwd_kernel(bw);
+  const size_t smem = dplat::rows_smem_bytes(bw);
+  if (smem + sizeof(Slots) > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  k<<<B, dplat::block_threads(bw), smem, (cudaStream_t)stream>>>(a, o);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int tombo_banded_dp_chunked_tb(
@@ -194,20 +279,37 @@ extern "C" int tombo_banded_dp_chunked_tb(
     const float* rs, int L_in, const int* seq_lens, const int* pstarts,
     const int* pvalid, const int* pend, int P, const int* start_rows,
     int B, int L, int bw, float z_shift, float skip_pen, float stay_pen,
-    float mask_fill, float max_half_z, int bound_thresh, int Lc,
+    float mask_fill, float max_half_z, int bound_thresh, int Lc, int G,
     const float* ckpt, const int* ckpt_start, const float* ffwd,
-    const int* last_bs, uint8_t* tile, int* segs, uint8_t* bound_err,
-    void* stream) {
-  if (bad_shape(B, L, bw, P, Lc)) return -1;
+    const int* last_bs, int* segs, uint8_t* bound_err, void* stream) {
+  if (bad_shape(B, L, bw, P, Lc) || G < 1 || G > 8) return -1;
   DpIn a{em, E, n_events, rm, rs, L_in, seq_lens, pstarts, pvalid, pend,
          P, start_rows, L, bw, z_shift, skip_pen, stay_pen, mask_fill,
          max_half_z, bound_thresh};
-  TbArgs o{Lc, ckpt, ckpt_start, ffwd, last_bs, tile, segs, bound_err};
-  const int ipt = (bw + NT - 1) / NT;
-  const size_t smem = (size_t)2 * bw * sizeof(float) + (size_t)Lc * sizeof(int);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (ipt <= 2) return launch(chunked_tb_kernel<2>, B, smem, st, a, o);
-  if (ipt <= 4) return launch(chunked_tb_kernel<4>, B, smem, st, a, o);
-  if (ipt <= 8) return launch(chunked_tb_kernel<8>, B, smem, st, a, o);
-  return launch(chunked_tb_kernel<16>, B, smem, st, a, o);
+  TbArgs o{Lc, ckpt, ckpt_start, ffwd, last_bs, segs, bound_err};
+  TbKernel* k = tb_kernel(bw);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = tb_config(k, B, bw, Lc, G, (cudaStream_t)stream, cfg,
+                            attr);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernelEx(&cfg, k, a, o);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// the shared memory K2' asks per block, and how many of its clusters the
+// card holds at once (cudaOccupancyMaxActiveClusters), for reports
+extern "C" int tombo_banded_dp_chunked_tb_occupancy(int bw, int Lc, int G,
+                                                    long long* smem,
+                                                    int* clusters) {
+  if (bw < 1 || bw > NT * MAXI_CAP || Lc < 1 || G < 1 || G > 8) return -1;
+  TbKernel* k = tb_kernel(bw);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = tb_config(k, G, bw, Lc, G, 0, cfg, attr);
+  if (e != cudaSuccess) return (int)e;
+  *smem = (long long)cfg.dynamicSmemBytes;
+  return (int)cudaOccupancyMaxActiveClusters(
+      clusters, reinterpret_cast<const void*>(k), &cfg);
 }

@@ -1,6 +1,8 @@
-// One row step of the adaptive banded DP and one traceback row, shared by
-// the fused kernel (banded_dp.cu) and the sequence-chunked pair
-// (banded_dp_chunked.cu).  One thread block works on one read.
+// One row step of the adaptive banded DP, the fused kernel's
+// (banded_dp.cu), and one traceback row, which the sequence-chunked pair
+// (banded_dp_chunked.cu) shares; the pair's row step is dp_row_lat.cuh,
+// the same arithmetic rebuilt for latency.  One thread block works on one
+// read.
 //
 // Per row, the band is placed at the first argmax of the previous forward
 // row (clamped monotone; prefix rows use a precomputed start plan), the
@@ -9,9 +11,9 @@
 // prefix sum of z - stay_pen (tombo_tpu_torch/ops/dp.py _row_update).
 // Ties break stay > diag > skip.
 //
-// Every kernel that includes this header runs the same row step, built
-// with the same flags (-fmad=false), so a row recomputed by the chunked
-// traceback is bitwise the row the forward pass computed.
+// Every kernel is built with the same flags (-fmad=false), so a row
+// recomputed by the chunked traceback is bitwise the row the forward pass
+// computed, and both are the fused kernel's row.
 //
 // Precision: the stay prefix sum accumulates in double and rounds to float
 // once per position, as ops/precision.py seq_cumsum does for float32, so the
@@ -317,11 +319,12 @@ __device__ inline long long tb_row(const uint8_t* row, long long bsr,
 }
 
 // launch one block of NT threads per read with `smem` bytes of dynamic
-// shared memory; returns the CUDA error code (0 on success)
+// shared memory; returns the CUDA error code (0 on success).  Above 48 KB
+// of dynamic and static shared memory together a kernel must opt in.
 template <typename... Args>
 int launch(void (*kernel)(Args...), int B, size_t smem, cudaStream_t st,
            Args... args) {
-  if (smem > 48 * 1024) {
+  if (smem + sizeof(Scratch) > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;

@@ -40,9 +40,63 @@ _INT32_MAX = 2 ** 31 - 1
 # twice, takes only the reads whose moves would otherwise grow without
 # bound (bw 300 above 16,384 rows, the save bandwidth 1500 above 4,096).
 PER_READ_MOVE_CAP = 8 * 2 ** 20
-# rows per chunk of the chunked pair: per-read scratch is one (Lc, bw)
-# move tile plus one bw-float checkpoint per Lc rows
+# rows per chunk of the chunked pair, at most: per-read scratch is one
+# bw-float checkpoint per chunk; the traceback keeps each chunk's (Lc, bw)
+# move tile in a block's shared memory (tile_rows)
 CHUNK_ROWS = 512
+# blocks of the traceback's thread-block cluster (K2'): one read's chunks
+# are recomputed this many at a time.  8 is the portable cluster size.
+CLUSTER_BLOCKS = 8
+
+# The traceback block's shared memory, as csrc/dp_row_lat.cuh and
+# csrc/banded_dp_chunked.cu lay it out: the row loop's two forward rows,
+# two staged event windows of bw + _EM_MARGIN and two stages of
+# _STAGE_ROWS rows of four 4-byte inputs; then per tile row, bw move codes
+# and one band start.  An H100 SM has 233,472 bytes of shared memory, a
+# block at most 232,448, and each block on an SM takes 1 KiB more for the
+# system: TB_SMEM_BUDGET is one block an SM (less 1 KiB for the kernel's
+# static shared memory), TB_SMEM_HALF two.
+_EM_MARGIN, _STAGE_ROWS = 256, 32
+TB_SMEM_BUDGET = 232448 - 1024
+TB_SMEM_HALF = 233472 // 2 - 2048
+
+
+def tb_smem_bytes(n_tile_rows: int, bandwidth: int) -> int:
+    """Dynamic shared memory of one traceback block (bytes)."""
+    bw = int(bandwidth)
+    rows_loop = 8 * bw + 8 * (bw + _EM_MARGIN) + 2 * _STAGE_ROWS * 16
+    return rows_loop + int(n_tile_rows) * (bw + 4)
+
+
+def _fit_rows(budget: int, bandwidth: int) -> int:
+    return (budget - tb_smem_bytes(0, bandwidth)) // (bandwidth + 4)
+
+
+def tb_smem_budget(bandwidth: int) -> int:
+    """The traceback block's shared memory budget at this bandwidth: half
+    an SM, so two blocks share one and twice the reads' chunks recompute
+    at once, while a tile still holds CHUNK_ROWS / 2 rows (bw 300, where
+    two blocks an SM measured 1.6x faster at 16 reads); else one block
+    an SM, so a wide band's tile keeps its rows."""
+    if _fit_rows(TB_SMEM_HALF, bandwidth) >= CHUNK_ROWS // 2:
+        return TB_SMEM_HALF
+    return TB_SMEM_BUDGET
+
+
+def tile_rows(bandwidth: int, chunk_rows: int = CHUNK_ROWS) -> int:
+    """Lc_k, the chunk rows of the chunked pair at this bandwidth: at most
+    ``chunk_rows``, and as many as let one chunk's move tile stay within
+    :func:`tb_smem_budget` (351 at bw 300, 135 at 1500, 39 at 4096).  K2
+    checkpoints every Lc_k rows."""
+    fit = _fit_rows(tb_smem_budget(bandwidth), bandwidth)
+    return max(1, min(int(chunk_rows), fit))
+
+
+def chunked_scratch_bytes(n_rows: int, bandwidth: int, lc: int) -> int:
+    """Device scratch per read of the chunked pair at chunk rows ``lc``:
+    one checkpoint (bw forward floats + band start) per chunk.  The move
+    tiles never leave shared memory."""
+    return -(-int(n_rows) // int(lc)) * (4 * int(bandwidth) + 4)
 
 
 def plan_dp_layout(n_rows: int, bandwidth: int):
@@ -118,8 +172,10 @@ _ARGTYPES = {
     "tombo_banded_dp": _IN_ARGTYPES + [ctypes.c_void_p] * 7,
     "tombo_banded_dp_chunked_fwd": _IN_ARGTYPES + [ctypes.c_int] +
     [ctypes.c_void_p] * 6,
-    "tombo_banded_dp_chunked_tb": _IN_ARGTYPES + [ctypes.c_int] +
-    [ctypes.c_void_p] * 8,
+    "tombo_banded_dp_chunked_tb": _IN_ARGTYPES + [ctypes.c_int] * 2 +
+    [ctypes.c_void_p] * 7,
+    "tombo_banded_dp_chunked_tb_occupancy": [ctypes.c_int] * 3 +
+    [ctypes.c_void_p] * 2,
 }
 
 
@@ -214,28 +270,25 @@ def adaptive_banded_dp_tb_chunked(event_means, n_events, ref_means, ref_sds,
                                   prefix_rows: int, band_bound_thresh: int,
                                   chunk_rows: int = CHUNK_ROWS):
     """The same DP and traceback, chunked along the rows (K2 forward, then
-    K2' traceback): device scratch per read is one (chunk_rows, bw) move
-    tile plus one forward-row checkpoint per chunk, whatever the read's
-    length."""
+    K2' traceback, one cluster of :data:`CLUSTER_BLOCKS` blocks per read)
+    at :func:`tile_rows` rows a chunk: device scratch per read is one
+    forward-row checkpoint per chunk, whatever the read's length."""
     ins = (event_means, n_events, ref_means, ref_sds, seq_lens,
            prefix_starts, prefix_valid_start, prefix_end, start_rows,
            params, n_rows)
-    if event_means.device.type == "cpu":
-        return adaptive_banded_dp_tb_chunked_plain(
-            *ins, prefix_rows, band_bound_thresh, chunk_rows)
     if chunk_rows < 1:
         raise ValueError("chunk_rows must be positive")
+    L, bw = int(n_rows), int(params.bandwidth)
+    Lc = tile_rows(bw, min(int(chunk_rows), L))
+    if event_means.device.type == "cpu":
+        return adaptive_banded_dp_tb_chunked_plain(
+            *ins, prefix_rows, band_bound_thresh, Lc)
     args, _keep = _kernel_inputs(*ins, band_bound_thresh)
     B, dev = event_means.shape[0], event_means.device
-    L, bw = int(n_rows), int(params.bandwidth)
-    Lc = min(int(chunk_rows), L)
-    n_chunks = -(-L // Lc)
-    ckpt = torch.empty((B, n_chunks, bw), dtype=torch.float32, device=dev)
-    ckpt_start = torch.empty((B, n_chunks), dtype=torch.int32, device=dev)
+    ckpt, ckpt_start = chunked_scratch(B, L, bw, Lc, dev)
     band_err = torch.empty(B, dtype=torch.uint8, device=dev)
     ffwd = torch.empty((B, bw), dtype=torch.float32, device=dev)
     last_bs = torch.empty(B, dtype=torch.int32, device=dev)
-    tile = torch.empty((B, Lc, bw), dtype=torch.uint8, device=dev)
     segs = torch.empty((B, L + 1), dtype=torch.int32, device=dev)
     bound_err = torch.empty(B, dtype=torch.uint8, device=dev)
     p, stream = kernels.ptr, kernels.stream_handle(dev)
@@ -246,9 +299,36 @@ def adaptive_banded_dp_tb_chunked(event_means, n_events, ref_means, ref_sds,
             p(last_bs), stream), "banded_dp_chunked_fwd")
         _check_launch(_kernel_fn("banded_dp_chunked",
                                  "tombo_banded_dp_chunked_tb")(
-            *args, Lc, p(ckpt), p(ckpt_start), p(ffwd), p(last_bs),
-            p(tile), p(segs), p(bound_err), stream), "banded_dp_chunked_tb")
+            *args, Lc, CLUSTER_BLOCKS, p(ckpt), p(ckpt_start), p(ffwd),
+            p(last_bs), p(segs), p(bound_err), stream),
+            "banded_dp_chunked_tb")
     return segs, band_err.bool(), bound_err.bool(), ffwd
+
+
+def chunked_scratch(n_reads: int, n_rows: int, bandwidth: int, lc: int,
+                    device):
+    """The device scratch of the chunked pair, which K2 writes and K2'
+    reads: checkpoints (B, n_chunks, bw) float32 and their band starts
+    (B, n_chunks) int32; :func:`chunked_scratch_bytes` per read."""
+    n_chunks = -(-int(n_rows) // int(lc))
+    return (torch.empty((n_reads, n_chunks, bandwidth), dtype=torch.float32,
+                        device=device),
+            torch.empty((n_reads, n_chunks), dtype=torch.int32,
+                        device=device))
+
+
+def chunked_tb_occupancy(bandwidth: int, lc: int):
+    """(shared memory bytes per block, clusters resident at once) of the
+    traceback kernel K2' on the current card, for a report:
+    ``cudaOccupancyMaxActiveClusters`` at :data:`CLUSTER_BLOCKS`."""
+    smem, clusters = ctypes.c_longlong(0), ctypes.c_int(0)
+    err = _kernel_fn("banded_dp_chunked",
+                     "tombo_banded_dp_chunked_tb_occupancy")(
+        int(bandwidth), int(lc), int(CLUSTER_BLOCKS), ctypes.byref(smem),
+        ctypes.byref(clusters))
+    if err != 0:
+        raise RuntimeError("K2' occupancy query failed (error %d)" % err)
+    return smem.value, clusters.value
 
 
 def adaptive_banded_dp_tb_sharded(mesh, dp_args, params: DpParams,

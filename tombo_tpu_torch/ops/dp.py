@@ -287,11 +287,13 @@ def banded_traceback(tb, band_starts, seq_lens, top_band_pos,
 def finish_segs(segs_rows, seq_lens, init_event_pos, n_rows: int):
     """(B, <= L) row boundaries -> (B, L+1), zero past the rows given,
     with entry ``seq_len`` set to the top row's event position + 1
-    (reference: pyx:290-293)."""
+    (reference: pyx:290-293); a read longer than L has no such entry, as
+    the JAX package's ``.at[seq_len].set`` drops it."""
     segs = torch.nn.functional.pad(
-        segs_rows, (0, n_rows + 1 - segs_rows.shape[1]))
-    segs.scatter_(1, seq_lens.long()[:, None], (init_event_pos + 1)[:, None])
-    return segs
+        segs_rows, (0, n_rows + 2 - segs_rows.shape[1]))
+    segs.scatter_(1, seq_lens.long().clamp(max=n_rows + 1)[:, None],
+                  (init_event_pos + 1)[:, None])
+    return segs[:, :n_rows + 1].contiguous()
 
 
 def start_band_dp(event_means, ref_means, ref_sds, params: StartDpParams):
