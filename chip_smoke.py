@@ -492,6 +492,11 @@ def main():
         for name, log in kernels.BUILD_LOG.items():
             for line in ptxas_summary(log):
                 print("  ptxas %s: %s" % (name, line))
+        for bw in (300, 750, 1500, 2500):
+            threads, smem, blocks = banded_dp.banded_dp_occupancy(bw)
+            print("  K1 at bw %d: %d threads, %d bytes dynamic shared "
+                  "memory, %d blocks an SM (cudaOccupancyMaxActiveBlocks"
+                  "PerMultiprocessor)" % (bw, threads, smem, blocks))
 
     # ---- phase 2: the 1 kb path on the card
     with phase("1 kb path"):
@@ -700,6 +705,33 @@ def main():
         print("device (mixed): %s" % json.dumps(
             device_profile(br, mixed[1])))
 
+    # ---- phase 6b: K1 at the mixed path's longest fused call
+    with phase("K1 vs plain, longest mixed fused shape"):
+        fused_keys = [k for k in rec_k1m.calls if k[1] == params.bandwidth]
+        if not fused_keys:
+            fail("the mixed path ran no fused DP at bw %d" %
+                 params.bandwidth)
+        margs = rec_k1m.calls[max(fused_keys)][1]
+        L = margs[10]
+        ko = k1(*margs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        po = pdp(*margs)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        same_flags, frac, ferr = dp_compare(ko, po, margs[4], L)
+        bound, by = k1_bound_ms(margs, params.bandwidth)
+        shape = {"label": "mixed longest fused", "B": margs[0].shape[0],
+                 "L": L, "bw": params.bandwidth, "segs_equal_frac": frac,
+                 "flags_equal": same_flags, "max_abs_err": ferr,
+                 "ms": cuda_ms(lambda: k1(*margs), 5),
+                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                 "peak_bytes": peak_bytes(lambda: k1(*margs))}
+        print("banded_dp %s: %s" % (shape["label"], json.dumps(shape)))
+        check_dp_bars("banded_dp mixed longest fused", same_flags, frac,
+                      ferr)
+        k1_shapes.append(shape)
+
     # ---- phase 7: the chunked pair at the captured long shape
     with phase("chunked pair vs K1 and plain, long shape"):
         size, all_args, kw = max(
@@ -769,7 +801,7 @@ def main():
             "plain_pair_ms": plain_pair_ms, "plain_fwd_ms": plain_fwd_ms,
             "k1_peak_bytes": peak_bytes(lambda: k1(*args)),
             "pair_peak_bytes": peak_bytes(lambda: k2(*args, **kw)),
-            "k1_move_bytes": B * L * bw,
+            "k1_move_bytes": B * L * banded_dp.move_stride(bw),
             "pair_scratch_bytes": B * banded_dp.chunked_scratch_bytes(
                 L, bw, lc_k),
             "tb_bound_ms": tb_bound, "tb_bytes_bound_ms": tb_bytes_ms,

@@ -9,7 +9,9 @@ one.  On a machine with a card and nvcc, run them with
 (``--noconftest`` because the suite's conftest imports jax, which this
 file does not need).  Bars: the DP kernel's error flags are identical
 and its boundaries equal on at least 99.5% of positions, final_fwd
-within 1e-3 (float32 co-optimal ties, as in chip_smoke.py); the
+within 1e-3 (float32 co-optimal ties, as in chip_smoke.py), also on
+reads with no row, one row, every row and more rows than the call runs,
+and each read of a ragged batch is bitwise what it is alone; the
 chunked pair (K2 + K2') is bitwise equal to the fused kernel (K1), whose
 row step it shares, and within K1's bars of its plain version; the count
 kernel is exact, and so the median slope is bitwise equal.  The sharded
@@ -78,6 +80,45 @@ def test_banded_dp_kernel_matches_plain(card, bw, B, L, P, E):
                                     banded_dp=before["banded_dp"] + 1)
     q = banded_dp.adaptive_banded_dp_tb_plain(*args, p, L, P, 10)
     _assert_dp_close(k, q, args[4], L)
+
+
+@pytest.mark.parametrize("bw", [32, 300, 750, 2500])
+def test_banded_dp_kernel_edge_seq_lens(card, bw):
+    """K1 at B 1 on reads with no row, one row, every row and more rows
+    than the call runs, against its plain version."""
+    L, P = 256, 32
+    base = _dp_case(bw + 7, 1, L, P, bw, 2 * L + bw)
+    p = dp.DpParams(z_shift=2.0, skip_pen=4.2, stay_pen=4.2,
+                    mask_fill_z_score=-15.0, max_half_z_score=20.0,
+                    bandwidth=bw)
+    for sl in (0, 1, L, L + 5):
+        args = [a.clone() for a in base]
+        args[4][0] = sl
+        args = [a.to(card) for a in args]
+        k = banded_dp.adaptive_banded_dp_tb(*args, p, L, P, 10)
+        q = banded_dp.adaptive_banded_dp_tb_plain(*args, p, L, P, 10)
+        torch.cuda.synchronize()
+        _assert_dp_close(k, q, args[4], L)
+
+
+def test_banded_dp_kernel_reads_independent(card):
+    """Each read of a ragged batch (half of it at most L/2 long) gives,
+    bitwise, what it gives alone."""
+    bw, B, L, P = 300, 16, 1024, 64
+    args = _dp_case(11, B, L, P, bw, 2 * L + bw)
+    rng = np.random.default_rng(12)
+    args[4][:B // 2] = torch.tensor(rng.integers(1, L // 2 + 1, B // 2))
+    args[4][0] = 0
+    args = [a.to(card) for a in args]
+    p = dp.DpParams(z_shift=2.0, skip_pen=4.2, stay_pen=4.2,
+                    mask_fill_z_score=-15.0, max_half_z_score=20.0,
+                    bandwidth=bw)
+    whole = banded_dp.adaptive_banded_dp_tb(*args, p, L, P, 10)
+    for i in range(B):
+        alone = banded_dp.adaptive_banded_dp_tb(
+            *[a[i:i + 1] for a in args], p, L, P, 10)
+        for x, y in zip(whole, alone):
+            assert torch.equal(x[i:i + 1], y)
 
 
 def _assert_dp_close(k, q, seq_lens, L):

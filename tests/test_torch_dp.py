@@ -87,14 +87,45 @@ def test_plain_dp_matches_scan_engine(seed, dtype):
            final_fwd, seq_lens, bw, exact=dtype == np.float64)
 
 
-def test_plain_dp_matches_pallas_interpret():
-    args, seq_lens = _mk_case(3)
-    L, P, bw = 128, 64, 32
-    segs, band_err, bound_err, ffwd = j_pdp.adaptive_banded_dp_tb(
+# seq_lens given to the first reads of a batch of L 128: no row, one row,
+# every row but one, every row, and more rows than the call runs
+EDGE_SEQ_LENS = (0, 1, 127, 128, 133)
+
+
+@pytest.mark.parametrize("bw,edge", [(32, False), (32, True), (64, True)])
+def test_plain_dp_matches_pallas_interpret(bw, edge):
+    """The plain version against the JAX kernel in interpret mode, with
+    edge seq_lens on some reads.  A read with no last row within L
+    (seq_len 0 or > L) differs by design (ROADMAP Queue 3): the port keeps
+    a zero final row and starts its walk at the read's first prefix band
+    start, as K1 does, where the JAX kernel returns a NEG_LARGE row and,
+    at seq_len 0, reads its start from no band start at all.  Its rows
+    [0, min(seq_len, L)) and its flags agree."""
+    args, seq_lens = _mk_case(3, bw=bw)
+    if edge:
+        seq_lens = seq_lens.copy()
+        seq_lens[:len(EDGE_SEQ_LENS)] = EDGE_SEQ_LENS
+        args = args[:4] + (seq_lens,) + args[5:]
+    L, P = 128, 64
+    j_out = [np.asarray(x) for x in j_pdp.adaptive_banded_dp_tb(
         *map(jnp.asarray, args), _params(bw, j_dp.DpParams), L, P, 10,
-        block_reads=4, interpret=True, variant="loop")
-    _check(_run_torch(args, bw, L, P, 10), segs, band_err, bound_err, ffwd,
-           seq_lens, bw)
+        block_reads=4, interpret=True, variant="loop")]
+    t_out = _run_torch(args, bw, L, P, 10)
+    last = (seq_lens >= 1) & (seq_lens <= L)
+    _check([x[torch.from_numpy(last)] for x in t_out],
+           *[x[last] for x in j_out], seq_lens[last], bw)
+    segs, band_err, bound_err, ffwd = [x.numpy() for x in t_out]
+    np.testing.assert_array_equal(band_err, j_out[1])
+    np.testing.assert_array_equal(bound_err, j_out[2])
+    for i in np.flatnonzero(~last):
+        if seq_lens[i] == 0:       # entry 0 is the walk's start + 1
+            assert segs[i, 0] == args[5][i, 0] + 1
+            np.testing.assert_array_equal(segs[i, 1:], j_out[0][i, 1:])
+        else:
+            np.testing.assert_array_equal(segs[i], j_out[0][i])
+        np.testing.assert_array_equal(ffwd[i], 0)
+        np.testing.assert_array_equal(j_out[3][i, :bw],
+                                      np.float32(j_dp.NEG_LARGE))
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -125,3 +156,11 @@ def test_cpu_path_launches_no_kernel():
     args, _ = _mk_case(7, B=2, L_max=64, P_max=16, bw=16)
     _run_torch(args, 16, 64, 16, 4)
     assert kernels.LAUNCHES["banded_dp"] == before
+
+
+def test_move_stride_holds_codes_and_band_start():
+    """K1's scratch row: bw move codes and a 4-byte band start, padded to
+    16 bytes and no more."""
+    for bw in range(1, 4097):
+        m = t_bdp.move_stride(bw)
+        assert m % 16 == 0 and bw + 4 <= m < bw + 20

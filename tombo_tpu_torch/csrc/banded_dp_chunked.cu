@@ -263,15 +263,8 @@ extern "C" int tombo_banded_dp_chunked_fwd(
          P, start_rows, L, bw, z_shift, skip_pen, stay_pen, mask_fill,
          max_half_z, bound_thresh};
   FwdOut o{Lc, ckpt, ckpt_start, band_err, ffwd, last_bs};
-  FwdKernel* k = fwd_kernel(bw);
-  const size_t smem = dplat::rows_smem_bytes(bw);
-  if (smem + sizeof(Slots) > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  k<<<B, dplat::block_threads(bw), smem, (cudaStream_t)stream>>>(a, o);
-  return (int)cudaGetLastError();
+  return launch(fwd_kernel(bw), B, dplat::block_threads(bw),
+                dplat::rows_smem_bytes(bw), (cudaStream_t)stream, a, o);
 }
 
 extern "C" int tombo_banded_dp_chunked_tb(

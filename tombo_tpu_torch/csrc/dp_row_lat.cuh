@@ -1,25 +1,37 @@
-// The adaptive banded DP's row step rebuilt for latency, for the
-// sequence-chunked pair (banded_dp_chunked.cu): one block per read, whose
-// rows run one after another, so what bounds it is the time from one row's
-// band start to the next's.  The fused kernel (banded_dp.cu) keeps the
-// row step of dp_row.cuh.
+// The adaptive banded DP's row step, shared by the fused kernel K1
+// (banded_dp.cu) and the sequence-chunked pair K2, K2'
+// (banded_dp_chunked.cu).  One block works on one read, whose rows run one
+// after another, so what bounds a read is the time from one row's band
+// start to the next's.
 //
-// Same arithmetic, bit for bit.  Each position is computed as dp_row.cuh's
-// dp_row computes it (the division in the z-score, the max_half_z clamp,
-// the mask, the stay prefix in double rounded once to float, ties stay >
-// diag > skip), and the summation keeps the fused kernel's grouping: its
-// thread t holds the positions [t * ipt, (t + 1) * ipt), ipt = ceil(bw /
-// 256), its warps scan their 32 per-thread sums with a Hillis-Steele
-// shuffle scan, and warp 0 scans the warp totals the same way.  Thread t
-// here holds the same positions, and every scan is the same sequence of
-// operations on the same operands, so every double sum and running max is
-// the fused kernel's, and a row here is the fused kernel's row, bitwise.
+// Per row, the band is placed at the first argmax of the previous forward
+// row (clamped monotone; prefix rows use a precomputed start plan), the
+// masked winsorized shifted z-scores are formed, and the stay/diag/skip
+// recurrence is solved in closed form, fwd = c + cummax(d - c) with c the
+// prefix sum of z - stay_pen (tombo_tpu_torch/ops/dp.py _row_update).
+// Ties break stay > diag > skip.
 //
-// What changes is the latency of a row:
+// The summation order, which makes a row of any kernel bitwise the same
+// row of another:
+//   - thread t holds the band positions [t * ipt, (t + 1) * ipt), ipt =
+//     ceil(bw / 256), and sums their stay terms in ascending order, in
+//     double;
+//   - each warp scans its 32 per-thread sums with a Hillis-Steele shuffle
+//     scan (offsets 1, 2, 4, 8, 16);
+//   - the warp totals combine in warp 0's order: the same Hillis-Steele
+//     scan over the (at most 8) totals, a missing warp counting 0;
+//   - a position's stay prefix is (its warp's prefix + its thread's
+//     exclusive prefix in the warp) + its thread's running sum through it,
+//     in double, rounded to float once.
+// The running max of the closed form takes the same order (a missing warp
+// or a thread past the band counts -inf).  The number of threads does not
+// enter: a thread that holds no position adds 0 and -inf.
+//
+// What makes a row short:
 //   - The block has only the warps that hold band positions (5 at bw 300,
-//     not 8), and three __syncthreads a row (not about ten).  Warp totals
-//     go to a shared slot and every warp combines the <= 8 totals itself
-//     in registers, so no barrier follows a combine.
+//     not 8), and three __syncthreads a row.  Warp totals go to a shared
+//     slot and every warp combines the <= 8 totals itself in registers, so
+//     no barrier follows a combine.
 //   - The next row's band start comes from the first argmax of the values
 //     still in registers when the row is written (a thread's first
 //     maximum, then redux.sync on order-preserving keys, then one shared
@@ -44,8 +56,8 @@
 // the previous row's position 0, as the plain version (ops/dp.py
 // _row_update) does.
 //
-// Precondition: every row the loop runs is inside its read (r < seq_len),
-// as in both chunked kernels, which stop at the read's own length.
+// Precondition: every row the loop runs is inside its read (r < seq_len);
+// all three kernels stop at the read's own length.
 #pragma once
 
 #include "dp_row.cuh"
@@ -61,7 +73,7 @@ constexpr int MAX_NW = dprow::NT / 32;   // warps of the widest band
 constexpr int STAGE_ROWS = 32;           // rows of ref levels per stage
 constexpr int EM_MARGIN = 256;           // staged events past the band
 
-// positions per thread, as dp_row.cuh
+// positions per thread
 __host__ __device__ inline int pos_per_thread(int bw) {
   return (bw + dprow::NT - 1) / dprow::NT;
 }
@@ -92,6 +104,13 @@ __device__ inline void cp_async4(void* dst, const void* src) {
                "l"(src)
                : "memory");
 }
+// 16 bytes, both addresses 16-byte aligned; read from L2, not L1
+__device__ inline void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
 __device__ inline void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -100,7 +119,7 @@ __device__ inline void cp_async_wait_all() {
 }
 
 // order-preserving int key of a float that is not NaN, with -0 and +0
-// equal (they compare equal in the fused kernel's argmax)
+// equal (they compare equal as floats)
 __device__ inline int fkey(float x) {
   const int b = __float_as_int(x + 0.0f);
   return b ^ ((b >> 31) & 0x7fffffff);
@@ -116,9 +135,9 @@ __device__ inline void warp_argmax(int& key, int& idx) {
 
 // The block's first argmax from every thread's first maximum (bv, bi):
 // the smallest position among those holding the largest value, where no
-// position holding -inf or NaN counts (0x7fffffff if none does), as
-// dp_row.cuh's row_argmax.  One barrier, which also publishes the caller's
-// earlier shared writes and, with wait_copies, its finished cp.async.
+// position holding -inf or NaN counts (0x7fffffff if none does).  One
+// barrier, which also publishes the caller's earlier shared writes and,
+// with wait_copies, its finished cp.async.
 __device__ inline int block_argmax(float bv, int bi, Slots& s,
                                    bool wait_copies) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -159,7 +178,7 @@ __device__ inline T mux8(const T (&w)[MAX_NW], int i) {
 }
 
 // the inclusive prefix at warp - 1 of the warp totals t[0, nw), summed in
-// the Hillis-Steele order of dp_row.cuh block_exscan_sum (0 for warp 0)
+// warp 0's Hillis-Steele order (0 for warp 0)
 __device__ inline double warps_before_sum(const double* t, int nw,
                                           int warp) {
   double w[MAX_NW];
@@ -173,8 +192,7 @@ __device__ inline double warps_before_sum(const double* t, int nw,
   return warp > 0 ? mux8(w, warp - 1) : 0.0;
 }
 
-// the same for the running max (dp_row.cuh block_exscan_max; -inf for
-// warp 0)
+// the same for the running max (-inf for warp 0)
 __device__ inline float warps_before_max(const float* t, int nw, int warp) {
   float w[MAX_NW];
 #pragma unroll

@@ -33,12 +33,13 @@ from .dp import DpParams, StartDpParams
 
 _INT32_MAX = 2 ** 31 - 1
 
-# K1 keeps each read's (L, bw) uint8 move codes in device memory.  Up to
-# this many bytes per read a group runs fused, above it chunked: a fused
-# launch then holds at most 8 MiB of moves per read (4 GiB for a 512-read
-# batch, 5% of the card), and the chunked pair, which runs each row step
-# twice, takes only the reads whose moves would otherwise grow without
-# bound (bw 300 above 16,384 rows, the save bandwidth 1500 above 4,096).
+# K1 keeps each read's (L, bw) uint8 move codes in device memory (in rows
+# of move_stride(bw) bytes).  Up to this many move bytes per read a group
+# runs fused, above it chunked: a fused launch then holds about 8 MiB of
+# moves per read (4 GiB for a 512-read batch, 5% of the card), and the
+# chunked pair, which runs each row step twice, takes only the reads whose
+# moves would otherwise grow without bound (bw 300 above 16,384 rows, the
+# save bandwidth 1500 above 4,096).
 PER_READ_MOVE_CAP = 8 * 2 ** 20
 # rows per chunk of the chunked pair, at most: per-read scratch is one
 # bw-float checkpoint per chunk; the traceback keeps each chunk's (Lc, bw)
@@ -99,6 +100,13 @@ def chunked_scratch_bytes(n_rows: int, bandwidth: int, lc: int) -> int:
     return -(-int(n_rows) // int(lc)) * (4 * int(bandwidth) + 4)
 
 
+def move_stride(bandwidth: int) -> int:
+    """Bytes of one row of K1's move scratch (csrc/banded_dp.cu): the bw
+    move codes, then the row's band start as an int32 in its last 4
+    bytes, rows 16-byte aligned for the walk's 16-byte copies."""
+    return -(-(int(bandwidth) + 4) // 16) * 16
+
+
 def plan_dp_layout(n_rows: int, bandwidth: int):
     """("fused",) while one read's ``n_rows x bandwidth`` move bytes stay
     within :data:`PER_READ_MOVE_CAP`, else ("chunked", Lc)."""
@@ -112,15 +120,23 @@ def adaptive_banded_dp_tb_plain(event_means, n_events, ref_means, ref_sds,
                                 prefix_end, start_rows, params: DpParams,
                                 n_rows: int, prefix_rows: int,
                                 band_bound_thresh: int):
-    tb, band_starts, final_fwd, band_err = dp.adaptive_banded_dp(
-        event_means, n_events, ref_means, ref_sds, seq_lens, prefix_starts,
-        prefix_valid_start, prefix_end, start_rows, params, n_rows,
-        prefix_rows)
-    top = torch.argmax(final_fwd, 1)
-    segs, bound_err = dp.banded_traceback(
-        tb, band_starts, seq_lens, top, band_bound_thresh,
-        params.bandwidth, n_rows)
-    return segs.to(torch.int32), band_err, bound_err, final_fwd
+    """K1's plain version: every row forward, then the walk back from the
+    first argmax of row ``seq_len - 1``.  A read with no such row within
+    ``n_rows`` (seq_len 0, or past ``n_rows``) keeps a zero final row and
+    starts its walk at its first prefix band start, as K1 does."""
+    bw = params.bandwidth
+    x = dp.dp_inputs(event_means, n_events, ref_means, ref_sds, seq_lens,
+                     prefix_starts, prefix_valid_start, prefix_end,
+                     start_rows, params, n_rows, prefix_rows)
+    state, tb, band_starts = dp.adaptive_dp_rows(
+        x, dp.init_fwd_state(x, bw), 0, n_rows, params)
+    init_event_pos = torch.argmax(state.final_fwd, 1) + state.last_start
+    segs, _, bound_err = dp.traceback_rows(
+        tb, band_starts, x.seq_lens, 0, init_event_pos,
+        torch.zeros_like(state.band_error), band_bound_thresh, bw)
+    segs = dp.finish_segs(segs, x.seq_lens, init_event_pos, n_rows)
+    return (segs.to(torch.int32), state.band_error, bound_err,
+            state.final_fwd)
 
 
 def adaptive_banded_dp_tb_chunked_plain(
@@ -169,7 +185,9 @@ _IN_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                  ctypes.c_int, ctypes.c_int, ctypes.c_int] +
                 [ctypes.c_float] * 5 + [ctypes.c_int])
 _ARGTYPES = {
-    "tombo_banded_dp": _IN_ARGTYPES + [ctypes.c_void_p] * 7,
+    "tombo_banded_dp": _IN_ARGTYPES + [ctypes.c_void_p, ctypes.c_int] +
+    [ctypes.c_void_p] * 5,
+    "tombo_banded_dp_occupancy": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3,
     "tombo_banded_dp_chunked_fwd": _IN_ARGTYPES + [ctypes.c_int] +
     [ctypes.c_void_p] * 6,
     "tombo_banded_dp_chunked_tb": _IN_ARGTYPES + [ctypes.c_int] * 2 +
@@ -239,7 +257,8 @@ def adaptive_banded_dp_tb(event_means, n_events, ref_means, ref_sds,
                           n_rows: int, prefix_rows: int,
                           band_bound_thresh: int):
     """Start-masked + adaptive banded DP and traceback for a read batch,
-    fused (K1)."""
+    fused (K1): device scratch of ``n_rows x move_stride(bw)`` bytes per
+    read."""
     ins = (event_means, n_events, ref_means, ref_sds, seq_lens,
            prefix_starts, prefix_valid_start, prefix_end, start_rows,
            params, n_rows)
@@ -249,8 +268,8 @@ def adaptive_banded_dp_tb(event_means, n_events, ref_means, ref_sds,
     args, _keep = _kernel_inputs(*ins, band_bound_thresh)
     B, dev = event_means.shape[0], event_means.device
     L, bw = int(n_rows), int(params.bandwidth)
-    moves = torch.empty((B, L, bw), dtype=torch.uint8, device=dev)
-    bstarts = torch.empty((B, L), dtype=torch.int32, device=dev)
+    mst = move_stride(bw)
+    moves = torch.empty((B, L, mst), dtype=torch.uint8, device=dev)
     segs = torch.empty((B, L + 1), dtype=torch.int32, device=dev)
     band_err = torch.empty(B, dtype=torch.uint8, device=dev)
     bound_err = torch.empty(B, dtype=torch.uint8, device=dev)
@@ -258,8 +277,8 @@ def adaptive_banded_dp_tb(event_means, n_events, ref_means, ref_sds,
     p = kernels.ptr
     with torch.cuda.device(dev):
         _check_launch(_kernel_fn("banded_dp", "tombo_banded_dp")(
-            *args, p(moves), p(bstarts), p(segs), p(band_err),
-            p(bound_err), p(ffwd), kernels.stream_handle(dev)), "banded_dp")
+            *args, p(moves), mst, p(segs), p(band_err), p(bound_err),
+            p(ffwd), kernels.stream_handle(dev)), "banded_dp")
     return segs, band_err.bool(), bound_err.bool(), ffwd
 
 
@@ -315,6 +334,20 @@ def chunked_scratch(n_reads: int, n_rows: int, bandwidth: int, lc: int,
                         device=device),
             torch.empty((n_reads, n_chunks), dtype=torch.int32,
                         device=device))
+
+
+def banded_dp_occupancy(bandwidth: int):
+    """(threads, dynamic shared memory bytes, blocks resident an SM) of
+    K1's block at this bandwidth on the current card, for a report:
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    threads, smem, blocks = (ctypes.c_int(0), ctypes.c_longlong(0),
+                             ctypes.c_int(0))
+    err = _kernel_fn("banded_dp", "tombo_banded_dp_occupancy")(
+        int(bandwidth), move_stride(bandwidth), ctypes.byref(threads),
+        ctypes.byref(smem), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError("K1 occupancy query failed (error %d)" % err)
+    return threads.value, smem.value, blocks.value
 
 
 def chunked_tb_occupancy(bandwidth: int, lc: int):

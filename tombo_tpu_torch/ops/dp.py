@@ -226,21 +226,6 @@ def adaptive_dp_rows(x: DpInputs, state: FwdState, r0: int, r1: int,
             tb, band_starts)
 
 
-def adaptive_banded_dp(event_means, n_events, ref_means, ref_sds, seq_lens,
-                       prefix_starts, prefix_valid_start, prefix_end,
-                       start_rows, params: DpParams, n_rows: int,
-                       prefix_rows: int):
-    """Start-masked prefix + adaptive banded forward pass for a batch, all
-    rows at once.  Returns (tb (L, B, bw) int8, band_starts (L, B),
-    final_fwd (B, bw), band_error (B,) bool)."""
-    x = dp_inputs(event_means, n_events, ref_means, ref_sds, seq_lens,
-                  prefix_starts, prefix_valid_start, prefix_end, start_rows,
-                  params, n_rows, prefix_rows)
-    state, tb, band_starts = adaptive_dp_rows(
-        x, init_fwd_state(x, params.bandwidth), 0, n_rows, params)
-    return tb, band_starts, state.final_fwd, state.band_error
-
-
 def traceback_rows(tb, band_starts, seq_lens, r0: int, event_pos,
                    bound_err, band_bound_thresh: int, bandwidth: int):
     """Walk rows ``[r0, r0 + len(tb))`` back, last row first, from the
