@@ -3,26 +3,34 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and nvcc (CUDA_HOME, default /usr/local/cuda).  It
-builds the port's kernels from tombo_tpu_torch/csrc/ and drives three paths
-of batched DNA re-squiggle through ``BatchedResquiggler.resquiggle_batches``
-at the default DNA configuration (bandwidth 300, start band 750/2500,
-save bandwidth 1500, 3 scaling iterations):
+builds the port's kernels from tombo_tpu_torch/csrc/ and drives four paths
+of batched re-squiggle through ``BatchedResquiggler.resquiggle_batches``,
+the DNA ones at the default DNA configuration (bandwidth 300, start band
+750/2500, save bandwidth 1500, 3 scaling iterations), the RNA one at the
+default RNA configuration (t-test segmentation, stall removal,
+event-based scale; bandwidth 500, start band 1000/3000, save bandwidth
+1500, 3 scaling iterations):
 
   1 kb path     3 x 512 simulated 1000-base reads (fused DP only);
   mixed path    2 x 512 reads of log-normal lengths, 600 to 30,000 bases
                 (bench.py's mixed recipe): length groups, long groups on
                 the row-chunked DP pair;
+  RNA path      2 x 512 simulated direct-RNA reads of 1,700 bases (mean
+                dwell 12, reversed signal, adapters of 600-900 samples),
+                one in eight with a pore stall of 2,000-4,000 samples;
   mesh lane     ``BatchedResquiggler(mesh=...)`` over every visible card
                 (two shards on one card when there is one), on one batch
                 of each path: every group's adaptive DP through the
-                read-sharded launcher (K3).
+                read-sharded launcher (K3), every read bitwise the 1-device
+                lane's.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after, and fails if a kernel of that path was not launched (or,
 on the 1 kb path, if a chunked kernel was).  Every kernel is then held
-against its plain PyTorch version on inputs captured from the paths, the
-chunked pair also against the fused kernel bit for bit, K3 against both;
-some reads of each path run again on the CPU for comparison, and the mesh
+against its plain PyTorch version on inputs captured from the paths (K1
+at the DNA and the RNA widths), the chunked pair also against the fused
+kernel bit for bit (at bw 300, 500 and 1500), K3 against both; some
+reads of each path run again on the CPU for comparison, and the mesh
 lane's reads against the 1-device lane's.  It prints per-phase wall
 times, a per-layer breakdown of one batch of each path, one JSON line of
 kernel summaries and a final status line.  Any failed phase exits
@@ -49,6 +57,10 @@ READ_LEN, BATCH, N_BATCHES, MEAN_DWELL = 1000, 512, 3, 7.0
 MIXED_LOG_MEAN, MIXED_LOG_SD = 7.9, 0.85
 MIXED_MIN_LEN, MIXED_MAX_LEN, MIXED_REF_LEN = 600, 30000, 120000
 N_MIXED_BATCHES = 2
+# tests/test_torch_rna.py's recipe, on a 60,000-base reference
+RNA_LEN, RNA_DWELL, RNA_ADAPTER, RNA_REF_LEN = 1700, 12.0, (600, 900), 60000
+RNA_STALL, RNA_STALL_EVERY = (2000, 4000), 8
+N_RNA_BATCHES = 2
 CHUNKED = ("banded_dp_chunked_fwd", "banded_dp_chunked_tb")
 CHUNKED_SLICE = 16             # reads of the captured long call held
 DEVICE = "cuda"
@@ -188,6 +200,67 @@ def build_reads(read_lens, seed, ref_len):
         mr = mr.replace(raw_signal=read.raw_signal.astype(np.float64))
         maps.append(rsq.adjust_map_res(mr, sst, params))
     return model, params, sst, maps
+
+
+def build_rna_reads(n_reads, seed, ref_len):
+    """Simulated, mapped, adjusted direct-RNA reads; one in
+    RNA_STALL_EVERY gets a pore stall at its middle base boundary.
+    Returns the model, parameters, sample type, the mapped reads and, per
+    read, the stall's (start, end) in the adjusted (5' to 3') signal or
+    None."""
+    from tombo_tpu_torch import config, testing
+    from tombo_tpu_torch.io.model_io import KmerModel
+    from tombo_tpu_torch.pipeline import resquiggle as rsq
+    from tombo_tpu_torch.pipeline.aligner import ExactAligner
+    from tombo_tpu_torch.types import SeqSampleType, SequenceData
+    rng = np.random.default_rng(seed)
+    model = KmerModel.load_default("RNA")
+    fasta = testing.random_reference(np.random.default_rng(seed + 1),
+                                     ref_len)
+    aligner = ExactAligner(fasta)
+    sst = SeqSampleType("RNA", True)
+    params = config.load_resquiggle_parameters("RNA")
+    maps, stalls = [], []
+    for i in range(n_reads):
+        read = testing.simulate_read(
+            rng, fasta, model, read_len=RNA_LEN, read_id="rna_%05d" % i,
+            mean_dwell=RNA_DWELL, rev_sig=True, adapter_len=RNA_ADAPTER)
+        raw, stall = read.raw_signal, None
+        if i % RNA_STALL_EVERY == 0:
+            n = int(rng.integers(RNA_STALL[0], RNA_STALL[1] + 1))
+            pos = raw.shape[0] - int(read.true_segs[RNA_LEN // 2])
+            raw = testing.insert_stall(rng, raw, pos, n)
+            stall = (raw.shape[0] - pos - n, raw.shape[0] - pos)
+        mr = rsq.map_read(SequenceData(read.seq, read.read_id, 12.0),
+                          aligner, model, sst)
+        mr = mr.replace(raw_signal=raw.astype(np.float64))
+        maps.append(rsq.adjust_map_res(mr, sst, params))
+        stalls.append(stall)
+    return model, params, sst, maps, stalls
+
+
+def synthetic_dp_args(B, L, bw, seed, dev):
+    """DP inputs of B long reads of up to L bases, 1.4 events a base, no
+    start mask (scripts/time_chunked_pair.py's synthetic reads)."""
+    from tombo_tpu_torch.ops import dp as dp_mod
+    rng = np.random.default_rng(seed)
+    ratio, P = 1.4, 1
+    E = int(L * ratio) + bw
+    rm = rng.normal(0, 1, (B, L)).astype(np.float32)
+    rs = rng.uniform(0.08, 0.15, (B, L)).astype(np.float32)
+    base = np.minimum((np.arange(E) / ratio).astype(np.int64), L - 1)
+    em = (rm[:, base] + rng.normal(0, 1, (B, E)).astype(np.float32) *
+          rs[:, base]).astype(np.float32)
+    seq_lens = rng.integers(int(0.75 * L), L + 1, B)
+    n_events = np.minimum((seq_lens * ratio).astype(np.int64) + bw // 2, E)
+    t = lambda a: torch.tensor(a, device=dev)
+    p = dp_mod.DpParams(z_shift=6.8, skip_pen=4.0, stay_pen=6.0,
+                        mask_fill_z_score=-15.0, max_half_z_score=20.0,
+                        bandwidth=bw)
+    return (t(em), t(n_events), t(rm), t(rs), t(seq_lens),
+            t(np.zeros((B, P), np.int64)), t(np.zeros(B, np.int64)),
+            t(np.full((B, P), 2 ** 31 - 1, np.int64)),
+            t(np.zeros(B, np.int64)), p, L, P, 50)
 
 
 def mixed_lens(n_reads, seed):
@@ -468,6 +541,7 @@ def main():
     from tombo_tpu_torch import config, kernels
     from tombo_tpu_torch.ops import banded_dp, rescale
     from tombo_tpu_torch.pipeline import batch as batch_mod
+    from tombo_tpu_torch.pipeline import resquiggle as rsq
     from tombo_tpu_torch.pipeline.batch import BatchedResquiggler
 
     smi = subprocess.run(
@@ -492,7 +566,7 @@ def main():
         for name, log in kernels.BUILD_LOG.items():
             for line in ptxas_summary(log):
                 print("  ptxas %s: %s" % (name, line))
-        for bw in (300, 750, 1500, 2500):
+        for bw in (300, 500, 750, 1000, 1500, 2500, 3000):
             threads, smem, blocks = banded_dp.banded_dp_occupancy(bw)
             print("  K1 at bw %d: %d threads, %d bytes dynamic shared "
                   "memory, %d blocks an SM (cudaOccupancyMaxActiveBlocks"
@@ -830,7 +904,216 @@ def main():
         if not rec_cpu.count:
             fail("the mixed CPU cross-check ran no chunked DP")
 
-    # ---- phase 9: the read-sharded lane (K3) over the cards' mesh
+    # ---- phase 10: the direct-RNA path on the card
+    with phase("RNA path"):
+        model_r, params_r, sst_r, maps_r, stalls_r = build_rna_reads(
+            BATCH * (N_RNA_BATCHES + 1), 2468, RNA_REF_LEN)
+        warm, maps_r = maps_r[:BATCH], maps_r[BATCH:]
+        stalls_r = stalls_r[BATCH:]
+        rna = [maps_r[b * BATCH:(b + 1) * BATCH]
+               for b in range(N_RNA_BATCHES)]
+        br_r = BatchedResquiggler(model_r, params_r, sst_r,
+                                  config.OUTLIER_THRESH, device=DEVICE)
+        t0 = time.perf_counter()
+        br_r.resquiggle_batch(warm)
+        torch.cuda.synchronize()
+        print("warm-up batch of %d reads: %.2f s" % (
+            len(warm), time.perf_counter() - t0))
+        # stall intervals found, and whether each injected stall is in one
+        found = [(m.stall_ints or []) for m in maps_r]
+        hit = sum(1 for f, st in zip(found, stalls_r) if st is not None and
+                  any(a <= (st[0] + st[1]) // 2 <= b for a, b in f))
+        n_inj = sum(st is not None for st in stalls_r)
+        print("RNA reads: %d, stall intervals on %d reads (%d intervals); "
+              "%d injected stalls, %d of them found" % (
+                  len(maps_r), sum(1 for f in found if f),
+                  sum(len(f) for f in found), n_inj, hit))
+        if hit < n_inj:
+            fail("RNA path: stall detection missed %d injected stalls" % (
+                n_inj - hit))
+        seg_rna = batch_mod.BatchedResquiggler._segment_rna
+        per_batch = []
+
+        def seg_rna_rec(self, live, *a, **kw):
+            out = seg_rna(self, live, *a, **kw)
+            per_batch[-1]["stage A reads"] += len(live)
+            per_batch[-1]["cpts dropped in stalls"] += sum(
+                1 for s in live if s.error is None and
+                s.n_ev < s.num_events - 1)
+            per_batch[-1]["static after stage A"] += sum(
+                1 for s in live if s.use_static)
+            return out
+        find_static = rsq.find_static_base_assignment
+
+        def static_rec(*a, **kw):
+            per_batch[-1]["static band"] += 1
+            return find_static(*a, **kw)
+        one_batch = br_r.resquiggle_batch
+
+        def batch_rec(batch, **kw):
+            per_batch.append({"stage A reads": 0, "cpts dropped in stalls": 0,
+                              "static after stage A": 0, "static band": 0})
+            return one_batch(batch, **kw)
+        rec_k1r = Recorder(k1, dp_key)
+        rec_k5r = Recorder(k5, lambda keys, piv: (piv.shape[1],
+                                                  keys.shape[0]))
+        rec_tsr = Recorder(rescale.theil_sen_device,
+                           lambda ev, *a, **kw: ("ts", ev.shape[0]))
+        outs_r, wall_r, launches_r = run_path(
+            "RNA path", br_r, rna,
+            [(banded_dp, "adaptive_banded_dp_tb", rec_k1r),
+             (rescale, "count_le", rec_k5r),
+             (rescale, "theil_sen_device", rec_tsr),
+             (batch_mod.BatchedResquiggler, "_segment_rna", seg_rna_rec),
+             (rsq, "find_static_base_assignment", static_rec),
+             (br_r, "resquiggle_batch", batch_rec)])
+        for name in ("banded_dp", "count_le"):
+            if launches_r[name] <= 0:
+                fail("kernel %s was not launched on the RNA path" % name)
+        print("RNA path per batch (reads through stage A over all passes, "
+              "of them reads that lost changepoints inside a stall and reads "
+              "routed to the static band, static-band assignments): %s" %
+              json.dumps(per_batch))
+        for (L, bw), (n, reads) in sorted(rec_k1r.count.items()):
+            print("  K1 L %d bw %d: %d calls, %d reads" % (L, bw, n, reads))
+
+    # ---- phase 11: K1, K2/K2' and K5 at the RNA shapes
+    with phase("kernels vs plain, RNA shapes"):
+        nb = params_r.start_n_bases
+        rna_keys = {"main DP": None, "start DP": (nb, params_r.start_bw),
+                    "start retry": (nb, params_r.start_save_bw),
+                    "save-bandwidth DP": None}
+        main_keys = [k for k in rec_k1r.calls if k[1] == params_r.bandwidth]
+        if not main_keys or rna_keys["start DP"] not in rec_k1r.calls:
+            fail("RNA path did not reach the DP shapes bw %d and %s (saw "
+                 "%s)" % (params_r.bandwidth, rna_keys["start DP"],
+                          sorted(rec_k1r.calls)))
+        main_r = rec_k1r.calls[max(main_keys)][1]
+        start_r = rec_k1r.calls[rna_keys["start DP"]][1]
+        save_bw = config.ALGN_PARAMS_TABLE["RNA"].save_bandwidth
+        cases = [("main DP", main_r, "path"), ("start DP", start_r, "path")]
+        if rna_keys["start retry"] in rec_k1r.calls:
+            cases.append(("start retry",
+                          rec_k1r.calls[rna_keys["start retry"]][1], "path"))
+        else:
+            # spliced captured event rows at the start_save_bw band
+            ne = params_r.start_save_bw
+            em_s = start_r[0]
+            n_cat = -(-(nb + ne) // em_s.shape[1])
+            em_rr = torch.cat([em_s[i * 16:(i + 1) * 16]
+                               for i in range(n_cat)],
+                              dim=1)[:, :nb + ne].contiguous()
+            full = lambda v: torch.full((16,), v, dtype=torch.int32,
+                                        device=dev)
+            cases.append(("start retry", (
+                em_rr, full(nb + ne), start_r[2][:16], start_r[3][:16],
+                full(nb), torch.arange(nb, dtype=torch.int32, device=dev)[
+                    None].expand(16, nb).contiguous(), full(0),
+                torch.full((16, nb), 2 ** 31 - 1, dtype=torch.int32,
+                           device=dev), full(nb),
+                start_r[9]._replace(bandwidth=ne), nb, nb, -1),
+                "spliced"))
+        save_keys = [k for k in rec_k1r.calls if k[1] == save_bw]
+        if save_keys:
+            cases.append(("save-bandwidth DP",
+                          rec_k1r.calls[max(save_keys)][1], "path"))
+        else:
+            cases.append(("save-bandwidth DP", tuple(
+                a[:16] if torch.is_tensor(a) else a for a in main_r[:9]) + (
+                main_r[9]._replace(bandwidth=save_bw),) + tuple(
+                    main_r[10:]), "main DP inputs"))
+        ptx = [ln for log in kernels.BUILD_LOG.values()
+               for ln in ptxas_summary(log) if ln.startswith("banded_dp_")]
+        k1_rna = []
+        for label, ra, origin in cases:
+            rbw = ra[9].bandwidth
+            rB, rL = ra[0].shape[0], ra[10]
+            ko = k1(*ra)
+            po = pdp(*ra)
+            torch.cuda.synchronize()
+            r_flags, r_frac, r_ferr = dp_compare(ko, po, ra[4], rL)
+            bound, by = k1_bound_ms(ra, rbw)
+            threads, smem, blocks = banded_dp.banded_dp_occupancy(rbw)
+            maxi = next(m for m in (2, 4, 8, 16) if -(-rbw // 256) <= m)
+            shape = {"label": "RNA " + label, "inputs": origin, "B": rB,
+                     "L": rL, "bw": rbw, "segs_equal_frac": r_frac,
+                     "flags_equal": r_flags, "max_abs_err": r_ferr,
+                     "ms": cuda_ms(lambda: k1(*ra), 10),
+                     "plain_ms": cuda_ms(lambda: pdp(*ra), 2),
+                     "bound_ms": bound, "bound_by": by,
+                     "threads": threads, "dyn_smem_bytes": smem,
+                     "blocks_per_sm": blocks, "maxi": maxi,
+                     "ptxas": [ln for ln in ptx
+                               if ln.startswith("banded_dp_kernel<%d>" %
+                                                maxi)]}
+            print("banded_dp %s: %s" % (shape["label"], json.dumps(shape)))
+            check_dp_bars("banded_dp RNA " + label, r_flags, r_frac, r_ferr)
+            k1_rna.append(shape)
+
+        # the chunked pair at RNA widths, on reads long enough to route
+        # chunked: bitwise K1
+        pair_rna = []
+        for pbw in (params_r.bandwidth, save_bw):
+            # the fewest rows (a power of two) past the fused cap
+            pL = batch_mod._pow2_bucket(
+                banded_dp.PER_READ_MOVE_CAP // pbw + 1, 256)
+            playout = banded_dp.plan_dp_layout(pL, pbw)
+            if playout[0] != "chunked":
+                fail("L %d at bw %d does not route chunked" % (pL, pbw))
+            sargs = synthetic_dp_args(4, pL, pbw, pbw, dev)
+            co = k2(*sargs, chunk_rows=playout[1])
+            ko = k1(*sargs)
+            torch.cuda.synchronize()
+            assert_bitwise("RNA width bw %d L %d" % (pbw, pL), co, ko)
+            p_fwd, p_tb = pair_split_ms(
+                lambda: k2(*sargs, chunk_rows=playout[1]), 3)
+            ps = {"B": 4, "L": pL, "bw": pbw,
+                  "Lc_k": banded_dp.tile_rows(pbw, playout[1]),
+                  "bitwise_k1": True, "fwd_ms": p_fwd, "tb_ms": p_tb,
+                  "k1_ms": cuda_ms(lambda: k1(*sargs), 3),
+                  "bound_ms": k1_bound_ms(sargs, pbw)[0]}
+            print("chunked pair at RNA width: %s" % json.dumps(ps))
+            pair_rna.append(ps)
+
+        # K5 at the RNA fit's shape
+        keys_r, piv_r = max(rec_k5r.calls.values(), key=lambda v: v[0])[1]
+        cerr_r = int((k5(keys_r, piv_r) -
+                      rescale.count_le_plain(keys_r, piv_r)).abs().max())
+        if cerr_r != 0:
+            fail("count_le at the RNA shape differs from the plain version "
+                 "by %d" % cerr_r)
+        Br, Mr = keys_r.shape
+        Pr = piv_r.shape[1]
+        t_b = (Br * Mr * 4 + 3 * Br * Pr * 4) / HBM_BYTES_PER_S
+        t_o = 2 * Br * Mr * Pr / F32_OPS_PER_S
+        k_rank_r = int(rescale._pair_ranks(
+            rec_tsr.calls["ts"][1][2])[2][0]) + 1
+        try:
+            lib5_r = cuda_ms(lambda: torch.kthvalue(keys_r, k_rank_r, dim=1),
+                             5)
+        except RuntimeError as e:      # yardstick only, never on the path
+            print("torch.kthvalue yardstick unavailable: %s" % e)
+            lib5_r = None
+        k5_rna = {"B": Br, "M": Mr, "P": Pr, "max_abs_err": cerr_r,
+                  "ms": cuda_ms(lambda: k5(keys_r, piv_r), 10),
+                  "plain_ms": cuda_ms(
+                      lambda: rescale.count_le_plain(keys_r, piv_r), 3),
+                  "bound_ms": 1e3 * max(t_b, t_o),
+                  "bound_by": "bytes" if t_b >= t_o else "operations",
+                  "library_ms": lib5_r}
+        print("count_le at the RNA shape: %s" % json.dumps(k5_rna))
+
+    # ---- phase 12: 16 of the RNA reads again on the CPU
+    with phase("RNA CPU cross-check"):
+        cpu_crosscheck("RNA CPU cross-check", model_r, params_r, sst_r,
+                       rna[0][:16], outs_r[0][:16])
+
+    # ---- phase 13: where the time goes on the RNA path
+    with phase("RNA breakdown"):
+        print("stages (RNA): %s" % json.dumps(stage_breakdown(br_r, rna[1])))
+        print("device (RNA): %s" % json.dumps(device_profile(br_r, rna[0])))
+
+    # ---- phase 14: the read-sharded lane (K3) over the cards' mesh
     with phase("mesh lane"):
         from tombo_tpu_torch.parallel import mesh as pmesh
         cards = pmesh.make_mesh()
@@ -885,25 +1168,35 @@ def main():
         print("production_lane_dryrun over %d shards: %d reads differ "
               "from the 1-device lane %s" % (len(mesh), len(diffs), diffs))
 
-        brm = BatchedResquiggler(model, params, sst, config.OUTLIER_THRESH,
-                                 mesh=mesh)
-        mesh_batches = [("1 kb", batches[0], outs[0]),
-                        ("mixed", mixed[0], outs_m[0])]
-        outs_k3, _, launches_k3 = run_path(
-            "mesh lane (1 kb + mixed batch)", brm,
-            [b for _, b, _ in mesh_batches], [])
-        for name, n in launches_k3.items():
-            if n <= 0:
-                fail("kernel %s was not launched on the mesh lane" % name)
-        for (label, batch, one_out), mesh_out in zip(mesh_batches, outs_k3):
-            diffs = pmesh.lane_differences(mesh_out, one_out, exact=False)
+        # one batch of each path through the mesh lane, its own
+        # configuration each; every read bitwise the 1-device lane's
+        mesh_batches = [("1 kb", (model, params, sst), batches[0],
+                         outs[0]),
+                        ("mixed", (model, params, sst), mixed[0], outs_m[0]),
+                        ("RNA", (model_r, params_r, sst_r), rna[0],
+                         outs_r[0])]
+        launches_k3 = {}
+        for label, cfg, batch, one_out in mesh_batches:
+            brm = BatchedResquiggler(*cfg, config.OUTLIER_THRESH, mesh=mesh)
+            (mesh_out,), _, launches = run_path(
+                "mesh lane (%s batch)" % label, brm, [batch], [])
+            for name in ("banded_dp", "count_le", "banded_dp_sharded"):
+                if launches[name] <= 0:
+                    fail("kernel %s was not launched on the mesh lane (%s "
+                         "batch)" % (name, label))
+            for name, n in launches.items():
+                launches_k3[name] = launches_k3.get(name, 0) + n
+            diffs = pmesh.lane_differences(mesh_out, one_out, exact=True)
             print("mesh lane %s batch: %d of %d reads differ from the "
-                  "1-device lane, all inside the card-vs-CPU tolerances%s"
-                  % (label, len(diffs), len(batch),
-                     (": %s" % json.dumps(diffs)) if diffs else ""))
+                  "1-device lane (bitwise compared)" % (label, len(diffs),
+                                                        len(batch)))
+            if label == "RNA":
+                # host-bound at ~40 s a batch: the lane exact is what the
+                # RNA batch shows here, not its speed
+                continue
             # the two lanes in turns: 1-device, mesh, mesh, 1-device
-            one = BatchedResquiggler(model, params, sst,
-                                     config.OUTLIER_THRESH, device=DEVICE)
+            one = BatchedResquiggler(*cfg, config.OUTLIER_THRESH,
+                                     device=DEVICE)
             walls = {"1-device": [], "mesh": []}
             for lane in ("1-device", "mesh", "mesh", "1-device"):
                 t0 = time.perf_counter()
@@ -915,6 +1208,9 @@ def main():
                 "reads_ok": n_ok, "wall_s": walls,
                 "reads_per_s": {k: n_ok / statistics.mean(v)
                                 for k, v in walls.items()}})))
+        for name in CHUNKED:
+            if launches_k3.get(name, 0) <= 0:
+                fail("kernel %s was not launched on the mesh lane" % name)
 
     # ---- the kernels line
     m = k1_shapes[0]
@@ -924,9 +1220,11 @@ def main():
         "replaces": "tombo_tpu/ops/pallas_dp.py:1052",
         "launches": launches_1kb["banded_dp"],
         "launches_mixed": launches_m["banded_dp"],
+        "launches_rna": launches_r["banded_dp"],
         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"], "library_ms": None, "shapes": k1_shapes})
+        "bound_by": m["bound_by"], "library_ms": None,
+        "shapes": k1_shapes + k1_rna})
     ch_shape = {"B": B, "L": L, "bw": bw, "Lc": Lc, "Lc_k": lc_k,
                 "cluster_blocks": banded_dp.CLUSTER_BLOCKS}
     entries.append({
@@ -936,7 +1234,9 @@ def main():
         "launches": launches_m["banded_dp_chunked_fwd"],
         "max_abs_err": ferr, "ms": fwd_ms,
         "plain_ms": plain_fwd_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-        "library_ms": None, "shape": ch_shape})
+        "library_ms": None, "shape": ch_shape,
+        "rna_width_shapes": [{k: v for k, v in ps.items() if k != "tb_ms"}
+                             for ps in pair_rna]})
     entries.append({
         "name": "banded_dp_chunked_tb", "route": "cuda",
         "source": "tombo_tpu_torch/csrc/banded_dp_chunked.cu",
@@ -949,8 +1249,12 @@ def main():
                       "bytes, the larger; move codes stay in shared memory",
         "library_ms": None, "shape": ch_shape,
         "recompute_ops_bound_ms": recompute_ms,
-        "bytes_bound_ms": tb_bytes_ms})
+        "bytes_bound_ms": tb_bytes_ms,
+        "rna_width_shapes": [{k: v for k, v in ps.items() if k != "fwd_ms"}
+                             for ps in pair_rna]})
     k5_entry["launches_mixed"] = launches_m["count_le"]
+    k5_entry["launches_rna"] = launches_r["count_le"]
+    k5_entry["shape_rna"] = k5_rna
     entries.append(k5_entry)
     k3m = k3_shapes[0]
     entries.append({

@@ -16,7 +16,10 @@ chunked pair (K2 + K2') is bitwise equal to the fused kernel (K1), whose
 row step it shares, and within K1's bars of its plain version; the count
 kernel is exact, and so the median slope is bitwise equal.  The sharded
 launcher (K3) over shards on one card is bitwise K1 and the chunked pair,
-with one launch per non-empty shard."""
+with one launch per non-empty shard.  The DP kernels also run at the
+RNA widths (bw 500, 1000, 1500, 3000), and an RNA batch on the card
+matches the CPU.  The fit's score of a read is bitwise the same in
+batches of any size (the mesh lane's shards are such batches)."""
 import numpy as np
 import pytest
 import torch
@@ -82,6 +85,27 @@ def test_banded_dp_kernel_matches_plain(card, bw, B, L, P, E):
     _assert_dp_close(k, q, args[4], L)
 
 
+# the RNA widths: main DP 500, start DP 1000, save bandwidth 1500,
+# start retry 3000 (MAXI 2, 4, 8 and 16 instances)
+@pytest.mark.parametrize("bw,B,L,P,E", [(500, 16, 512, 64, 2048),
+                                        (1000, 8, 250, 250, 1250),
+                                        (1500, 8, 512, 64, 3072),
+                                        (3000, 4, 250, 250, 3250)])
+def test_banded_dp_kernel_rna_widths(card, bw, B, L, P, E):
+    args = [a.to(card) for a in _dp_case(bw + 1, B, L, P, bw, E)]
+    p = dp.DpParams(z_shift=6.8, skip_pen=4.0, stay_pen=6.0,
+                    mask_fill_z_score=-15.0, max_half_z_score=20.0,
+                    bandwidth=bw)
+    k = banded_dp.adaptive_banded_dp_tb(*args, p, L, P, 50)
+    q = banded_dp.adaptive_banded_dp_tb_plain(*args, p, L, P, 50)
+    torch.cuda.synchronize()
+    assert torch.equal(k[1], q[1]) and torch.equal(k[2], q[2])
+    mask = (torch.arange(L + 1, device=card)[None, :] <=
+            args[4].clamp(max=L)[:, None])
+    assert float((k[0].long() == q[0].long())[mask].float().mean()) >= 0.995
+    assert float((k[3] - q[3]).abs().max()) <= 1e-3
+
+
 @pytest.mark.parametrize("bw", [32, 300, 750, 2500])
 def test_banded_dp_kernel_edge_seq_lens(card, bw):
     """K1 at B 1 on reads with no row, one row, every row and more rows
@@ -140,7 +164,8 @@ PAIR_SHAPES = [(32, 256, 64, 8, False), (300, 2048, 512, 8, False),
                (1500, 1024, 256, 8, False), (2500, 256, 128, 8, False),
                (300, 2600, 128, 8, False), (300, 2048, 512, 1, False),
                (300, 1024, 256, 8, True), (1500, 8192, 512, 8, False),
-               (4096, 512, 512, 4, True)]
+               (4096, 512, 512, 4, True), (500, 4096, 512, 8, False),
+               (1500, 2048, 512, 4, True)]
 
 
 def _pair_case(bw, L, B, edge):
@@ -300,22 +325,32 @@ def test_median_slope_through_kernel_bitwise(card):
     assert torch.equal(k.view(torch.int32), q.view(torch.int32))
 
 
-def _card_vs_cpu(read_lens, seed):
-    """Simulated mapped reads of the given lengths through the port on
-    the card and on the CPU; returns the launches the card run made."""
+def _card_vs_cpu(read_lens, seed, samp_type="DNA", stalls=None):
+    """Simulated mapped reads of the given lengths (RNA: the recipe of
+    tests/test_torch_rna.py, with a stall of ``stalls[i]`` samples)
+    through the port on the card and on the CPU; returns the launches the
+    card run made."""
     rng = np.random.default_rng(seed)
-    model = KmerModel.load_default("DNA")
+    rna = samp_type == "RNA"
+    model = KmerModel.load_default(samp_type)
     fasta = testing.random_reference(np.random.default_rng(seed + 1), 30000)
     aligner = ExactAligner(fasta)
-    sst = SeqSampleType("DNA", False)
-    params = config.load_resquiggle_parameters("DNA")
+    sst = SeqSampleType(samp_type, rna)
+    params = config.load_resquiggle_parameters(samp_type)
+    sim = (dict(mean_dwell=12.0, rev_sig=True, adapter_len=(600, 900))
+           if rna else {})
     maps = []
     for i, n in enumerate(read_lens):
         read = testing.simulate_read(rng, fasta, model, read_len=n,
-                                     read_id="c_%03d" % i)
+                                     read_id="c_%03d" % i, **sim)
+        raw = read.raw_signal
+        if stalls and stalls[i]:
+            raw = testing.insert_stall(
+                rng, raw, raw.shape[0] - int(read.true_segs[n // 2]),
+                stalls[i])
         mr = rsq.map_read(SequenceData(read.seq, read.read_id, 12.0),
                           aligner, model, sst)
-        mr = mr.replace(raw_signal=read.raw_signal.astype(np.float64))
+        mr = mr.replace(raw_signal=raw.astype(np.float64))
         maps.append(rsq.adjust_map_res(mr, sst, params))
     before = dict(kernels.LAUNCHES)
     g_out = BatchedResquiggler(model, params, sst, config.OUTLIER_THRESH,
@@ -354,3 +389,44 @@ def test_mixed_lengths_on_card_match_cpu(card, monkeypatch):
     assert all(n > 0 for n in launches.values()), launches
     assert launches["banded_dp_chunked_fwd"] == \
         launches["banded_dp_chunked_tb"]
+
+
+def test_rna_on_card_matches_cpu(card):
+    """Six RNA reads of 1,700 bases, two with a stall, at bw 500 on the
+    card against the CPU."""
+    launches = _card_vs_cpu([1700] * 6, 7, "RNA",
+                            [0, 0, 0, 0, 3000, 2500])
+    assert launches["banded_dp"] > 0 and launches["count_le"] > 0
+
+
+def test_fit_score_same_in_any_batch_size(card):
+    """The score that the device fit gives a read is bitwise the same in a
+    batch of 64 and in shards of 8 and of 1.  A plain ``sum(1)`` over the
+    (B, L) terms fails this on the card: PyTorch's reduction lays out its
+    threads by the number of rows, and below 16 rows a row is summed by
+    more threads, in another order (``scripts/probe_sum_order.py``)."""
+    rng = np.random.default_rng(5)
+    B, L, S = 64, 2048, 32768
+    seq_lens = rng.integers(1200, L + 1, B)
+    segs = np.zeros((B, L + 1), np.int64)
+    segs[:, 1:] = np.cumsum(rng.integers(3, 15, (B, L)), 1)
+    rsrtr = rng.integers(0, 200, B)
+    norm = rng.normal(0, 1, (B, S)).astype(np.float32)
+    rm = rng.normal(0, 1, (B, L)).astype(np.float32)
+    rs = np.abs(rng.normal(1, 0.1, (B, L))).astype(np.float32)
+    tri = rescale.tri_indices(1000, card)
+    samp = np.stack([np.sort(rng.choice(n, 1000, replace=False))
+                     for n in seq_lens])
+
+    def score(rows):
+        t = lambda a: torch.tensor(a[rows], device=card)
+        return batch_mod._stage_fit(
+            t(norm), torch.arange(len(rows), device=card), t(rsrtr),
+            t(segs), t(rm), t(rs), t(seq_lens), t(samp), tri, 0.1,
+            0.1)[2].cpu().numpy()
+
+    full = score(np.arange(B))
+    parts = [np.arange(k, k + 8) for k in range(0, B, 8)] + [
+        np.array([k]) for k in range(16)]
+    diff = [int(k) for p in parts for k in p[score(p) != full[p]]]
+    assert diff == [], "reads %s score differently" % diff

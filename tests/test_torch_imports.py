@@ -6,6 +6,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -75,13 +76,13 @@ def test_default_device_needs_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,exc,item", [
-    (dict(seq_samp_type=("RNA", True)), NotImplementedError, "RNA"),
+    (dict(seq_samp_type=("DNA_5mC", False)), ValueError,
+     "unknown sample type"),
     (dict(mesh=[]), ValueError, "at least one device"),
-    (dict(const_scale=1.0), NotImplementedError, "CLI and runner"),
 ])
 def test_unported_options_name_their_roadmap_item(kw, exc, item):
-    """Each option not ported names its ROADMAP item; an invalid mesh
-    raises, as every mesh the port cannot run does."""
+    """An invalid mesh raises, as every mesh the port cannot run does;
+    so does a sample type the port has no parameters for."""
     from tombo_tpu_torch import config
     from tombo_tpu_torch.io.model_io import KmerModel
     from tombo_tpu_torch.pipeline.batch import BatchedResquiggler
@@ -92,6 +93,45 @@ def test_unported_options_name_their_roadmap_item(kw, exc, item):
         BatchedResquiggler(KmerModel.load_default("DNA"),
                            config.load_resquiggle_parameters("DNA"), sst,
                            device="cpu", **kw)
+
+
+@pytest.mark.parametrize("samp_type,kw", [
+    ("RNA", {}), ("DNA", dict(const_scale=55.0)),
+    ("RNA", dict(const_scale=55.0, skip_seq_scaling=True))],
+    ids=["RNA", "const_scale", "RNA_const_scale_skip_seq_scaling"])
+def test_rna_and_const_scale_run(samp_type, kw):
+    """RNA and constant-scale normalization, once refused, run on the
+    CPU: two short simulated reads come back re-squiggled."""
+    from tombo_tpu_torch import config, testing
+    from tombo_tpu_torch.io.model_io import KmerModel
+    from tombo_tpu_torch.pipeline import resquiggle as rsq
+    from tombo_tpu_torch.pipeline.aligner import ExactAligner
+    from tombo_tpu_torch.pipeline.batch import BatchedResquiggler
+    from tombo_tpu_torch.types import SeqSampleType, SequenceData
+
+    rna = samp_type == "RNA"
+    rng = np.random.default_rng(2)
+    model = KmerModel.load_default(samp_type)
+    fasta = testing.random_reference(np.random.default_rng(3), 5000)
+    aligner = ExactAligner(fasta)
+    sst = SeqSampleType(samp_type, rna)
+    params = config.load_resquiggle_parameters(samp_type)
+    maps = []
+    for i in range(2):
+        read = testing.simulate_read(rng, fasta, model, read_len=400,
+                                     mean_dwell=12.0 if rna else 7.0,
+                                     rev_sig=rna)
+        mr = rsq.map_read(SequenceData(read.seq, read.read_id, 12.0),
+                          aligner, model, sst)
+        maps.append(rsq.adjust_map_res(
+            mr.replace(raw_signal=read.raw_signal), sst, params))
+    out = BatchedResquiggler(model, params, sst, device="cpu",
+                             **kw).resquiggle_batch(maps)
+    for res, err in out:
+        assert err is None, err
+        assert res.segs.shape[0] == len(res.genome_seq) + 1
+        if "const_scale" in kw and "skip_seq_scaling" in kw:
+            assert res.scale_values.scale == 55.0
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -1,4 +1,7 @@
-"""PyTorch/CUDA port of tombo_tpu's batched re-squiggle.
+"""PyTorch/CUDA port of tombo_tpu's batched re-squiggle: DNA and direct
+RNA (t-test segmentation, stall removal, event-based scale), with the
+constant-scale and skip-sequence-scaling options, on one card or over a
+reads mesh.
 
 A package of its own beside ``tombo_tpu``: it imports torch, numpy and
 the standard library, never jax and nothing of ``tombo_tpu``.  The module

@@ -1,4 +1,5 @@
-"""The re-squiggle constants and parameter bundle the DNA path reads.
+"""The re-squiggle constants and parameter bundle the DNA and RNA paths
+read.
 
 A subset copy of ``tombo_tpu/config.py`` (values unchanged; they are the
 reference Tombo's tuned constants, reference:
@@ -12,7 +13,10 @@ from typing import Optional, Tuple
 DNA_SAMP_TYPE = "DNA"
 RNA_SAMP_TYPE = "RNA"
 
-STANDARD_MODELS = {DNA_SAMP_TYPE: "tombo.DNA.model.npz"}
+STANDARD_MODELS = {
+    DNA_SAMP_TYPE: "tombo.DNA.model.npz",
+    RNA_SAMP_TYPE: "tombo.RNA.180mV.model.npz",
+}
 
 
 @dataclass(frozen=True)
@@ -65,6 +69,54 @@ MAX_SCALING_ITERS = 3
 MAX_POINTS_FOR_THEIL_SEN = 1000
 
 HALF_NORM_EXPECTED_VAL = 0.7978845608028654
+
+# RNA event-based scaling (reference: _default_parameters.py:78-80; the
+# port implements only the reference's default, USE_RNA_EVENT_SCALE on)
+RNA_SCALE_NUM_EVENTS = 10000
+RNA_SCALE_MAX_FRAC_EVENTS = 0.75
+
+# stall collapsing (reference: _default_parameters.py:84-97)
+COLLAPSE_RNA_STALLS = True
+COLLAPSE_DNA_STALLS = False
+
+
+@dataclass(frozen=True)
+class StallParams:
+    """Pore-stall identification: the mean-window method (``n_windows``,
+    ``mini_window_size``, the default) or the percentile method
+    (``lower_pctl``, ``upper_pctl``)."""
+
+    window_size: int
+    threshold: float
+    edge_buffer: int
+    min_consecutive_obs: int
+    n_windows: Optional[int] = None
+    mini_window_size: Optional[int] = None
+    lower_pctl: Optional[float] = None
+    upper_pctl: Optional[float] = None
+
+
+MEAN_STALL_PARAMS = StallParams(
+    window_size=7 * 50, threshold=40, edge_buffer=100,
+    min_consecutive_obs=200, n_windows=7, mini_window_size=50)
+PCTL_STALL_PARAMS = StallParams(
+    window_size=400, threshold=100, edge_buffer=50,
+    min_consecutive_obs=200, lower_pctl=5, upper_pctl=95)
+DEFAULT_STALL_PARAMS = MEAN_STALL_PARAMS
+
+
+@dataclass(frozen=True)
+class TrimRnaParams:
+    """RNA adapter trimming, off by default (reference:
+    tombo/tombo_stats.py:121-123)."""
+
+    moving_window_size: int = 50
+    min_running_values: int = 100
+    thresh_scale: float = 0.7
+    max_raw_obs: int = 40000
+
+
+DEFAULT_TRIM_RNA_PARAMS = TrimRnaParams()
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,7 @@
-"""numpy host kernels for the rare host-lane reads (subset copy of
-``tombo_tpu/ops/ref_impl.py``; reference: tombo/_c_helper.pyx,
-tombo/_c_dynamic_programming.pyx).  Float64 throughout."""
+"""numpy host kernels for the rare host-lane reads, RNA adapter trimming
+and stall detection (subset copy of ``tombo_tpu/ops/ref_impl.py``;
+reference: tombo/_c_helper.pyx, tombo/_c_dynamic_programming.pyx).
+Float64 throughout."""
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
@@ -16,6 +17,122 @@ def new_means(norm_signal: np.ndarray, segs: np.ndarray) -> np.ndarray:
     segs = np.asarray(segs, dtype=np.int64)
     cs = np.concatenate([[0.0], np.cumsum(norm_signal)])
     return (cs[segs[1:]] - cs[segs[:-1]]) / np.diff(segs)
+
+
+def new_mean_stds(norm_signal: np.ndarray, segs: np.ndarray
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-segment means and population SDs (reference:
+    tombo/_c_helper.pyx:38 ``c_new_mean_stds``)."""
+    norm_signal = np.asarray(norm_signal, dtype=np.float64)
+    segs = np.asarray(segs, dtype=np.int64)
+    cs = np.concatenate([[0.0], np.cumsum(norm_signal)])
+    cs2 = np.concatenate([[0.0], np.cumsum(norm_signal ** 2)])
+    lens = np.diff(segs).astype(np.float64)
+    means = (cs[segs[1:]] - cs[segs[:-1]]) / lens
+    ex2 = (cs2[segs[1:]] - cs2[segs[:-1]]) / lens
+    return means, np.sqrt(np.maximum(ex2 - means ** 2, 0.0))
+
+
+# --------------------------------------------------- event detection
+def cpt_scores_diff(raw_signal: np.ndarray, running_stat_width: int
+                    ) -> np.ndarray:
+    """DNA changepoint score |sum(left w) - sum(right w)| (reference:
+    tombo/_c_helper.pyx:89-98)."""
+    cs = np.concatenate([[0.0], np.cumsum(np.asarray(raw_signal,
+                                                     np.float64))])
+    w = running_stat_width
+    return np.abs(2.0 * cs[w:-w] - cs[:-2 * w] - cs[2 * w:])
+
+
+def cpt_scores_t_test(raw_signal: np.ndarray, running_stat_width: int
+                      ) -> np.ndarray:
+    """RNA changepoint score |m1 - m2| / sqrt(ss1 + ss2) over two adjacent
+    windows, a monotonic transform of the Welch t-score (reference:
+    tombo/_c_helper.pyx:144-179)."""
+    x = np.asarray(raw_signal, dtype=np.float64)
+    w = running_stat_width
+    n_cands = x.shape[0] - 2 * w
+    if n_cands <= 0:
+        return np.empty(0, dtype=np.float64)
+    cs = np.concatenate([[0.0], np.cumsum(x)])
+    cs2 = np.concatenate([[0.0], np.cumsum(x ** 2)])
+
+    def win_stats(off):
+        s = cs[off + w:off + w + n_cands] - cs[off:off + n_cands]
+        s2 = cs2[off + w:off + w + n_cands] - cs2[off:off + n_cands]
+        return s / w, s2 - (s * s) / w
+
+    m1, ss1 = win_stats(0)
+    m2, ss2 = win_stats(w)
+    denom = ss1 + ss2
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = np.abs(m1 - m2) / np.sqrt(denom)
+    t[denom == 0] = 0.0
+    return t
+
+
+def greedy_select_cpts(scores: np.ndarray, min_base_obs: int,
+                       num_cpts: int) -> np.ndarray:
+    """Greedy top-``num_cpts`` selection in the order of
+    ``np.argsort(scores)[::-1]`` with a min-spacing blacklist (reference:
+    tombo/_c_helper.pyx:100-120); unshifted positions in acceptance
+    order."""
+    order = np.argsort(scores, kind="stable")[::-1]
+    if num_cpts <= 0:
+        return np.empty(0, dtype=np.int64)
+    accepted = np.empty(num_cpts, dtype=np.int64)
+    blacklist = np.zeros(scores.shape[0] + 2 * min_base_obs, dtype=bool)
+    n_accepted = 0
+    for cand in order:
+        if blacklist[cand + min_base_obs]:
+            continue
+        accepted[n_accepted] = cand
+        n_accepted += 1
+        if n_accepted == num_cpts:
+            return accepted
+        blacklist[cand + 1:cand + 2 * min_base_obs] = True
+    raise TomboError("Fewer changepoints found than requested")
+
+
+def _sorted_cpts(scores, min_base_obs, running_stat_width, num_cpts):
+    cpts = greedy_select_cpts(scores, min_base_obs, num_cpts)
+    cpts = cpts + running_stat_width
+    cpts.sort()
+    return cpts
+
+
+def valid_cpts_w_cap(raw_signal: np.ndarray, min_base_obs: int,
+                     running_stat_width: int, num_cpts: int) -> np.ndarray:
+    """DNA event detection, sorted (reference: tombo/_c_helper.pyx:89
+    ``c_valid_cpts_w_cap``)."""
+    return _sorted_cpts(cpt_scores_diff(raw_signal, running_stat_width),
+                        min_base_obs, running_stat_width, num_cpts)
+
+
+def valid_cpts_w_cap_t_test(raw_signal: np.ndarray, min_base_obs: int,
+                            running_stat_width: int, num_cpts: int
+                            ) -> np.ndarray:
+    """RNA event detection, sorted (reference: tombo/_c_helper.pyx:144
+    ``c_valid_cpts_w_cap_t_test``)."""
+    return _sorted_cpts(cpt_scores_t_test(raw_signal, running_stat_width),
+                        min_base_obs, running_stat_width, num_cpts)
+
+
+def compute_running_pctl_diffs(arr: np.ndarray, window_size: int,
+                               lower_pctl: float, upper_pctl: float
+                               ) -> np.ndarray:
+    """Rolling-window (upper - lower) percentile difference, the order
+    statistics ``int((w - 1) * pctl / 100)`` of each sorted window
+    (reference: tombo/_c_helper.pyx:221 ``c_compute_running_pctl_diffs``)."""
+    arr = np.asarray(arr)
+    w = int(window_size)
+    lo_idx = int((w - 1) * lower_pctl / 100.0)
+    hi_idx = int((w - 1) * upper_pctl / 100.0)
+    if arr.shape[0] - w + 1 <= 0:
+        return np.empty(0, dtype=arr.dtype)
+    windows = np.lib.stride_tricks.sliding_window_view(arr, w)
+    part = np.partition(windows, (lo_idx, hi_idx), axis=1)
+    return part[:, hi_idx] - part[:, lo_idx]
 
 
 # ---------------------------------------------------------- banded DP

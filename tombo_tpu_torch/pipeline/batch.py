@@ -1,4 +1,4 @@
-"""Batched DNA re-squiggle on the card (counterpart of
+"""Batched DNA and direct-RNA re-squiggle on the card (counterpart of
 ``tombo_tpu/pipeline/batch.py``).
 
 Reads are padded to batch shapes and driven through device stages, in the
@@ -6,6 +6,8 @@ JAX package's stage order:
 
   A. normalize + changepoint scores + greedy selection + event means
      + start-discovery DP (banded DP kernel) + validity score  [device]
+     (RNA: t-test scores, selection, stall-interval changepoint removal,
+     event-based scale values, then normalize and event means)
   B. start retry with the save start band / static-band routing   [host]
   C. masked-start + adaptive banded DP + traceback (fused DP kernel, or
      the row-chunked pair for long reads) + traceback trim and raw
@@ -30,8 +32,10 @@ DP is one call of the read-sharded launcher (K3), which launches the
 fused kernel, or one of each chunked kernel, per shard.  ``mesh=None`` is
 a mesh of the one ``device``.
 
-Not ported in this slice: RNA and constant-scale normalization raise
-``NotImplementedError``.  The float64 parity mode (CPU) takes the JAX
+``const_scale`` gives every read the median shift and one shared scale
+(scale values derived on the host, then the provided-scale path), and
+``skip_seq_scaling`` keeps the first scale values (no Theil-Sen fit, no
+further scaling iteration).  The float64 parity mode (CPU) takes the JAX
 package's float64 lane where it differs from the float32 one: rescale
 passes re-select changepoints, and deletion-fix reads finish on the host.
 """
@@ -54,7 +58,7 @@ from ..ops import ref_impl
 from ..ops import segment as seg
 from ..ops import select as sel
 from ..ops.dp import DpParams, StartDpParams
-from ..ops.precision import prefix_sums
+from ..ops.precision import prefix_sums, row_sums
 from ..parallel.mesh import shard_sizes
 from ..seq import encode_seq, seq_to_kmer_codes
 from ..types import DpResults, ResquiggleResults, ScaleValues, SeqSampleType
@@ -177,8 +181,8 @@ def _start_dp_with_score(em_rows, rm, rs, sp: StartDpParams):
     n_valid = valid.sum(1)
     score = torch.where(
         n_valid > 0,
-        torch.where(valid, half_z, 0.0).sum(1) / torch.clamp(n_valid, min=1),
-        float("inf"))
+        row_sums(torch.where(valid, half_z, 0.0)) /
+        torch.clamp(n_valid, min=1), float("inf"))
     return segs, score
 
 
@@ -210,6 +214,59 @@ def _stage_a_dna(raw, sig_lens, has_sv, sv_shift, sv_scale, sv_lower,
         _pad_cols(em, need)[:, :need], rm_start, rs_start, sp)
     return (norm, em, cpts, status, shift, scale, lower, upper, start_segs,
             start_score)
+
+
+def _stage_a_rna(raw, sig_lens, has_sv, sv_shift, sv_scale, sv_lower,
+                 sv_upper, num_cpts, stall_starts, stall_ends, rm_start,
+                 rs_start, outlier_thresh, w: int, min_base_obs: int,
+                 max_cpts: int, sp: StartDpParams):
+    """RNA stages 1-3: t-test changepoint scores -> greedy selection ->
+    removal of the changepoints inside stall intervals, compacted ->
+    event-based scale values (median and MAD of the first events' raw
+    means) -> normalize -> event means -> start DP + validity score
+    (reference flow: tombo/resquiggle.py:1057-1120, RNA branches).
+    Returns the compacted changepoints with their per-read counts."""
+    scores = seg.cpt_scores_t_test_batch(raw, sig_lens, w)
+    cpts, status = sel.greedy_cpts_device(
+        scores, sig_lens - 2 * w, num_cpts, min_base_obs, w, max_cpts)
+
+    # stall removal (reference: tombo/tombo_stats.py:1576-1597): drop
+    # changepoints strictly inside any interval, then sort the kept ones
+    # ahead of a sentinel
+    idx = torch.arange(max_cpts, device=raw.device)[None, :]
+    in_any = ((cpts[:, None, :] > stall_starts[:, :, None]) &
+              (cpts[:, None, :] < stall_ends[:, :, None])).any(1)
+    valid = (idx < num_cpts[:, None]) & ~in_any
+    cpts = torch.sort(torch.where(valid, cpts, 2 ** 30), dim=1).values
+    n_cpts = valid.sum(1)
+    cpts = torch.where(idx < n_cpts[:, None], cpts, 0)
+
+    # event-based scale values (reference: tombo/tombo_stats.py:217-233
+    # ``get_scale_values_from_events``); the event cap is taken in
+    # float32, as the JAX package takes it
+    k_sc = torch.clamp(
+        (n_cpts.to(torch.float32) *
+         config.RNA_SCALE_MAX_FRAC_EVENTS).to(torch.int64),
+        max=config.RNA_SCALE_NUM_EVENTS)
+    em_raw = nrm.compute_base_means_batch(raw, cpts, n_cpts - 1)
+    n_means = torch.clamp(k_sc - 1, min=1)
+    shift = nrm.masked_median(em_raw, n_means)
+    scale = nrm.masked_mad(em_raw, shift, n_means)
+    ot = nrm.POS_LARGE if outlier_thresh is None else outlier_thresh
+    lower = torch.full_like(shift, -ot)
+    upper = torch.full_like(shift, ot)
+    shift = torch.where(has_sv, sv_shift, shift)
+    scale = torch.where(has_sv, sv_scale, scale)
+    lower = torch.where(has_sv, sv_lower, lower)
+    upper = torch.where(has_sv, sv_upper, upper)
+    norm = nrm.normalize_with_scale_batch(raw, sig_lens, shift, scale, lower,
+                                          upper)
+    em = nrm.compute_base_means_batch(norm, cpts, n_cpts - 1)
+    need = sp.num_bases + sp.num_events
+    start_segs, start_score = _start_dp_with_score(
+        _pad_cols(em, need)[:, :need], rm_start, rs_start, sp)
+    return (norm, em, cpts, n_cpts, status, shift, scale, lower, upper,
+            start_segs, start_score)
 
 
 def _stage_a_rescale(raw, sig_lens, sv_shift, sv_scale, sv_lower, sv_upper,
@@ -258,11 +315,15 @@ def _stage_finalize(cpts, rows, clips, segs_dp, seq_lens, ev_lens,
 
 
 def _stage_fit(norm, rows, rsrtr, seq_segs, rm, rs, seq_lens, samp, tri,
-               shift_thresh: float, scale_thresh: float):
+               shift_thresh: float, scale_thresh: float,
+               do_fit: bool = True):
     """Event means over the final segment table -> exact Theil-Sen (count
     kernel) -> scale/shift corrections, changed mask and signal-match
     score (reference: tombo/resquiggle.py:1122-1197,
-    tombo/tombo_stats.py:2327-2339)."""
+    tombo/tombo_stats.py:2327-2339).  Without ``do_fit`` (skip sequence
+    rescaling) the corrections are the identity and nothing changes.  The
+    score's sum runs in an order fixed by L (``row_sums``), so a read
+    scores the same in a shard as in the whole batch."""
     L = seq_segs.shape[1] - 1
     # the prefix sums start at each read's mapped start, as the host
     # lane's ``new_means`` over the mapped slice does: segments of equal
@@ -277,16 +338,23 @@ def _stage_fit(norm, rows, rsrtr, seq_segs, rm, rs, seq_lens, samp, tri,
         n_pts = torch.clamp(seq_lens, max=samp.shape[1])
     else:
         ev, mod, n_pts = em, rm, seq_lens
-    slope, inter = rescale.theil_sen_device(ev, mod, n_pts, tri=tri)
-    fit_ok = slope != 0
-    safe = torch.where(fit_ok, slope, 1.0)
-    scale_corr = 1.0 / safe
-    shift_corr = -inter / safe
-    em_s = (em - shift_corr[:, None]) / scale_corr[:, None]
-    changed = ((torch.abs(shift_corr) > shift_thresh) |
-               (torch.abs(scale_corr - 1.0) > scale_thresh))
+    if do_fit:
+        slope, inter = rescale.theil_sen_device(ev, mod, n_pts, tri=tri)
+        fit_ok = slope != 0
+        safe = torch.where(fit_ok, slope, 1.0)
+        scale_corr = 1.0 / safe
+        shift_corr = -inter / safe
+        em_s = (em - shift_corr[:, None]) / scale_corr[:, None]
+        changed = ((torch.abs(shift_corr) > shift_thresh) |
+                   (torch.abs(scale_corr - 1.0) > scale_thresh))
+    else:
+        shift_corr = torch.zeros_like(em[:, 0])
+        scale_corr = torch.ones_like(em[:, 0])
+        fit_ok = torch.ones_like(shift_corr, dtype=torch.bool)
+        changed = torch.zeros_like(fit_ok)
+        em_s = em
     valid = torch.arange(L, device=em.device)[None, :] < seq_lens[:, None]
-    score = (torch.where(valid, torch.abs((em_s - rm) / rs), 0.0).sum(1) /
+    score = (row_sums(torch.where(valid, torch.abs((em_s - rm) / rs), 0.0)) /
              torch.clamp(seq_lens, min=1))
     return shift_corr, scale_corr, score, changed, fit_ok
 
@@ -306,7 +374,7 @@ def _stage_delfix_fit(norm, rows, rsrtr, seq_segs, rm, rs, seq_lens, win_i,
                       win_bs, win_nb, win_t, win_sig_rel, max_half_z, samp,
                       tri, nb_pad: int, t_pad: int, min_obs: int,
                       winsorize: bool, shift_thresh: float,
-                      scale_thresh: float):
+                      scale_thresh: float, do_fit: bool = True):
     """Batched raw-signal deletion fix, then the fit on the FIXED table
     (the reference's order, tombo/resquiggle.py:1168-1195)."""
     rows_w = rows[win_i]
@@ -331,7 +399,7 @@ def _stage_delfix_fit(norm, rows, rsrtr, seq_segs, rm, rs, seq_lens, win_i,
     seq_segs_fx[wi[valid], cols[valid]] = vals[valid].to(seq_segs.dtype)
 
     fit = _stage_fit(norm, rows, rsrtr, seq_segs_fx, rm, rs, seq_lens, samp,
-                     tri, shift_thresh, scale_thresh)
+                     tri, shift_thresh, scale_thresh, do_fit)
     return (bounds, fail) + fit
 
 
@@ -400,27 +468,26 @@ def _ts_sample_idx(n: int, max_n: int) -> np.ndarray:
 
 # --------------------------------------------------------------- driver
 class BatchedResquiggler:
-    """Drive batches of mapped DNA reads through the device stages.
+    """Drive batches of mapped DNA or RNA reads (raw signal adjusted by
+    ``adjust_map_res``) through the device stages.
 
     ``device=None`` means the CUDA card; ``device="cpu"`` runs every
     kernel's plain PyTorch version.  ``mesh`` (a list of devices, or
     ``parallel.mesh.make_mesh()``) shards every length group's reads over
     its devices; results land on ``mesh[0]`` and equal the 1-device
-    lane's read for read."""
+    lane's read for read.  ``const_scale`` is one scale for every read
+    (per-read median shift; reference: tombo/tombo_stats.py:505-509);
+    ``skip_seq_scaling`` skips the sequence-fitted rescaling (reference:
+    tombo/resquiggle.py:1177)."""
 
     def __init__(self, std_ref, rsqgl_params: ResquiggleParams,
                  seq_samp_type: SeqSampleType,
                  outlier_thresh: Optional[float] = config.OUTLIER_THRESH,
                  dtype=None, device: DeviceLike = None, mesh=None,
-                 const_scale=None):
-        if seq_samp_type.name != config.DNA_SAMP_TYPE:
-            raise NotImplementedError(
-                "RNA re-squiggle is not ported yet (ROADMAP.md, Queue 1: "
-                "RNA)")
-        if const_scale is not None:
-            raise NotImplementedError(
-                "constant-scale normalization is not ported yet "
-                "(ROADMAP.md, Queue 1: CLI and runner)")
+                 const_scale=None, skip_seq_scaling: bool = False):
+        if seq_samp_type.name not in (config.DNA_SAMP_TYPE,
+                                      config.RNA_SAMP_TYPE):
+            raise ValueError("unknown sample type %r" % seq_samp_type.name)
         if mesh is None:
             self.mesh = resolve_mesh([resolve_device(device)])
         else:
@@ -437,6 +504,8 @@ class BatchedResquiggler:
         self.params = rsqgl_params
         self.seq_samp_type = seq_samp_type
         self.outlier_thresh = outlier_thresh
+        self.const_scale = const_scale
+        self.skip_seq_scaling = skip_seq_scaling
         self.save_params = rsqgl_params.replace(
             bandwidth=config.load_resquiggle_parameters(
                 seq_samp_type.name, use_save_bandwidth=True).bandwidth)
@@ -511,14 +580,18 @@ class BatchedResquiggler:
         cpts_w = _pow2_bucket(max(
             s.cpts.shape[0] if rescale_pass else s.num_events
             for s in live), 256)
+        # stall intervals per read, padded to a multiple of 8 for the group
+        n_stalls = _round_up(max([1] + [
+            len(s.map_res.stall_ints) for s in live
+            if s.map_res.stall_ints is not None]), 8)
         ctx = [None] * len(self.mesh)
         for d, reads in self._shards(live):
             ctx[d] = self._segment_shard(reads, self.mesh[d], sig_w, cpts_w,
-                                         rescale_pass)
+                                         rescale_pass, n_stalls)
         return ctx
 
     def _segment_shard(self, live, dev, sig_w: int, cpts_w: int,
-                       rescale_pass: bool):
+                       rescale_pass: bool, n_stalls: int):
         p = self.params
         B = len(live)
         sig_lens = np.array([s.raw.shape[0] for s in live], np.int64)
@@ -534,21 +607,13 @@ class BatchedResquiggler:
             return self._segment_rescale(live, dev, raw_j, lens_j, rm_sj,
                                          rs_sj, sp, cpts_w)
 
+        if p.use_t_test_seg:
+            return self._segment_rna(live, dev, raw_j, lens_j, rm_sj, rs_sj,
+                                     sp, cpts_w, n_stalls)
         w = p.running_stat_width
         num_cpts = np.array([s.num_events for s in live], np.int64)
-        has_sv = np.array([s.map_res.scale_values is not None
-                           for s in live])
-        sv_shift, sv_scale = np.zeros(B), np.ones(B)
-        sv_lower = np.full(B, -nrm.POS_LARGE)
-        sv_upper = np.full(B, nrm.POS_LARGE)
-        for i, s in enumerate(live):
-            sv = s.map_res.scale_values
-            if sv is not None:
-                sv_shift[i], sv_scale[i] = sv.shift, sv.scale
-                if sv.lower_lim is not None:
-                    sv_lower[i] = sv.lower_lim
-                if sv.upper_lim is not None:
-                    sv_upper[i] = sv.upper_lim
+        has_sv, sv_shift, sv_scale, sv_lower, sv_upper = self._given_sv(
+            live, -nrm.POS_LARGE, nrm.POS_LARGE)
         t = lambda a, f=False: self._t(a, f, dev)
         (norm_j, em_j, cpts_j, status_j, shift, scale, lower, upper,
          start_segs_j, start_score_j) = _stage_a_dna(
@@ -578,22 +643,81 @@ class BatchedResquiggler:
                 "start": (s0.astype(np.int64), sN.astype(np.int64),
                           score.astype(np.float64))}
 
+    @staticmethod
+    def _given_sv(live, lower_fill, upper_fill):
+        """(has_sv, shift, scale, lower, upper) of the reads' given scale
+        values: 0, 1 and the fills where a read has none or no limit."""
+        B = len(live)
+        has_sv = np.array([s.map_res.scale_values is not None
+                           for s in live])
+        shift, scale = np.zeros(B), np.ones(B)
+        lower, upper = np.full(B, lower_fill), np.full(B, upper_fill)
+        for i, s in enumerate(live):
+            sv = s.map_res.scale_values
+            if sv is not None:
+                shift[i], scale[i] = sv.shift, sv.scale
+                if sv.lower_lim is not None:
+                    lower[i] = sv.lower_lim
+                if sv.upper_lim is not None:
+                    upper[i] = sv.upper_lim
+        return has_sv, shift, scale, lower, upper
+
+    def _segment_rna(self, live, dev, raw_j, lens_j, rm_sj, rs_sj, sp,
+                     cpts_w: int, n_stalls: int):
+        """RNA stage A on one shard (the JAX package's ``_stage_a_rna``
+        branch): stall intervals and given scale values in, compacted
+        changepoints and event-based scale values out.  Reads that stall
+        removal leaves too few events for start discovery go to the
+        static band."""
+        p = self.params
+        B = len(live)
+        num_cpts = np.array([s.num_events for s in live], np.int64)
+        stall_s = np.zeros((B, n_stalls), np.int64)
+        stall_e = np.zeros((B, n_stalls), np.int64)
+        for i, s in enumerate(live):
+            for k, (a, b) in enumerate(s.map_res.stall_ints or []):
+                stall_s[i, k], stall_e[i, k] = a, b
+        has_sv, sv_shift, sv_scale, sv_lower, sv_upper = self._given_sv(
+            live, np.nan, np.nan)
+        t = lambda a, f=False: self._t(a, f, dev)
+        (norm_j, em_j, cpts_j, n_cpts_j, status_j, shift, scale, lower,
+         upper, start_segs_j, start_score_j) = _stage_a_rna(
+            raw_j, lens_j, t(has_sv), t(sv_shift, True), t(sv_scale, True),
+            t(sv_lower, True), t(sv_upper, True), t(num_cpts), t(stall_s),
+            t(stall_e), rm_sj, rs_sj,
+            (None if self.outlier_thresh is None
+             else float(self.outlier_thresh)), p.running_stat_width,
+            p.min_obs_per_base, cpts_w, sp)
+        (cpts_np, n_cpts, status, shift, scale, lower, upper, s0, sN,
+         score) = self._np(cpts_j, n_cpts_j, status_j, shift, scale, lower,
+                           upper, start_segs_j[:, 0], start_segs_j[:, -1],
+                           start_score_j)
+        lim = lambda v: None if np.isnan(v) else float(v)
+        for i, s in enumerate(live):
+            if status[i] != 0:
+                s.error = "Fewer changepoints found than requested"
+                continue
+            s.cpts = cpts_np[i, :n_cpts[i]].astype(np.int64)
+            s.n_ev = int(n_cpts[i]) - 1
+            s.event_means = None
+            s.scale_values = ScaleValues(float(shift[i]), float(scale[i]),
+                                         lim(lower[i]), lim(upper[i]), None)
+            if s.n_ev < p.start_bw + p.start_n_bases:
+                s.use_static = True
+        return {"em": em_j, "norm": norm_j, "cpts": cpts_j,
+                "start": (s0.astype(np.int64), sN.astype(np.int64),
+                          score.astype(np.float64))}
+
     def _segment_rescale(self, live, dev, raw_j, lens_j, rm_sj, rs_sj, sp,
                          cpts_w: int):
         """Rescale-pass segmentation reusing first-pass changepoints."""
         B = len(live)
         n_cpts = np.array([s.cpts.shape[0] for s in live], np.int64)
         cpts = np.zeros((B, cpts_w), np.int64)
-        sv_shift, sv_scale = np.zeros(B), np.ones(B)
-        sv_lower, sv_upper = np.full(B, np.nan), np.full(B, np.nan)
         for i, s in enumerate(live):
             cpts[i, :n_cpts[i]] = s.cpts
-            sv = s.map_res.scale_values
-            sv_shift[i], sv_scale[i] = sv.shift, sv.scale
-            if sv.lower_lim is not None:
-                sv_lower[i] = sv.lower_lim
-            if sv.upper_lim is not None:
-                sv_upper[i] = sv.upper_lim
+        _, sv_shift, sv_scale, sv_lower, sv_upper = self._given_sv(
+            live, np.nan, np.nan)
         t = lambda a, f=False: self._t(a, f, dev)
         cpts_j = t(cpts)
         norm_j, em_j, start_segs_j, start_score_j = _stage_a_rescale(
@@ -885,7 +1009,8 @@ class BatchedResquiggler:
                 nb_pad=nb_pad, t_pad=t_pad, min_obs=p.raw_min_obs_per_base,
                 winsorize=mhz is not None,
                 shift_thresh=float(config.SHIFT_CHANGE_THRESH),
-                scale_thresh=float(config.SCALE_CHANGE_THRESH))
+                scale_thresh=float(config.SCALE_CHANGE_THRESH),
+                do_fit=not self.skip_seq_scaling)
         # (bounds, fail, shift_corr, scale_corr, score, changed, fit_ok)
         res = {d: self._np(*out) for d, out in queued.items()}
 
@@ -958,7 +1083,9 @@ class BatchedResquiggler:
 
     def _finalize(self, states: List[_ReadState], will_retry: bool = False):
         """Apply the device fit (scalar bookkeeping) or run the numpy host
-        lane (deletion fix + Theil-Sen) and assemble results."""
+        lane (deletion fix + Theil-Sen) and assemble results.  With
+        ``skip_seq_scaling`` the scale values stay as segmentation set
+        them and no read asks for another scaling iteration."""
         host, dev = [], []
         for s in states:
             if s.error is not None or s.result is not None:
@@ -985,6 +1112,12 @@ class BatchedResquiggler:
         results = []
         max_n = config.MAX_POINTS_FOR_THEIL_SEN
         for s, dp_res, segs, norm in host:
+            if self.skip_seq_scaling:
+                score = rsq.get_read_seg_score(ref_impl.new_means(norm, segs),
+                                               dp_res.ref_means,
+                                               dp_res.ref_sds)
+                results.append((s, dp_res, segs, norm, score, False))
+                continue
             ev = ref_impl.new_means(norm, segs)
             mod = dp_res.ref_means
             n = mod.shape[0]
@@ -1012,6 +1145,12 @@ class BatchedResquiggler:
 
         for s, dp_res, segs in dev:
             shc, scc, score, changed, fit_ok = s.dev_fit
+            start = dp_res.read_start_rel_to_raw
+            if self.skip_seq_scaling:
+                norm = self._host_norm(s.raw, s.scale_values, start,
+                                       start + int(segs[-1]))
+                results.append((s, dp_res, segs, norm, score, False))
+                continue
             if not fit_ok:
                 s.error = ("Read failed sequence-based signal re-scaling "
                            "parameter estimation.")
@@ -1025,7 +1164,6 @@ class BatchedResquiggler:
             if not (will_retry and changed):
                 # the normalized mapped slice, two steps as the host lane:
                 # pre-fit scale values + clip, then the fitted correction
-                start = dp_res.read_start_rel_to_raw
                 norm = (self._host_norm(s.raw, sv_pre, start,
                                         start + int(segs[-1])) - shc) / scc
             results.append((s, dp_res, segs, norm, score, changed))
@@ -1093,6 +1231,14 @@ class BatchedResquiggler:
         states = []
         for idx, mr in enumerate(map_results):
             raw = np.asarray(mr.raw_signal, np.float64)
+            if self.const_scale is not None and mr.scale_values is None:
+                # one scale for every read, the median shift per read:
+                # scale values from the host into the given-scale path
+                _, sv = rsq.normalize_raw_signal(
+                    raw, norm_type="median_const_scale",
+                    outlier_thresh=self.outlier_thresh,
+                    const_scale=self.const_scale)
+                mr = mr.replace(scale_values=sv)
             num_mapped_bases = len(mr.genome_seq) - self.std_ref.kmer_width + 1
             st = _ReadState(idx=idx, map_res=mr, raw=raw, num_events=0)
             st.num_events = rsq.compute_num_events(
@@ -1123,7 +1269,9 @@ class BatchedResquiggler:
         if retry:
             saver = BatchedResquiggler(
                 self.std_ref, self.save_params, self.seq_samp_type,
-                self.outlier_thresh, self.dtype, mesh=self.mesh)
+                self.outlier_thresh, self.dtype, mesh=self.mesh,
+                const_scale=self.const_scale,
+                skip_seq_scaling=self.skip_seq_scaling)
             retry_out = saver.resquiggle_batch(
                 [s.map_res.replace(scale_values=None) for s in retry],
                 max_scaling_iters=max_scaling_iters)

@@ -1,9 +1,13 @@
 """Host (numpy) pieces of re-squiggle that the batched path calls
 (subset copy of ``tombo_tpu/pipeline/resquiggle.py``; reference:
-tombo/resquiggle.py): event counts, read mapping, traceback trimming and
-raw coordinates, the short-read static assignment, and the deletion-fix
-window planner and numpy fix for host-lane reads."""
+tombo/resquiggle.py): event counts, read mapping, the RNA signal
+adjustments (3'->5' flip, adapter trim, stall intervals), per-read
+normalization and scale values, traceback trimming and raw coordinates,
+the short-read static assignment, and the deletion-fix window planner and
+numpy fix for host-lane reads."""
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -12,9 +16,10 @@ from ..config import (DEL_FIX_WINDOW, EXTRA_SIG_FACTOR, MAX_DEL_FIX_WINDOW,
                       MAX_RAW_CPTS, MIN_EVENT_TO_SEQ_RATIO, ResquiggleParams)
 from ..errors import TomboError
 from ..ops import ref_impl
+from ..ops.ref_impl import valid_cpts_w_cap, valid_cpts_w_cap_t_test  # noqa
 from ..seq import rev_comp
 from ..types import (AlignInfo, DpResults, GenomeLocation, ResquiggleResults,
-                     SeqSampleType, SequenceData)
+                     ScaleValues, SeqSampleType, SequenceData)
 
 
 def compute_num_events(signal_len, seq_len, mean_obs_per_event,
@@ -164,14 +169,186 @@ def resolve_skipped_bases_with_raw(dp_res: DpResults, norm_signal,
     return resolved
 
 
+def normalize_raw_signal(all_raw_signal, read_start_rel_to_raw=0,
+                         read_obs_len=None, norm_type="median",
+                         outlier_thresh=None,
+                         scale_values: Optional[ScaleValues] = None,
+                         const_scale=None):
+    """Normalize raw signal (reference: tombo/tombo_stats.py:482
+    ``normalize_raw_signal``; the ``median`` and ``median_const_scale``
+    types).  Returns (norm_signal, ScaleValues)."""
+    if read_obs_len is None:
+        read_obs_len = all_raw_signal.shape[0] - read_start_rel_to_raw
+    raw_signal = np.asarray(
+        all_raw_signal[read_start_rel_to_raw:
+                       read_start_rel_to_raw + read_obs_len], np.float64)
+    if scale_values is not None:
+        shift, scale = scale_values.shift, scale_values.scale
+    elif norm_type == "median":
+        shift = float(np.median(raw_signal))
+        scale = float(np.median(np.abs(raw_signal - shift)))
+    elif norm_type == "median_const_scale":
+        if const_scale is None:
+            raise TomboError("median_const_scale needs a constant scale")
+        shift = float(np.median(raw_signal))
+        scale = float(const_scale)
+    else:
+        raise TomboError("Invalid normalization type: " + norm_type)
+    norm_signal = (raw_signal - shift) / scale
+
+    lower_lim, upper_lim = None, None
+    if outlier_thresh is not None:
+        read_med = np.median(norm_signal)
+        read_mad = np.median(np.abs(norm_signal - read_med))
+        lower_lim = read_med - read_mad * outlier_thresh
+        upper_lim = read_med + read_mad * outlier_thresh
+    elif scale_values is not None:
+        lower_lim, upper_lim = scale_values.lower_lim, scale_values.upper_lim
+    if lower_lim is not None and upper_lim is not None:
+        norm_signal = np.clip(norm_signal, lower_lim, upper_lim)
+    return norm_signal, ScaleValues(shift, scale, lower_lim, upper_lim,
+                                    outlier_thresh)
+
+
+def get_scale_values_from_events(all_raw_signal, valid_cpts, outlier_thresh,
+                                 num_events=None, max_frac_events=None
+                                 ) -> ScaleValues:
+    """RNA scale values from the median and MAD of the first events' means,
+    which keeps the adapter out (reference: tombo/tombo_stats.py:217-233)."""
+    if num_events is not None or max_frac_events is not None:
+        if (num_events is None or
+                valid_cpts.shape[0] * max_frac_events < num_events):
+            num_events = int(valid_cpts.shape[0] * max_frac_events)
+        valid_cpts = valid_cpts[:num_events]
+    event_means = ref_impl.new_means(
+        np.asarray(all_raw_signal, np.float64), valid_cpts)
+    read_med = float(np.median(event_means))
+    read_mad = float(np.median(np.abs(event_means - read_med)))
+    return ScaleValues(shift=read_med, scale=read_mad,
+                       lower_lim=-outlier_thresh, upper_lim=outlier_thresh,
+                       outlier_thresh=None)
+
+
+def identify_stalls(all_raw_signal, stall_params: config.StallParams,
+                    return_metric=False):
+    """Pore-stall intervals [start, end) of the raw signal, by the running
+    mean-difference method (the default) or the rolling-percentile method
+    (reference: tombo/tombo_stats.py:269 ``identify_stalls``)."""
+    sp = stall_params
+    x = np.asarray(all_raw_signal)
+    if x.shape[0] < sp.window_size:
+        return ([], np.full(x.shape[0], np.nan)) if return_metric else []
+
+    stall_metric = np.full(x.shape, np.nan, dtype=np.float64)
+    start_offset = int(sp.window_size * 0.5)
+    end_offset = x.shape[0] - sp.window_size + start_offset + 1
+    if sp.lower_pctl is not None and sp.upper_pctl is not None:
+        stall_metric[start_offset:end_offset] = \
+            ref_impl.compute_running_pctl_diffs(
+                x, sp.window_size, sp.lower_pctl, sp.upper_pctl)
+    elif sp.n_windows is not None and sp.mini_window_size is not None:
+        assert sp.window_size == sp.mini_window_size * sp.n_windows
+        mw, nw = sp.mini_window_size, sp.n_windows
+        # moving averages of the mini windows
+        ma = np.cumsum(np.asarray(x, np.float64))
+        ma[mw:] = ma[mw:] - ma[:-mw]
+        ma = ma[mw - 1:] / mw
+        offsets = [ma[int(mw * off):int(-mw * (nw - off - 1))]
+                   for off in range(nw - 1)] + [ma[int(mw * (nw - 1)):]]
+        diffs = [np.abs(offsets[i] - offsets[j])
+                 for i in range(nw) for j in range(i + 1, nw)]
+        diff_sums = diffs[0].copy()
+        for d in diffs:
+            diff_sums += d
+        stall_metric[start_offset:end_offset] = diff_sums / len(diffs)
+    else:
+        raise TomboError(
+            "Must provide method specific parameters for stall detection")
+
+    with np.errstate(invalid="ignore"):
+        below = stall_metric <= sp.threshold
+    stall_locs = np.where(np.diff(np.concatenate([[False], below])))[0]
+    if below[-1]:
+        stall_locs = np.concatenate([stall_locs, [stall_metric.shape[0]]])
+    stall_locs = stall_locs.reshape(-1, 2)
+    stall_locs = stall_locs[
+        (np.diff(stall_locs) > sp.min_consecutive_obs).flatten()]
+    if stall_locs.shape[0] == 0:
+        return ([], stall_metric) if return_metric else []
+
+    expand_width = (sp.window_size // 2) - sp.edge_buffer
+    if expand_width > 0:
+        stall_locs[:, 0] -= expand_width
+        stall_locs[:, 1] += expand_width
+        merged = []
+        prev = stall_locs[0]
+        for curr in stall_locs:
+            if curr[0] > prev[1]:
+                merged.append(prev)
+                prev = curr
+            else:
+                prev[1] = curr[1]
+        merged.append(prev)
+        stall_locs = merged
+    return (stall_locs, stall_metric) if return_metric else stall_locs
+
+
+def remove_stall_cpts(stall_ints, valid_cpts):
+    """Drop changepoints strictly inside a stall interval (reference:
+    tombo/tombo_stats.py:1576-1597)."""
+    if len(stall_ints) == 0:
+        return valid_cpts
+    keep = np.ones(valid_cpts.shape[0], dtype=bool)
+    for start, end in stall_ints:
+        keep &= ~((valid_cpts > start) & (valid_cpts < end))
+    return valid_cpts[keep]
+
+
 def adjust_map_res(map_res: ResquiggleResults, seq_samp_type: SeqSampleType,
-                   rsqgl_params: ResquiggleParams) -> ResquiggleResults:
-    """Pre-resquiggle signal adjustments.  DNA needs none (no stall
-    collapsing by default); RNA is a later slice."""
-    if seq_samp_type.name != config.DNA_SAMP_TYPE:
-        raise NotImplementedError(
-            "RNA re-squiggle is not ported yet (ROADMAP.md, Queue 1: RNA)")
+                   rsqgl_params: ResquiggleParams,
+                   trim_rna_adapter: bool = False) -> ResquiggleResults:
+    """Pre-resquiggle signal adjustments: the RNA 3'->5' signal flip, the
+    optional adapter trim, and stall intervals where collapsing is on
+    (RNA by default; reference: tombo/resquiggle.py:1506-1530)."""
+    if seq_samp_type.name == config.RNA_SAMP_TYPE:
+        if trim_rna_adapter:
+            adapter_end = trim_rna(map_res.raw_signal, rsqgl_params)
+            map_res = map_res.replace(
+                raw_signal=map_res.raw_signal[adapter_end:])
+        map_res = map_res.replace(raw_signal=map_res.raw_signal[::-1])
+    if ((config.COLLAPSE_RNA_STALLS and
+         seq_samp_type.name == config.RNA_SAMP_TYPE) or
+            (config.COLLAPSE_DNA_STALLS and
+             seq_samp_type.name == config.DNA_SAMP_TYPE)):
+        map_res = map_res.replace(stall_ints=identify_stalls(
+            map_res.raw_signal, config.DEFAULT_STALL_PARAMS))
     return map_res
+
+
+def trim_rna(all_raw_signal, rsqgl_params: ResquiggleParams,
+             trim_rna_params=config.DEFAULT_TRIM_RNA_PARAMS) -> int:
+    """The end of the DNA adapter on a direct-RNA read, in raw samples (0
+    when none is found; reference: tombo/tombo_stats.py:235-267)."""
+    x = np.asarray(all_raw_signal[:trim_rna_params.max_raw_obs], np.float64)
+    num_events = int(x.shape[0] // rsqgl_params.mean_obs_per_event)
+    valid_cpts = valid_cpts_w_cap(
+        x, rsqgl_params.min_obs_per_base, rsqgl_params.running_stat_width,
+        num_events)
+    _, window_sds = ref_impl.new_mean_stds(x, valid_cpts)
+
+    w = trim_rna_params.moving_window_size
+    if window_sds.shape[0] < w:
+        return 0
+    mov = np.convolve(window_sds, np.ones(w) / w, mode="valid")
+    thresh = mov.mean() * trim_rna_params.thresh_scale
+    m = trim_rna_params.min_running_values
+    if mov.shape[0] < m:
+        return 0
+    running_mins = np.lib.stride_tricks.sliding_window_view(mov, m).min(-1)
+    above = np.where(running_mins > thresh)[0]
+    if above.shape[0] == 0:
+        return 0
+    return int(valid_cpts[above[0]])
 
 
 def map_read(seq_data: SequenceData, aligner, std_ref,
@@ -179,9 +356,6 @@ def map_read(seq_data: SequenceData, aligner, std_ref,
              bc_subgrp="BaseCalled_template") -> ResquiggleResults:
     """Map basecalls and extract the k-mer-context-expanded genome
     sequence (reference: tombo/resquiggle.py:1278 ``map_read``)."""
-    if seq_samp_type.name != config.DNA_SAMP_TYPE:
-        raise NotImplementedError(
-            "RNA re-squiggle is not ported yet (ROADMAP.md, Queue 1: RNA)")
     alignment = aligner.map(str(seq_data.seq))
     if alignment is None:
         raise TomboError("Alignment not produced")
@@ -209,7 +383,10 @@ def map_read(seq_data: SequenceData, aligner, std_ref,
         insertions=num_ins, deletions=num_del, matches=alignment.mlen,
         mismatches=num_aligned - alignment.mlen)
 
-    # expand to cover model-able positions (DNA, no start-clip bases)
+    # expand to cover model-able positions (reference:
+    # tombo/resquiggle.py:1344-1358).  Without start-clip bases (the
+    # reference hard-codes them off) the DNA and the RNA rule pick the
+    # same branch for each strand
     dnstrm_bases = std_ref.kmer_width - std_ref.central_pos - 1
     if strand == "+":
         if ref_start < std_ref.central_pos:

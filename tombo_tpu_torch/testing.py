@@ -1,5 +1,6 @@
 """Synthetic reads for tests and the card smoke run (subset copy of
-``tombo_tpu/testing.py``; the same seeds give the same reads)."""
+``tombo_tpu/testing.py``; the same seeds give the same reads), and pore
+stalls to insert into them."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -78,3 +79,11 @@ def simulate_read(
         seq=read_seq, raw_signal=raw, chrm=chrm, strand=strand,
         start=start, end=end, true_segs=segs + pre_len,
         read_start_rel_to_raw=pre_len)
+
+
+def insert_stall(rng: np.random.Generator, raw: np.ndarray, pos: int,
+                 n_obs: int, noise_sd: float = 11.0) -> np.ndarray:
+    """``raw`` with a pore stall before sample ``pos``: ``n_obs`` samples
+    at the level of ``raw[pos]`` plus Gaussian noise (DAC units)."""
+    stall = np.round(raw[pos] + rng.normal(0, noise_sd, n_obs))
+    return np.concatenate([raw[:pos], stall.astype(raw.dtype), raw[pos:]])
