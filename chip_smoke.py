@@ -176,9 +176,9 @@ def ptxas_summary(log):
                  "spill stores": "?", "spill loads": "?"}, **e) for e in out]
 
 
-def build_reads(read_lens, seed, ref_len):
+def build_reads(read_lens, seed, ref_len, prefix):
     """Simulated, mapped DNA reads of the given lengths (bench.py's
-    recipe)."""
+    recipe), named ``prefix`` and a number; also the reference."""
     from tombo_tpu_torch import config
     from tombo_tpu_torch.io.model_io import KmerModel
     from tombo_tpu_torch.pipeline import resquiggle as rsq
@@ -194,20 +194,21 @@ def build_reads(read_lens, seed, ref_len):
     maps = []
     for i, n in enumerate(read_lens):
         read = simulate_read(rng, fasta, model, read_len=int(n),
-                             read_id="smoke_%05d" % i, mean_dwell=MEAN_DWELL)
+                             read_id="%s%05d" % (prefix, i),
+                             mean_dwell=MEAN_DWELL)
         mr = rsq.map_read(SequenceData(read.seq, read.read_id, 12.0),
                           aligner, model, sst)
         mr = mr.replace(raw_signal=read.raw_signal.astype(np.float64))
         maps.append(rsq.adjust_map_res(mr, sst, params))
-    return model, params, sst, maps
+    return model, params, sst, maps, fasta
 
 
 def build_rna_reads(n_reads, seed, ref_len):
     """Simulated, mapped, adjusted direct-RNA reads; one in
     RNA_STALL_EVERY gets a pore stall at its middle base boundary.
-    Returns the model, parameters, sample type, the mapped reads and, per
-    read, the stall's (start, end) in the adjusted (5' to 3') signal or
-    None."""
+    Returns the model, parameters, sample type, the mapped reads, per
+    read the stall's (start, end) in the adjusted (5' to 3') signal or
+    None, and the reference."""
     from tombo_tpu_torch import config, testing
     from tombo_tpu_torch.io.model_io import KmerModel
     from tombo_tpu_torch.pipeline import resquiggle as rsq
@@ -236,7 +237,7 @@ def build_rna_reads(n_reads, seed, ref_len):
         mr = mr.replace(raw_signal=raw.astype(np.float64))
         maps.append(rsq.adjust_map_res(mr, sst, params))
         stalls.append(stall)
-    return model, params, sst, maps, stalls
+    return model, params, sst, maps, stalls, fasta
 
 
 def synthetic_dp_args(B, L, bw, seed, dev):
@@ -372,11 +373,18 @@ def stage_breakdown(br, batch):
 def device_profile(br, batch):
     """Device busy share and the kernels that take the most device time
     over one ``resquiggle_batch``, from torch.profiler."""
+    return profile_call(lambda: br.resquiggle_batch(batch))
+
+
+def profile_call(fn):
+    """Device busy share, the kernels that take the most device time and
+    the PyTorch calls the host made over one call of ``fn``, from
+    torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        br.resquiggle_batch(batch)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -404,6 +412,195 @@ def device_profile(br, batch):
             "device_idle_share": 1.0 - busy_us * 1e-6 / wall,
             "top": [{"name": k[:60], "ms": us * 1e-3, "count": n}
                     for k, (us, n) in top]}
+
+
+def layer_breakdown(fn, layers):
+    """Seconds of one call of ``fn`` by layer: ``layers`` lists (owner,
+    attribute, label); each layer's own time without the layers it calls,
+    with a card synchronise at every layer edge."""
+    acc = {label: 0.0 for _, _, label in layers}
+    stack = []
+
+    def timed(f, label):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stack.append(0.0)
+            try:
+                return f(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                acc[label] += dt - stack.pop()
+                if stack:
+                    stack[-1] += dt
+        return run
+
+    with patched([(o, n, timed(getattr(o, n), label))
+                  for o, n, label in layers]):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    acc["other (host)"] = wall - sum(acc.values())
+    return {"wall_s": wall, "layers_s": acc}
+
+
+def detection_index(results, rna, dev):
+    """In-memory reads index of a path's re-squiggle results: the reads
+    whose event means are device-resident on the card (there is no FAST5
+    here).  Returns (index, reads left out, failed reads)."""
+    from tombo_tpu_torch import config
+    from tombo_tpu_torch.io.index import ReadsIndex
+    from tombo_tpu_torch.stats import device_levels
+    from tombo_tpu_torch.types import ReadData
+    index, left, failed = ReadsIndex(), 0, 0
+    for res, _ in results:
+        if res is None:
+            failed += 1
+            continue
+        gl, rid, n = res.genome_loc, res.align_info.read_id, len(res.segs) - 1
+        if device_levels.lookup(rid, n, dev) is None:
+            left += 1
+            continue
+        index.add_read_data(gl.chrom, gl.strand, ReadData(
+            gl.start, gl.start + n, False, res.read_start_rel_to_raw,
+            gl.strand, "", config.DEFAULT_CORRECTED_GROUP + "/" +
+            res.align_info.subgroup, rna, res.sig_match_score,
+            res.mean_q_score, rid))
+    return index, left, failed
+
+
+def register_cpu_copies(index, dev):
+    """Register the card means of every read of ``index`` again as CPU
+    tensors (one padded matrix), for the CPU runs of the same code."""
+    from tombo_tpu_torch.stats import device_levels
+    rows, entries = [], []
+    for i, r in enumerate(index.iter_reads()):
+        src, off = device_levels.lookup(r.read_id, r.end - r.start, dev)
+        rows.append(src[off:off + r.end - r.start])
+        entries.append((r.read_id, i, r.end - r.start))
+    width = max(x.shape[0] for x in rows)
+    mat = torch.stack([torch.nn.functional.pad(x, (0, width - x.shape[0]))
+                       for x in rows]).cpu()
+    device_levels.register_batch(mat, entries)
+
+
+def detection_flips(got, want):
+    """(sites, coverage mismatches, differing valid-coverage or fraction
+    entries) between two lists of RegionStats of the same regions."""
+    if [(s.chrm, s.strand, s.start) for s in got] != \
+            [(s.chrm, s.strand, s.start) for s in want]:
+        return None, None, None
+    sites = cov_bad = flips = 0
+    for a, b in zip(got, want):
+        if not np.array_equal(a.reg_poss, b.reg_poss):
+            return None, None, None
+        sites += a.reg_poss.shape[0]
+        cov_bad += int(np.sum(a.reg_cov != b.reg_cov))
+        for f in ("valid_cov", "reg_frac_standard_base"):
+            x, y = getattr(a, f), getattr(b, f)
+            flips += int(np.sum(~((x == y) | (np.isnan(x) & np.isnan(y)))))
+    return sites, cov_bad, flips
+
+
+def det_dispatch_bound_ms(args, fm):
+    """Least time of one packed dispatch: the larger of its bytes (the
+    gathered means, ivec, the k-mer codes, the uint8 and int32 counts)
+    over the memory rate and ``det_ops_per_elem`` operations a (row,
+    column) element of its real rows over the float32 rate."""
+    flat, ivec, dev_groups, ref, W = args[:5]
+    rows = int((ivec[2] > 0).sum())
+    obs = int(ivec[2].long().sum())
+    S = ref[1].shape[0]
+    nbytes = (obs * 4 + ivec.numel() * 4 + ref[1].numel() *
+              ref[1].element_size() + S * W * 3 * (4 + 1))
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = rows * W * det_ops_per_elem(fm) / F32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def det_ops_per_elem(fm):
+    """Float32 operations a (row, column) element of a packed dispatch
+    needs, each arithmetic operation and each transcendental call counted
+    once: z 3 (subtract, divide, abs), the two-sided p-value 3 (scale,
+    compare, erf or erfc), clamp and log 2, the window sum 2 fm, Fisher's
+    Q in log space with w = 2 fm + 1 terms (log x, w - 1 multiplies and
+    subtracts, logsumexp's max, w subtracts, w exps, w - 1 adds and a
+    log, minus x, exp, the inf test) 6 w + 2, the clamp 1, the masks 8
+    (isnan, emit, two thresholds, or, and, above, and) and the count adds
+    3."""
+    w = 2 * fm + 1
+    return 3 + 3 + 2 + 2 * fm + 6 * w + 2 + 1 + 8 + 3
+
+
+def detection_run(label, index, params, fasta, model, ctrl, dev):
+    """Detection passes on the card through ``iter_region_stats``: a
+    first pass (PyTorch loads each CUDA kernel at its first use), the
+    timed pass (every packed dispatch checked to run on the card and
+    timed with CUDA events), a pass by layer and a profiled pass.
+    Returns (summary, RegionStats list, the largest dispatch's
+    arguments)."""
+    from tombo_tpu_torch.stats import detect
+    from tombo_tpu_torch.stats import device as sdev
+    body = sdev.packed_test_and_accumulate
+    events, biggest = [], [None, -1]
+
+    def dispatch(*args):
+        flat, ivec, dev_groups, ref = args[:4]
+        tensors = [ivec] + [t for t in ref[1:]] + \
+            ([flat] if flat is not None else []) + \
+            [t for g in dev_groups for t in g]
+        if any(t.device.type != dev.type for t in tensors):
+            fail("%s: a packed dispatch got a tensor off the %s" % (
+                label, dev.type))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = body(*args)
+        b.record()
+        events.append((a, b))
+        if ivec.shape[1] > biggest[1]:
+            biggest[:] = [args, ivec.shape[1]]
+        return out
+
+    def run():
+        return list(detect.iter_region_stats(index, params, fasta, model,
+                                             ctrl, device=dev))
+    with patched([(sdev, "packed_test_and_accumulate", dispatch)]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        events.clear()
+        t0 = time.perf_counter()
+        stats = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    disp_ms = [a.elapsed_time(b) for a, b in events]
+    obs = sum(int(st.reg_cov.sum()) for st in stats)
+    reads = sum(len(v) for v in index.reads_index.values())
+    layers = layer_breakdown(run, [
+        (detect, "_prep_chunk", "region prep"),
+        (sdev.PackedRegionBatch, "add_region", "pack"),
+        (sdev.PackedRegionBatch, "dispatch", "dispatch"),
+        (sdev.PackedRegionBatch, "unpack_region", "unpack to RegionStats"),
+        (detect, "region_stats_from_accumulators", "unpack to RegionStats")])
+    prof = profile_call(run)
+    summary = {
+        "run": label, "reads_in_index": reads,
+        "regions": len(stats),
+        "sites": sum(st.reg_poss.shape[0] for st in stats),
+        "site_obs": obs, "dispatches": len(disp_ms),
+        "dispatch_ms_sum": sum(disp_ms),
+        "dispatch_ms_max": max(disp_ms) if disp_ms else None,
+        "first_pass_s": first, "wall_s": wall,
+        "site_obs_per_s": obs / wall,
+        "layers": layers, "device_idle_share": prof.get(
+            "device_idle_share", "not measured"),
+        "torch_calls": prof["torch_calls"], "top": prof.get("top", [])[:4]}
+    return summary, stats, biggest[0]
 
 
 def k1_bound_ms(args, bw, io_bytes=False):
@@ -535,6 +732,127 @@ def cpu_crosscheck(label, model, params, sst, reads, card_results):
     print("%s: card vs CPU, worst: %s" % (label, json.dumps(worst)))
 
 
+def detection_phase(dev, outs, outs_m, outs_r, fasta_1kb, fasta_m,
+                    fasta_r, model, model_r):
+    """De novo on the 1 kb, mixed and RNA paths' reads and sample-compare
+    on the 1 kb path (batch 1 the control, batches 2-3 the sample), at
+    the JAX CLI's defaults, from the device means their re-squiggle
+    registered; each run again on the CPU at float32 and float64 from
+    the same means; the packed dispatch alone at the 1 kb de novo run's
+    largest group.  Each path names its reads with its own prefix, so one
+    path's cached means never serve another's read; the phase runs
+    before the mesh lane re-registers the first batch of each path."""
+    from tombo_tpu_torch import config
+    from tombo_tpu_torch.stats import detect
+    from tombo_tpu_torch.stats import device as sdev
+    idx_1kb, left_1kb, fail_1kb = detection_index(
+        [r for o in outs for r in o], False, dev)
+    idx_ctrl, _, _ = detection_index(outs[0], False, dev)
+    idx_samp, _, _ = detection_index(outs[1] + outs[2], False, dev)
+    idx_m, left_m, fail_m = detection_index(
+        [r for o in outs_m for r in o], False, dev)
+    idx_r, left_r, fail_r = detection_index(
+        [r for o in outs_r for r in o], True, dev)
+    for label, left, failed, ix in (
+            ("1 kb", left_1kb, fail_1kb, idx_1kb),
+            ("mixed", left_m, fail_m, idx_m),
+            ("RNA", left_r, fail_r, idx_r)):
+        print("detection index, %s path: %d reads, %d left out (no "
+              "device means: host lane or static band), %d failed" % (
+                  label, sum(len(v) for v in ix.reads_index.values()),
+                  left, failed))
+
+    def det_params(stat_type, samp_type):
+        th = (config.DE_NOVO_THRESH if stat_type == "de_novo"
+              else config.SAMP_COMP_THRESH)[samp_type]
+        return detect.TestParams(
+            stat_type=stat_type, single_read_thresh=th[1],
+            lower_thresh=th[0], min_test_reads=1,
+            fm_offset=config.FM_OFFSET_DEFAULT,
+            region_size=config.DEFAULT_REGION_SIZE)
+    det_cases = [
+        ("1 kb de novo", idx_1kb, det_params("de_novo", "DNA"),
+         fasta_1kb, model, None),
+        ("1 kb sample_compare", idx_samp,
+         det_params("sample_compare", "DNA"), fasta_1kb, model,
+         idx_ctrl),
+        ("mixed de novo", idx_m, det_params("de_novo", "DNA"), fasta_m,
+         model, None),
+        ("RNA de novo", idx_r, det_params("de_novo", "RNA"), fasta_r,
+         model_r, None)]
+    det_out, det_args = [], None
+    for label, ix, p, fa, mo, ctrl in det_cases:
+        summary, stats, big = detection_run(label, ix, p, fa, mo, ctrl,
+                                            dev)
+        if not stats or summary["dispatches"] == 0:
+            fail("detection %s: no region statistics" % label)
+        for st in stats:
+            fr = st.reg_frac_standard_base
+            if not (st.reg_poss.shape == st.reg_cov.shape == fr.shape and
+                    np.all(st.reg_cov > 0) and
+                    np.all(st.valid_cov <= st.reg_cov) and
+                    np.all((fr >= 0) & (fr <= 1) | np.isnan(fr))):
+                fail("detection %s: malformed region %s:%s:%d" % (
+                    label, st.chrm, st.strand, st.start))
+        print("detection %s: %s" % (label, json.dumps(summary)))
+        det_out.append((label, ix, p, fa, mo, ctrl, stats, summary))
+        if det_args is None:
+            det_args = big
+
+    # the same means as CPU tensors through the same code, float32
+    # and float64: coverage equal, threshold flips within
+    # max(1, n/10,000) entries (tests/test_fused_detect.py's bar)
+    for ix in (idx_1kb, idx_m, idx_r):
+        register_cpu_copies(ix, dev)
+    for label, ix, p, fa, mo, ctrl, stats, summary in det_out:
+        t0 = time.perf_counter()
+        cpu = {dt: list(detect.iter_region_stats(
+            ix, p, fa, mo, ctrl, device="cpu", dtype=dt))
+            for dt in (torch.float32, torch.float64)}
+        check = {"cpu_s": time.perf_counter() - t0}
+        for name, ref in (("card_vs_cpu_f32", cpu[torch.float32]),
+                          ("card_vs_cpu_f64", cpu[torch.float64]),
+                          ("cpu_f32_vs_f64", None)):
+            got = stats if ref is not None else cpu[torch.float32]
+            ref = ref if ref is not None else cpu[torch.float64]
+            sites, cov_bad, flips = detection_flips(got, ref)
+            check[name] = {"sites": sites, "coverage_differs": cov_bad,
+                           "flips": flips}
+            if sites is None or cov_bad:
+                fail("detection %s, %s: positions or coverage differ" % (
+                    label, name))
+            if flips > max(1, 2 * sites // 10000):
+                fail("detection %s, %s: %d of %d entries flip" % (
+                    label, name, flips, 2 * sites))
+        print("detection %s, CPU cross-check: %s" % (label,
+                                                      json.dumps(check)))
+
+    # the packed dispatch alone, at the 1 kb de novo run's largest
+    # group: CUDA-event time against its bound, PyTorch calls
+    fm = config.FM_OFFSET_DEFAULT
+    d_bound, d_by = det_dispatch_bound_ms(det_args, fm)
+    body = sdev.packed_test_and_accumulate
+    lane = {
+        "function": "tombo_tpu_torch/stats/device.py::"
+                    "packed_test_and_accumulate",
+        "replaces": "tombo_tpu/stats/device.py:210 _packed_body "
+                    "(fused gather :167)",
+        "rows": det_args[1].shape[1],
+        "real_rows": int((det_args[1][2] > 0).sum()),
+        "W": det_args[4], "S": det_args[3][1].shape[0],
+        "site_obs": int(det_args[1][2].long().sum()),
+        "ms": cuda_ms(lambda: body(*det_args), 20),
+        "bound_ms": d_bound, "bound_by": d_by,
+        "ops_per_element": det_ops_per_elem(fm),
+        "torch_calls": profile_call(
+            lambda: body(*det_args))["torch_calls"],
+        "dispatches": {label: summary["dispatches"]
+                       for label, *_, summary in det_out},
+        "library_ms": None}
+    print("detection lane: %s" % json.dumps(lane))
+    return lane
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -574,8 +892,8 @@ def main():
 
     # ---- phase 2: the 1 kb path on the card
     with phase("1 kb path"):
-        model, params, sst, maps = build_reads(
-            [READ_LEN] * (BATCH * (N_BATCHES + 1)), 1234, 60000)
+        model, params, sst, maps, fasta_1kb = build_reads(
+            [READ_LEN] * (BATCH * (N_BATCHES + 1)), 1234, 60000, "smoke_")
         warm, maps = maps[:BATCH], maps[BATCH:]
         batches = [maps[b * BATCH:(b + 1) * BATCH]
                    for b in range(N_BATCHES)]
@@ -734,7 +1052,8 @@ def main():
     # ---- phase 6: the mixed-length path on the card
     with phase("mixed path"):
         lens = mixed_lens(BATCH * (N_MIXED_BATCHES + 1), 4321)
-        model, params, sst, maps = build_reads(lens, 4321, MIXED_REF_LEN)
+        model, params, sst, maps, fasta_m = build_reads(
+            lens, 4321, MIXED_REF_LEN, "mixed_")
         print("mixed reads: %d, bases median %d, mean %.0f, max %d; "
               "%d over 16,384 bases" % (
                   len(lens), int(np.median(lens)), lens.mean(), lens.max(),
@@ -906,8 +1225,9 @@ def main():
 
     # ---- phase 10: the direct-RNA path on the card
     with phase("RNA path"):
-        model_r, params_r, sst_r, maps_r, stalls_r = build_rna_reads(
-            BATCH * (N_RNA_BATCHES + 1), 2468, RNA_REF_LEN)
+        (model_r, params_r, sst_r, maps_r, stalls_r,
+         fasta_r) = build_rna_reads(BATCH * (N_RNA_BATCHES + 1), 2468,
+                                    RNA_REF_LEN)
         warm, maps_r = maps_r[:BATCH], maps_r[BATCH:]
         stalls_r = stalls_r[BATCH:]
         rna = [maps_r[b * BATCH:(b + 1) * BATCH]
@@ -1112,6 +1432,13 @@ def main():
     with phase("RNA breakdown"):
         print("stages (RNA): %s" % json.dumps(stage_breakdown(br_r, rna[1])))
         print("device (RNA): %s" % json.dumps(device_profile(br_r, rna[0])))
+
+    # ---- phase 13b: detection on the card from the paths' device means
+    with phase("detection"):
+        t_det = time.perf_counter()
+        detection_phase(dev, outs, outs_m, outs_r, fasta_1kb, fasta_m,
+                        fasta_r, model, model_r)
+        print("detection phase: %.1f s" % (time.perf_counter() - t_det))
 
     # ---- phase 14: the read-sharded lane (K3) over the cards' mesh
     with phase("mesh lane"):

@@ -430,3 +430,64 @@ def test_fit_score_same_in_any_batch_size(card):
         np.array([k]) for k in range(16)]
     diff = [int(k) for p in parts for k in p[score(p) != full[p]]]
     assert diff == [], "reads %s score differently" % diff
+
+
+def test_detection_on_card_matches_cpu(card):
+    """Eight 1,000-base reads re-squiggled on the card register their
+    device means; de novo and sample-compare detection from them on the
+    card equal the same code on CPU copies of the means at float32:
+    positions and coverage exact, at most one flipped entry."""
+    from tombo_tpu_torch.io.index import ReadsIndex
+    from tombo_tpu_torch.stats import detect, device_levels
+    from tombo_tpu_torch.types import ReadData
+    rng = np.random.default_rng(9)
+    model = KmerModel.load_default("DNA")
+    fasta = testing.random_reference(np.random.default_rng(10), 6000)
+    sst = SeqSampleType("DNA", False)
+    params = config.load_resquiggle_parameters("DNA")
+    maps = []
+    for i in range(8):
+        read = testing.simulate_read(rng, fasta, model, read_len=1000,
+                                     read_id="d_%03d" % i)
+        mr = rsq.map_read(SequenceData(read.seq, read.read_id, 12.0),
+                          ExactAligner(fasta), model, sst)
+        maps.append(rsq.adjust_map_res(
+            mr.replace(raw_signal=read.raw_signal.astype(np.float64)), sst,
+            params))
+    device_levels.clear()
+    out = BatchedResquiggler(model, params, sst,
+                             device="cuda").resquiggle_batch(maps)
+    index, rows, entries = ReadsIndex(), [], []
+    for res, err in out:
+        assert err is None, err
+        gl, n = res.genome_loc, len(res.segs) - 1
+        rid = res.align_info.read_id
+        src, off = device_levels.lookup(rid, n, card)
+        # one merged source, not a new merge at each lookup
+        assert src is device_levels.lookup(rid, n, card)[0]
+        rows.append(src[off:off + n].cpu())
+        entries.append((rid, len(entries), n))
+        index.add_read_data(gl.chrom, gl.strand, ReadData(
+            gl.start, gl.start + n, False, 0, gl.strand, "", "g", False,
+            read_id=rid))
+    device_levels.register_batch(torch.stack(rows), entries)
+    for stat_type, th in (("de_novo", config.DE_NOVO_THRESH["DNA"]),
+                          ("sample_compare",
+                           config.SAMP_COMP_THRESH["DNA"])):
+        p = detect.TestParams(stat_type, single_read_thresh=th[1],
+                              lower_thresh=th[0], region_size=2000)
+        ctrl = index if stat_type == "sample_compare" else None
+        on_card, on_cpu = (list(detect.iter_region_stats(
+            index, p, fasta, model, ctrl, device=d, core=512))
+            for d in ("cuda", "cpu"))
+        assert len(on_card) == len(on_cpu) >= 2
+        flips = 0
+        for a, b in zip(on_card, on_cpu):
+            np.testing.assert_array_equal(a.reg_poss, b.reg_poss)
+            np.testing.assert_array_equal(a.reg_cov, b.reg_cov)
+            flips += int(np.sum(a.valid_cov != b.valid_cov))
+            flips += int(np.sum(~np.isclose(
+                a.reg_frac_standard_base, b.reg_frac_standard_base,
+                rtol=0, atol=0, equal_nan=True)))
+        assert flips <= 1, (stat_type, flips)
+    device_levels.clear()

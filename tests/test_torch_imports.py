@@ -24,8 +24,14 @@ PORT_MODULES = [
     "tombo_tpu_torch.ops.rescale", "tombo_tpu_torch.ops.segment",
     "tombo_tpu_torch.ops.select", "tombo_tpu_torch.parallel",
     "tombo_tpu_torch.parallel.distributed", "tombo_tpu_torch.parallel.mesh",
-    "tombo_tpu_torch.pipeline.aligner", "tombo_tpu_torch.pipeline.batch",
-    "tombo_tpu_torch.pipeline.resquiggle",
+    "tombo_tpu_torch.pipeline", "tombo_tpu_torch.pipeline.aligner",
+    "tombo_tpu_torch.pipeline.batch",
+    "tombo_tpu_torch.pipeline.resquiggle", "tombo_tpu_torch.io.fast5",
+    "tombo_tpu_torch.io.index", "tombo_tpu_torch.stats",
+    "tombo_tpu_torch.stats.detect", "tombo_tpu_torch.stats.device",
+    "tombo_tpu_torch.stats.device_levels", "tombo_tpu_torch.stats.files",
+    "tombo_tpu_torch.stats.kernels", "tombo_tpu_torch.stats.levels_cache",
+    "tombo_tpu_torch.stats.region",
 ]
 
 
@@ -44,6 +50,109 @@ def test_port_imports_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", out.stdout
+
+
+def test_port_imports_no_h5py():
+    """h5py is imported only inside the functions that open an HDF5 file:
+    importing every module of the port loads none of it."""
+    code = textwrap.dedent("""
+        import importlib, sys
+        for m in %r:
+            importlib.import_module(m)
+        print("h5py" in sys.modules)
+    """ % (PORT_MODULES,))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
+
+
+def test_detection_runs_without_h5py():
+    """The card's detection path with h5py unimportable: device-resident
+    means on the CPU, an in-memory index, iter_region_stats."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["h5py"] = None
+        import numpy as np, torch
+        from tombo_tpu_torch import testing
+        from tombo_tpu_torch.io.index import ReadsIndex
+        from tombo_tpu_torch.io.model_io import KmerModel
+        from tombo_tpu_torch.stats import detect, device_levels
+        from tombo_tpu_torch.types import ReadData
+        rng = np.random.default_rng(0)
+        model = KmerModel.load_default("DNA")
+        fasta = testing.random_reference(rng, 3000)
+        index = ReadsIndex()
+        means = torch.zeros((6, 400), dtype=torch.float32)
+        entries = []
+        for i in range(6):
+            start, strand = 200 + 300 * i, "+-"[i % 2]
+            # genome-ordered expected levels, read-centric on '-'
+            cp = model.central_pos
+            seq = fasta.get_seq("chr_test", start - cp,
+                                start + 400 + model.kmer_width - cp - 1)
+            lv, _ = model.get_exp_levels_from_seq_with_gaps(seq, False)
+            if strand == "-":
+                lv = lv[::-1]
+            means[i] = torch.tensor(lv + rng.normal(0, 0.1, 400))
+            index.add_read_data("chr_test", strand, ReadData(
+                start, start + 400, False, 0, strand, "", "g", False,
+                read_id="r%d" % i))
+            entries.append(("r%d" % i, i, 400))
+        device_levels.register_batch(means, entries)
+        p = detect.TestParams("de_novo", single_read_thresh=0.5,
+                              lower_thresh=0.15, region_size=1000)
+        out = list(detect.iter_region_stats(index, p, fasta, model,
+                                            device="cpu"))
+        print(len(out), sum(int(s.reg_cov.sum()) for s in out),
+              "h5py" in sys.modules and sys.modules["h5py"] is not None)
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_regs, n_obs, h5 = out.stdout.split()
+    assert int(n_regs) >= 3 and int(n_obs) > 1500 and h5 == "False"
+
+
+def test_port_reads_no_tombo_tpu_environment_variable():
+    """Every switch of the JAX lane's TOMBO_TPU_* variables is an argument
+    or a module constant in the port."""
+    hits = []
+    for root, _, fns in os.walk(os.path.join(ROOT, "tombo_tpu_torch")):
+        for fn in fns:
+            if fn.endswith((".py", ".cu", ".cuh")):
+                path = os.path.join(root, fn)
+                hits += [path for ln in open(path) if "TOMBO_TPU_" in ln]
+    assert not hits
+
+
+def test_setup_packages_the_port():
+    """An install of the repo carries the port: every package of it, its
+    model files and its CUDA sources."""
+    import setuptools
+    seen = {}
+    old = setuptools.setup
+    setuptools.setup = lambda **kw: seen.update(kw)
+    try:
+        code = open(os.path.join(ROOT, "setup.py")).read()
+        cwd = os.getcwd()
+        os.chdir(ROOT)
+        try:
+            exec(compile(code, "setup.py", "exec"), {"__name__": "__main__"})
+        finally:
+            os.chdir(cwd)
+    finally:
+        setuptools.setup = old
+    port = sorted(
+        os.path.relpath(root, ROOT).replace(os.sep, ".")
+        for root, _, fns in os.walk(os.path.join(ROOT, "tombo_tpu_torch"))
+        if "__init__.py" in fns)
+    assert set(port) <= set(seen["packages"])
+    assert "tombo_tpu_torch.pipeline" in port
+    assert set(seen["package_data"]["tombo_tpu_torch"]) == {
+        "models/*.npz", "csrc/*"}
 
 
 def test_chip_smoke_imports_no_jax():

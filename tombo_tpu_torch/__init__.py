@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of tombo_tpu's batched re-squiggle: DNA and direct
 RNA (t-test segmentation, stall removal, event-based scale), with the
 constant-scale and skip-sequence-scaling options, on one card or over a
-reads mesh.
+reads mesh; and of de novo and model-sample-compare detection
+(``stats/``), fed by the event means re-squiggle leaves on the device.
 
 A package of its own beside ``tombo_tpu``: it imports torch, numpy and
-the standard library, never jax and nothing of ``tombo_tpu``.  The module
+the standard library (``h5py`` only inside the functions that open an
+HDF5 file), never jax and nothing of ``tombo_tpu``.  The module
 layout follows the JAX package (``ops/``, ``pipeline/``, ``parallel/``,
 ``io/``) so each function has an obvious counterpart there.  Entry points
 take ``device=None``, which means the CUDA card; without a card they

@@ -1,5 +1,5 @@
-"""The re-squiggle constants and parameter bundle the DNA and RNA paths
-read.
+"""The re-squiggle and detection constants and the re-squiggle parameter
+bundle the DNA and RNA paths read.
 
 A subset copy of ``tombo_tpu/config.py`` (values unchanged; they are the
 reference Tombo's tuned constants, reference:
@@ -144,6 +144,30 @@ class ResquiggleParams:
         return dataclasses.replace(self, **kw)
 
 
+# per-read testing thresholds, (lower, upper) p-values
+# (reference: _default_parameters.py:107-118)
+SAMP_COMP_THRESH = {DNA_SAMP_TYPE: (0.15, 0.5), RNA_SAMP_TYPE: (0.05, 0.4)}
+DE_NOVO_THRESH = {DNA_SAMP_TYPE: (0.15, 0.5), RNA_SAMP_TYPE: (0.05, 0.4)}
+
+# Fisher's method window offset (reference: _default_parameters.py:136)
+FM_OFFSET_DEFAULT = 1
+
+# posterior priors of control-sample levels (reference:
+# _default_parameters.py:139-140)
+MEAN_PRIOR_CONST = 5.0
+SD_PRIOR_CONST = 40.0
+
+SMALLEST_PVAL = 1e-50
+# beta-prior pseudo-counts (unmod, mod) of the dampened fraction
+COV_DAMP_COUNTS = (2.0, 0.0)
+
+# genome-block size of a detection pass (reference:
+# tombo/_option_parsers.py:290-291 --multiprocess-region-size)
+DEFAULT_REGION_SIZE = 10000
+
+DEFAULT_CORRECTED_GROUP = "RawGenomeCorrected_000"
+
+
 def get_dynamic_prog_params(match_evalue: float) -> Tuple[float, float]:
     """(z_shift, stay_pen) from the expected match e-value."""
     return HALF_NORM_EXPECTED_VAL + match_evalue, match_evalue
@@ -168,3 +192,27 @@ def load_resquiggle_parameters(seq_samp_type: str,
         band_bound_thresh=ap.band_bound_thresh,
         start_bw=ap.start_bw, start_save_bw=ap.start_save_bw,
         start_n_bases=ap.start_n_bases)
+
+
+def resolved_params_json(**params) -> str:
+    """The fully-resolved parameters as JSON, recorded in stats files for
+    provenance (the JAX package's ``config.resolved_params_json``, same
+    output for the same keyword arguments)."""
+    import json
+
+    import numpy as np
+
+    def to_plain(v):
+        if dataclasses.is_dataclass(v) and not isinstance(v, type):
+            return {k: to_plain(x)
+                    for k, x in dataclasses.asdict(v).items()}
+        if isinstance(v, (tuple, list)):
+            return [to_plain(x) for x in v]
+        if isinstance(v, np.integer):
+            return int(v)
+        if isinstance(v, np.floating):
+            return float(v)
+        return v
+
+    return json.dumps({k: to_plain(v) for k, v in params.items()},
+                      sort_keys=True)

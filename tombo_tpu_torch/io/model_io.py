@@ -59,3 +59,16 @@ class KmerModel:
         """Level i maps to base i + central_pos of ``seq``."""
         codes = self.get_kmer_codes(seq)
         return self.means[codes], self.sds[codes]
+
+    def get_exp_levels_from_seq_with_gaps(self, seq: str, rev_strand: bool
+                                          ) -> Tuple[np.ndarray, np.ndarray]:
+        """As ``get_exp_levels_from_seq``, but windows holding a non-ACGT
+        base give NaN, and ``rev_strand`` reverses the result (reference:
+        tombo/tombo_stats.py:886-919)."""
+        codes = seq_to_kmer_codes(encode_seq(seq), self.kmer_width)
+        means = np.where(codes >= 0, self.means[np.maximum(codes, 0)],
+                         np.nan)
+        sds = np.where(codes >= 0, self.sds[np.maximum(codes, 0)], np.nan)
+        if rev_strand:
+            means, sds = means[::-1], sds[::-1]
+        return means, sds

@@ -61,6 +61,7 @@ from ..ops.dp import DpParams, StartDpParams
 from ..ops.precision import prefix_sums, row_sums
 from ..parallel.mesh import shard_sizes
 from ..seq import encode_seq, seq_to_kmer_codes
+from ..stats import device_levels
 from ..types import DpResults, ResquiggleResults, ScaleValues, SeqSampleType
 from . import resquiggle as rsq
 
@@ -318,8 +319,8 @@ def _stage_fit(norm, rows, rsrtr, seq_segs, rm, rs, seq_lens, samp, tri,
                shift_thresh: float, scale_thresh: float,
                do_fit: bool = True):
     """Event means over the final segment table -> exact Theil-Sen (count
-    kernel) -> scale/shift corrections, changed mask and signal-match
-    score (reference: tombo/resquiggle.py:1122-1197,
+    kernel) -> scale/shift corrections, changed mask, signal-match score
+    and the rescaled event means (reference: tombo/resquiggle.py:1122-1197,
     tombo/tombo_stats.py:2327-2339).  Without ``do_fit`` (skip sequence
     rescaling) the corrections are the identity and nothing changes.  The
     score's sum runs in an order fixed by L (``row_sums``), so a read
@@ -356,7 +357,7 @@ def _stage_fit(norm, rows, rsrtr, seq_segs, rm, rs, seq_lens, samp, tri,
     valid = torch.arange(L, device=em.device)[None, :] < seq_lens[:, None]
     score = (row_sums(torch.where(valid, torch.abs((em_s - rm) / rs), 0.0)) /
              torch.clamp(seq_lens, min=1))
-    return shift_corr, scale_corr, score, changed, fit_ok
+    return shift_corr, scale_corr, score, changed, fit_ok, em_s
 
 
 def _slice_rows(mat, rows, starts, width: int):
@@ -1011,8 +1012,9 @@ class BatchedResquiggler:
                 shift_thresh=float(config.SHIFT_CHANGE_THRESH),
                 scale_thresh=float(config.SCALE_CHANGE_THRESH),
                 do_fit=not self.skip_seq_scaling)
-        # (bounds, fail, shift_corr, scale_corr, score, changed, fit_ok)
-        res = {d: self._np(*out) for d, out in queued.items()}
+        # (bounds, fail, shift_corr, scale_corr, score, changed, fit_ok);
+        # the rescaled event means stay on the device
+        res = {d: self._np(*out[:-1]) for d, out in queued.items()}
 
         for s in fit_reads:
             if s.del_windows is None:
@@ -1043,12 +1045,20 @@ class BatchedResquiggler:
             if d not in res:
                 continue
             f_shc, f_scc, f_score, f_changed, f_ok = res[d][2:]
+            lvl_entries = []
             for i, s in enumerate(reads):
                 if (s.error is None and id(s) in fit_ids and
                         (s.has_del is False or s.del_fixed)):
                     s.dev_fit = (float(f_shc[i]), float(f_scc[i]),
                                  float(f_score[i]), bool(f_changed[i]),
                                  bool(f_ok[i]))
+                    if f_ok[i] and s.map_res.align_info is not None:
+                        lvl_entries.append((s.map_res.align_info.read_id, i,
+                                            s.ref_means.shape[0]))
+            # the device fit's means serve detection in this process
+            # (stats/device_levels.py); _finalize drops the reads that
+            # fail or finish on a host lane
+            device_levels.register_batch(queued[d][-1], lvl_entries)
 
     def _static_reads(self, states: List[_ReadState], ctx):
         """Short-read static-band assignment (host, numpy)."""
@@ -1178,6 +1188,14 @@ class BatchedResquiggler:
                 segs=segs, genome_seq=dp_res.genome_seq, raw_signal=norm,
                 scale_values=s.scale_values, sig_match_score=float(score),
                 norm_params_changed=bool(changed))
+
+        # a failed read, or one finished on a host lane, must leave no
+        # device means behind: an earlier pass may have registered it
+        for s in states:
+            if ((s.error is not None or s.dev_fit is None) and
+                    s.map_res.align_info is not None):
+                device_levels.unregister(s.map_res.align_info.read_id,
+                                         self.device.type)
 
     # ------------------------------------------------------------ run API
     def _run_pass(self, states: List[_ReadState], will_retry: bool = False):

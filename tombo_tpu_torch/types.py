@@ -1,4 +1,4 @@
-"""Record types of the re-squiggle path (subset copy of
+"""Record types of the re-squiggle and detection paths (subset copy of
 ``tombo_tpu/types.py``; reference: tombo/tombo_helper.py namedtuples)."""
 from __future__ import annotations
 
@@ -79,3 +79,34 @@ class ResquiggleResults:
 
     def replace(self, **kw) -> "ResquiggleResults":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass
+class ReadData:
+    """Per-read index record (reference: tombo/tombo_helper.py:127-158
+    ``readData``)."""
+    start: int
+    end: int
+    filtered: bool
+    read_start_rel_to_raw: int
+    strand: str
+    fn: str
+    corr_group: str
+    rna: bool
+    sig_match_score: Optional[float] = None
+    mean_q_score: Optional[float] = None
+    read_id: Optional[str] = None
+
+
+@dataclass
+class RegionStats:
+    """Per-region fraction statistics block (reference:
+    tombo/tombo_helper.py:300-316 ``regionStats``)."""
+    reg_frac_standard_base: np.ndarray
+    reg_poss: np.ndarray
+    chrm: str
+    strand: str
+    start: int
+    reg_cov: np.ndarray
+    ctrl_cov: np.ndarray
+    valid_cov: np.ndarray
