@@ -18,11 +18,21 @@ event-based scale; bandwidth 500, start band 1000/3000, save bandwidth
   RNA path      2 x 512 simulated direct-RNA reads of 1,700 bases (mean
                 dwell 12, reversed signal, adapters of 600-900 samples),
                 one in eight with a pore stall of 2,000-4,000 samples;
+  level path    3 x 512 1 kb DNA reads on a 3,000-base reference (batch
+                1 the control, batches 2-3 the sample), for the level
+                tests of detection;
   mesh lane     ``BatchedResquiggler(mesh=...)`` over every visible card
                 (two shards on one card when there is one), on one batch
                 of each path: every group's adaptive DP through the
                 read-sharded launcher (K3), every read bitwise the 1-device
                 lane's.
+
+Detection runs on the card from the device means re-squiggle registered:
+de novo (1 kb, mixed, RNA), sample-compare (1 kb), the alternative-model
+test (five DNA models and RNA 5mC), per-read statistics (each block
+aggregated without a file and held to its region's statistics) and the
+level tests (KS, U, t on the level path), each run again on the CPU at
+float32 and float64 from the same means.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after, and fails if a kernel of that path was not launched (or,
@@ -38,6 +48,7 @@ non-zero without the status line.
 """
 import contextlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -61,6 +72,20 @@ N_MIXED_BATCHES = 2
 RNA_LEN, RNA_DWELL, RNA_ADAPTER, RNA_REF_LEN = 1700, 12.0, (600, 900), 60000
 RNA_STALL, RNA_STALL_EVERY = (2000, 4000), 8
 N_RNA_BATCHES = 2
+# the level path (level sample-compare): 3 x 512 1 kb DNA reads on a
+# 3,000-base reference, batch 1 the control, batches 2-3 the sample
+LEVEL_REF_LEN, N_LEVEL_BATCHES = 3000, 3
+ALT_DNA = ["5mC", "6mA", "dcm", "dam", "CpG"]
+LEVEL_TYPES = ["ks", "u", "t", "ks_stat", "u_stat", "t_stat"]
+# level_sample_compare's --minimum-test-reads default
+# (tombo_tpu/cli/main.py:620)
+LEVEL_MIN_TEST_READS = 50
+# the level statistics' bar, float32 (card or CPU) against the CPU's
+# float64: four times the largest |float32 - float64| of the JAX
+# package's float32 level lane on inputs of the level path's shapes
+# (scripts/level_f32_tolerance.py, PERF.md)
+LEVEL_F32_ABS_TOL = {"ks": 4e-6, "u": 2.3e-4, "t": 2.7e-3, "ks_stat": 2e-7,
+                     "u_stat": 2.2e-4, "t_stat": 9e-6}
 CHUNKED = ("banded_dp_chunked_fwd", "banded_dp_chunked_tb")
 CHUNKED_SLICE = 16             # reads of the captured long call held
 DEVICE = "cuda"
@@ -504,17 +529,19 @@ def detection_flips(got, want):
     return sites, cov_bad, flips
 
 
-def det_dispatch_bound_ms(args, fm):
+def det_dispatch_bound_ms(args, fm, pvals=False):
     """Least time of one packed dispatch: the larger of its bytes (the
-    gathered means, ivec, the k-mer codes, the uint8 and int32 counts)
-    over the memory rate and ``det_ops_per_elem`` operations a (row,
-    column) element of its real rows over the float32 rate."""
+    gathered means, ivec, the k-mer codes, the uint8 and int32 counts;
+    with ``pvals`` also the real rows' float32 p-values) over the memory
+    rate and ``det_ops_per_elem`` operations a (row, column) element of
+    its real rows over the float32 rate."""
     flat, ivec, dev_groups, ref, W = args[:5]
     rows = int((ivec[2] > 0).sum())
     obs = int(ivec[2].long().sum())
     S = ref[1].shape[0]
     nbytes = (obs * 4 + ivec.numel() * 4 + ref[1].numel() *
-              ref[1].element_size() + S * W * 3 * (4 + 1))
+              ref[1].element_size() + S * W * 3 * (4 + 1) +
+              (rows * W * 4 if pvals else 0))
     t_b = nbytes / HBM_BYTES_PER_S
     t_o = rows * W * det_ops_per_elem(fm) / F32_OPS_PER_S
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
@@ -565,8 +592,8 @@ def detection_run(label, index, params, fasta, model, ctrl, dev):
         return out
 
     def run():
-        return list(detect.iter_region_stats(index, params, fasta, model,
-                                             ctrl, device=dev))
+        return [st for _, st, _ in detect.iter_region_stats(
+            index, params, fasta, model, ctrl, device=dev)]
     with patched([(sdev, "packed_test_and_accumulate", dispatch)]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -601,6 +628,420 @@ def detection_run(label, index, params, fasta, model, ctrl, dev):
             "device_idle_share", "not measured"),
         "torch_calls": prof["torch_calls"], "top": prof.get("top", [])[:4]}
     return summary, stats, biggest[0]
+
+
+def bound_ms(nbytes, ops):
+    """(least milliseconds, what bounds them): the larger of ``nbytes``
+    over the memory rate and ``ops`` float32 operations over the float32
+    rate."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def alt_llhr_bound_ms(args):
+    """``alt_llhr``'s least time: its (H, k) windows, (H,) variances and
+    (H,) ratios once each; a (hit, window position) element costs 12
+    operations in the scaled form (two differences, squares, divisions,
+    negations and exps, a difference and the sum's add) and 6 in the
+    standard form (two differences, squares and sum adds), a hit 3 more
+    (scale, power, product; standard 2: difference and division)."""
+    mw, rw, aw, cv, standard = args[:5]
+    H, k = mw.shape
+    nbytes = (3 * H * k + 2 * H) * mw.element_size()
+    ops = (6 * H * k + 2 * H) if standard else (12 * H * k + 3 * H)
+    return bound_ms(nbytes, ops)
+
+
+def level_test_bound_ms(name, samp, ctrl):
+    """A level test's least time on (P, C) sample and control matrices:
+    both read once and (P,) statistics written once; operations counted
+    as a compare-and-swap per element and sort level (C log2 C a row and
+    matrix), log2 C compares a ``searchsorted`` query, and per element:
+    KS 10 on the (P, 2C) CDF pair (cap, cast, divide, twice, difference,
+    abs, finite test, select, max), U 5 (cap, cast, compare, select,
+    add), t 7 on each matrix (NaN test, select, add, difference, square,
+    select, add); per site the Kolmogorov sum 225 (45 terms of 5), U's
+    normal tail 10, t's incomplete beta 64 iterations x 2 steps x 12."""
+    P, C = samp.shape
+    lg = max(1.0, math.log2(C))
+    if name == "ks":
+        ops = 2 * P * C * lg + 2 * P * 2 * C * lg + 10 * P * 2 * C + 225 * P
+    elif name == "u":
+        ops = 2 * P * C * lg + P * C * lg + 5 * P * C + 10 * P
+    else:
+        ops = 2 * 7 * P * C + 64 * 2 * 12 * P + 50 * P
+    nbytes = 2 * P * C * samp.element_size() + P * samp.element_size()
+    return bound_ms(nbytes, ops)
+
+
+class Probe:
+    """Wraps a device-lane function: counts its calls, keeps the inputs
+    of its largest call by ``size`` and the CUDA-event time of each call;
+    forwards every call unchanged."""
+
+    def __init__(self, fn, size):
+        self.fn, self.size = fn, size
+        self.calls, self.ms_events, self.big = 0, [], (None, -1, None)
+
+    def __call__(self, *args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = self.fn(*args, **kw)
+        b.record()
+        self.calls += 1
+        self.ms_events.append((a, b))
+        n = self.size(*args)
+        if n > self.big[1]:
+            self.big = (args, n, kw)
+        return out
+
+    def reset(self):
+        self.calls, self.ms_events = 0, []
+
+    def ms_sum(self):
+        return sum(a.elapsed_time(b) for a, b in self.ms_events)
+
+
+def region_key(results):
+    return [(n, s.chrm, s.strand, s.start) for n, s, _ in results]
+
+
+def level_diffs(got, want, tol):
+    """(sites, NaN on one side only, largest |difference|) between two
+    runs' GroupStats; None where positions or coverage differ."""
+    if region_key(got) != region_key(want):
+        return None
+    sites = nan_diff = 0
+    worst = 0.0
+    for (_, a, _), (_, b, _) in zip(got, want):
+        if not (np.array_equal(a.reg_poss, b.reg_poss) and
+                np.array_equal(a.reg_cov, b.reg_cov) and
+                np.array_equal(a.ctrl_cov, b.ctrl_cov)):
+            return None
+        ok = np.isfinite(a.reg_stats) & np.isfinite(b.reg_stats)
+        sites += int(ok.sum())
+        nan_diff += int(np.sum(np.isnan(a.reg_stats) !=
+                               np.isnan(b.reg_stats)))
+        if ok.any():
+            worst = max(worst, float(np.max(np.abs(
+                a.reg_stats[ok] - b.reg_stats[ok]))))
+    return {"sites": sites, "nan_differs": nan_diff, "max_abs": worst,
+            "bar": tol}
+
+
+def per_read_aggregates_equal(label, results, params):
+    """Each region's per-read block, aggregated without a file at the
+    run's thresholds, against the region statistics of the same run:
+    positions, coverage and valid coverage exact, fractions equal."""
+    from tombo_tpu_torch.stats.aggregate import aggregate_block
+    n = 0
+    for name, st, pr in results:
+        if pr is None:
+            fail("%s: region %s:%s:%d has no per-read block" % (
+                label, st.chrm, st.strand, st.start))
+        agg = aggregate_block(pr[1], *pr[3:], params.single_read_thresh,
+                              params.lower_thresh, params.stat_type)
+        fa, fb = agg.reg_frac_standard_base, st.reg_frac_standard_base
+        if not (np.array_equal(agg.reg_poss, st.reg_poss) and
+                np.array_equal(agg.reg_cov, st.reg_cov) and
+                np.array_equal(agg.valid_cov, st.valid_cov) and
+                np.array_equal(fa, fb, equal_nan=True)):
+            fail("%s: the aggregated per-read block of %s:%s:%d differs "
+                 "from the region statistics" % (label, st.chrm, st.strand,
+                                                  st.start))
+        n += pr[1].shape[0]
+    return n
+
+
+def extra_detection_run(label, index, params, fasta, model, ctrl, dev,
+                        probes, alt_refs=None, emit_per_read=False,
+                        warm=False):
+    """One detection run on the card through ``iter_region_stats``: a
+    first pass (PyTorch loads its CUDA kernels; left out when ``warm``,
+    after a run of the same device functions), the timed pass (the
+    device-lane functions' calls counted and timed with CUDA events), a
+    pass by layer and a profiled pass.  Returns (summary, results)."""
+    from tombo_tpu_torch.stats import detect
+    from tombo_tpu_torch.stats import device as sdev
+
+    def run():
+        return list(detect.iter_region_stats(
+            index, params, fasta, model, ctrl, device=dev,
+            alt_refs=alt_refs, emit_per_read=emit_per_read))
+    with patched([(sdev, n, pr) for n, pr in probes.items()]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not warm:
+            run()
+        torch.cuda.synchronize()
+        first = None if warm else time.perf_counter() - t0
+        for pr in probes.values():
+            pr.reset()
+        t0 = time.perf_counter()
+        results = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls = {n: pr.calls for n, pr in probes.items() if pr.calls}
+        dev_ms = {n: probes[n].ms_sum() for n in calls}
+    layers = layer_breakdown(run, [
+        (detect, "_prep_chunk", "region prep"),
+        (sdev.PackedRegionBatch, "add_region", "pack"),
+        (sdev.PackedRegionBatch, "dispatch", "dispatch"),
+        (sdev.PackedRegionBatch, "read_streams", "per-read blocks"),
+        (detect, "per_read_block", "per-read blocks"),
+        (sdev, "alt_llhr", "alt_llhr dispatch"),
+        (detect, "apply_per_read_thresh", "per-site fractions"),
+        (detect, "_group_device_tests", "level dispatch"),
+        (detect, "_group_post", "windows to GroupStats"),
+        (sdev.PackedRegionBatch, "unpack_region", "unpack to RegionStats"),
+        (detect, "region_stats_from_accumulators",
+         "unpack to RegionStats")])
+    layers["layers_s"] = {k: v for k, v in layers["layers_s"].items()
+                          if v > 0}
+    prof = profile_call(run)
+    obs = sum(int(st.reg_cov.sum()) for _, st, _ in results)
+    summary = {
+        "run": label, "reads_in_index": sum(
+            len(v) for v in index.reads_index.values()),
+        "regions": len(results), "sites": sum(
+            st.reg_poss.shape[0] for _, st, _ in results),
+        "site_obs": obs, "device_calls": calls, "device_ms": dev_ms,
+        "first_pass_s": first, "wall_s": wall, "site_obs_per_s": obs / wall,
+        "layers": layers, "device_idle_share": prof.get(
+            "device_idle_share", "not measured"),
+        "torch_calls": prof["torch_calls"], "top": prof.get("top", [])[:4]}
+    if emit_per_read:
+        summary["per_read_entries"] = sum(
+            pr[1].shape[0] for _, _, pr in results if pr is not None)
+    print("detection %s: %s" % (label, json.dumps(summary)), flush=True)
+    if not results:
+        fail("detection %s: no region statistics" % label)
+    return summary, results
+
+
+def detection_more_phase(dev, br, outs, outs_r, fasta_1kb, fasta_r, model,
+                         model_r):
+    """The alternative-model test (five DNA models, scaled and standard,
+    on the 1 kb path; RNA 5mC on the RNA path), per-read statistics
+    (1 kb de novo and the five models, each region's per-read block
+    aggregated without a file and held to the region statistics), and
+    the level
+    tests (ks, u, t and their _stat forms) on a new level path, at the
+    JAX CLI's defaults, from the device means re-squiggle registered;
+    every run again on CPU copies of the means at float32 and float64;
+    then ``alt_llhr``, the level tests and the packed dispatch with
+    per-read p-values, each alone.  Runs after the detection phase (the
+    CPU copies of the 1 kb and RNA paths are registered) and before the
+    mesh lane."""
+    from tombo_tpu_torch import config, kernels
+    from tombo_tpu_torch.io.model_io import load_alt_refs
+    from tombo_tpu_torch.stats import detect
+    from tombo_tpu_torch.stats import device as sdev
+    try:
+        import h5py
+        print("h5py on the card: yes, %s" % h5py.__version__)
+    except ImportError:
+        print("h5py on the card: no")
+
+    idx_1kb, _, _ = detection_index([r for o in outs for r in o], False, dev)
+    idx_r, _, _ = detection_index([r for o in outs_r for r in o], True, dev)
+    dna_alts = load_alt_refs(ALT_DNA, "DNA")
+    rna_alts = load_alt_refs(["5mC"], "RNA")
+    if sorted(dna_alts) != sorted(ALT_DNA) or not rna_alts:
+        fail("the bundled alternative models did not load")
+
+    def tp(stat_type, samp_type, **kw):
+        th = {"model_compare": config.LLR_THRESH,
+              "de_novo": config.DE_NOVO_THRESH}[stat_type][samp_type]
+        return detect.TestParams(
+            stat_type=stat_type, single_read_thresh=th[1],
+            lower_thresh=th[0], min_test_reads=1,
+            fm_offset=config.FM_OFFSET_DEFAULT,
+            region_size=config.DEFAULT_REGION_SIZE, **kw)
+    probes = {
+        "alt_llhr": Probe(sdev.alt_llhr, lambda *a: a[0].shape[0]),
+        "ks_tests": Probe(sdev.ks_tests, lambda *a: a[0].numel()),
+        "u_tests": Probe(sdev.u_tests, lambda *a: a[0].numel()),
+        "t_tests": Probe(sdev.t_tests, lambda *a: a[0].numel()),
+        "packed_test_and_accumulate": Probe(
+            sdev.packed_test_and_accumulate, lambda *a: a[1].shape[1])}
+    # (label, index, params, reference, model, control, models,
+    # per-read blocks, warm); the five-model run's per-read blocks hold
+    # 5mC's among them
+    runs = [
+        ("1 kb alt, 5 DNA models, per-read", idx_1kb,
+         tp("model_compare", "DNA"), fasta_1kb, model, None, dna_alts, True,
+         False),
+        ("1 kb alt 5mC, standard LLR", idx_1kb,
+         tp("model_compare", "DNA", use_standard_llhr=True), fasta_1kb,
+         model, None, {"5mC": dna_alts["5mC"]}, False, False),
+        ("RNA alt 5mC", idx_r, tp("model_compare", "RNA"), fasta_r, model_r,
+         None, rna_alts, False, True),
+        ("1 kb de novo, per-read", idx_1kb, tp("de_novo", "DNA"), fasta_1kb,
+         model, None, None, True, True)]
+    out, alt_args, pv_args, lane_calls = [], None, None, {}
+    for label, ix, p, fa, mo, ctrl, refs, per_read, warm in runs:
+        summary, res = extra_detection_run(label, ix, p, fa, mo, ctrl, dev,
+                                           probes, refs, per_read, warm)
+        if per_read:
+            n = per_read_aggregates_equal(label, res, p)
+            print("detection %s: %d per-read entries, each region's "
+                  "aggregation equal to its statistics" % (label, n))
+        if label.startswith("1 kb alt, 5 DNA models"):
+            alt_args = probes["alt_llhr"].big
+        if label == "1 kb de novo, per-read":
+            pv_args = probes["packed_test_and_accumulate"].big
+        lane_calls[label] = summary["device_calls"]
+        out.append((label, ix, p, fa, mo, ctrl, refs, per_read, res,
+                    None))
+
+    # the level path: batch 1 the control, batches 2-3 the sample
+    _, _, _, lv_maps, fasta_lv = build_reads(
+        [READ_LEN] * (BATCH * N_LEVEL_BATCHES), 4321, LEVEL_REF_LEN,
+        "level_")
+    lv_batches = [lv_maps[b * BATCH:(b + 1) * BATCH]
+                  for b in range(N_LEVEL_BATCHES)]
+    outs_lv, _, launches = run_path("level path", br, lv_batches, [])
+    for name in ("banded_dp", "count_le"):
+        if launches[name] <= 0:
+            fail("kernel %s was not launched on the level path" % name)
+    idx_ctrl, _, _ = detection_index(outs_lv[0], False, dev)
+    idx_samp, _, _ = detection_index(outs_lv[1] + outs_lv[2], False, dev)
+    for label, ix in (("control", idx_ctrl), ("sample", idx_samp)):
+        per_strand = {s: len(v) for (_, s), v in ix.reads_index.items()}
+        print("level path %s: %s reads a strand" % (label, per_strand))
+    level_args = {}
+    for stat_type in LEVEL_TYPES:
+        p = detect.TestParams(stat_type=stat_type, fm_offset=1,
+                              min_test_reads=LEVEL_MIN_TEST_READS,
+                              region_size=config.DEFAULT_REGION_SIZE)
+        label = "level " + stat_type
+        summary, res = extra_detection_run(label, idx_samp, p, None, None,
+                                           idx_ctrl, dev, probes,
+                                           warm=stat_type.endswith("_stat"))
+        fn = stat_type.replace("_stat", "") + "_tests"
+        if not stat_type.endswith("_stat"):
+            level_args[fn] = probes[fn].big
+        lane_calls[label] = summary["device_calls"]
+        for _, gs, _ in res:
+            if not (gs.reg_poss.shape == gs.reg_cov.shape ==
+                    gs.reg_stats.shape and
+                    np.all(gs.reg_cov >= LEVEL_MIN_TEST_READS) and
+                    np.all(gs.ctrl_cov >= LEVEL_MIN_TEST_READS)):
+                fail("%s: malformed region %s:%s:%d" % (
+                    label, gs.chrm, gs.strand, gs.start))
+        out.append((label, idx_samp, p, None, None, idx_ctrl, None, False,
+                    res, stat_type))
+
+    # the same means as CPU tensors through the same code, float32 and
+    # float64
+    register_cpu_copies(idx_ctrl, dev)
+    register_cpu_copies(idx_samp, dev)
+    for label, ix, p, fa, mo, ctrl, refs, per_read, res, lv in out:
+        t0 = time.perf_counter()
+        cpu = {dt: list(detect.iter_region_stats(
+            ix, p, fa, mo, ctrl, device="cpu", dtype=dt, alt_refs=refs,
+            emit_per_read=per_read))
+            for dt in (torch.float32, torch.float64)}
+        check = {"cpu_s": time.perf_counter() - t0}
+        for name, got, ref in (
+                ("card_vs_cpu_f32", res, cpu[torch.float32]),
+                ("card_vs_cpu_f64", res, cpu[torch.float64]),
+                ("cpu_f32_vs_f64", cpu[torch.float32], cpu[torch.float64])):
+            if lv is not None:
+                d = level_diffs(got, ref, LEVEL_F32_ABS_TOL[lv])
+                check[name] = d
+                if d is None:
+                    fail("%s, %s: positions or coverage differ" % (label,
+                                                                  name))
+                if d["nan_differs"] or d["max_abs"] > d["bar"]:
+                    fail("%s, %s: statistics differ beyond the float32 "
+                         "bar: %s" % (label, name, d))
+                continue
+            if region_key(got) != region_key(ref):
+                fail("%s, %s: the regions differ" % (label, name))
+            sites, cov_bad, flips = detection_flips(
+                [s for _, s, _ in got], [s for _, s, _ in ref])
+            check[name] = {"sites": sites, "coverage_differs": cov_bad,
+                           "flips": flips}
+            if sites is None or cov_bad:
+                fail("%s, %s: positions or coverage differ" % (label, name))
+            if flips > max(1, 2 * sites // 10000):
+                fail("%s, %s: %d of %d entries flip" % (label, name, flips,
+                                                        2 * sites))
+            if per_read and not all(
+                    np.array_equal(pa[1]["pos"], pb[1]["pos"]) and
+                    np.array_equal(pa[1]["read_id"], pb[1]["read_id"]) and
+                    pa[2] == pb[2]
+                    for (_, _, pa), (_, _, pb) in zip(got, ref)):
+                fail("%s, %s: per-read positions or reads differ" % (
+                    label, name))
+        print("detection %s, CPU cross-check: %s" % (label,
+                                                      json.dumps(check)),
+              flush=True)
+
+    # each function alone: CUDA-event ms over 20 calls, its bound, its
+    # PyTorch calls and its dispatches a run
+    lines = []
+    a = alt_args[0]
+    b_ms, b_by = alt_llhr_bound_ms(a)
+    lines.append({
+        "function": "tombo_tpu_torch/stats/device.py::alt_llhr",
+        "replaces": "tombo_tpu/stats/device.py:673 alt_llhr",
+        "shape": {"H": a[0].shape[0], "k": a[0].shape[1],
+                  "standard": bool(a[4])},
+        "ms": cuda_ms(lambda: sdev.alt_llhr(*a), 20),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "torch_calls": profile_call(lambda: sdev.alt_llhr(*a))[
+            "torch_calls"],
+        "dispatches": {k: v.get("alt_llhr", 0)
+                       for k, v in lane_calls.items()},
+        "library_ms": None})
+    for fn in ("ks_tests", "u_tests", "t_tests"):
+        a = level_args[fn][0]
+        call = getattr(sdev, fn)
+        b_ms, b_by = level_test_bound_ms(fn[0], a[0], a[1])
+        lines.append({
+            "function": "tombo_tpu_torch/stats/device.py::" + fn,
+            "replaces": "tombo_tpu/stats/device.py:%d %s" % (
+                {"ks_tests": 729, "u_tests": 754, "t_tests": 777}[fn], fn),
+            "shape": {"P": a[0].shape[0], "C": a[0].shape[1],
+                      "return_stat": bool(a[2])},
+            "ms": cuda_ms(lambda: call(*a), 20),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "torch_calls": profile_call(lambda: call(*a))["torch_calls"],
+            "dispatches": {k: v.get(fn, 0) for k, v in lane_calls.items()
+                           if v.get(fn)},
+            "library_ms": None})
+    # the packed dispatch of the per-read run: without p-values, and with
+    # them fetched to the host as ``dispatch`` does
+    a = pv_args[0][:11]
+    body = sdev.packed_test_and_accumulate
+    real = int((a[1][2] > 0).sum())
+    p_ms, p_by = det_dispatch_bound_ms(a, config.FM_OFFSET_DEFAULT, True)
+    lines.append({
+        "function": "tombo_tpu_torch/stats/device.py::"
+                    "packed_test_and_accumulate, want_pvals",
+        "replaces": "tombo_tpu/stats/device.py:210 _packed_body "
+                    "(want_pvals, fetched as :620)",
+        "shape": {"rows": a[1].shape[1], "real_rows": real, "W": a[4],
+                  "site_obs": int(a[1][2].long().sum())},
+        "ms": cuda_ms(lambda: body(*a, True)[3][:real].cpu(), 20),
+        "ms_without_pvals": cuda_ms(lambda: body(*a), 20),
+        "bound_ms": p_ms, "bound_by": p_by,
+        "pvals_bytes": real * a[4] * 4,
+        "torch_calls": profile_call(
+            lambda: body(*a, True)[3][:real].cpu())["torch_calls"],
+        "torch_calls_without_pvals": profile_call(
+            lambda: body(*a))["torch_calls"],
+        "dispatches": {k: v.get("packed_test_and_accumulate", 0)
+                       for k, v in lane_calls.items()
+                       if v.get("packed_test_and_accumulate")},
+        "library_ms": None})
+    for line in lines:
+        print("detection function: %s" % json.dumps(line), flush=True)
+    return lines
 
 
 def k1_bound_ms(args, bw, io_bytes=False):
@@ -806,8 +1247,8 @@ def detection_phase(dev, outs, outs_m, outs_r, fasta_1kb, fasta_m,
         register_cpu_copies(ix, dev)
     for label, ix, p, fa, mo, ctrl, stats, summary in det_out:
         t0 = time.perf_counter()
-        cpu = {dt: list(detect.iter_region_stats(
-            ix, p, fa, mo, ctrl, device="cpu", dtype=dt))
+        cpu = {dt: [st for _, st, _ in detect.iter_region_stats(
+            ix, p, fa, mo, ctrl, device="cpu", dtype=dt)]
             for dt in (torch.float32, torch.float64)}
         check = {"cpu_s": time.perf_counter() - t0}
         for name, ref in (("card_vs_cpu_f32", cpu[torch.float32]),
@@ -1439,6 +1880,14 @@ def main():
         detection_phase(dev, outs, outs_m, outs_r, fasta_1kb, fasta_m,
                         fasta_r, model, model_r)
         print("detection phase: %.1f s" % (time.perf_counter() - t_det))
+
+    # ---- phase 13c: the rest of detection, and the level path
+    with phase("detection: alt, level, per-read"):
+        t_det = time.perf_counter()
+        detection_more_phase(dev, br, outs, outs_r, fasta_1kb, fasta_r,
+                             model, model_r)
+        print("detection: alt, level, per-read phase: %.1f s" % (
+            time.perf_counter() - t_det))
 
     # ---- phase 14: the read-sharded lane (K3) over the cards' mesh
     with phase("mesh lane"):

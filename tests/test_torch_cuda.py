@@ -19,7 +19,11 @@ launcher (K3) over shards on one card is bitwise K1 and the chunked pair,
 with one launch per non-empty shard.  The DP kernels also run at the
 RNA widths (bw 500, 1000, 1500, 3000), and an RNA batch on the card
 matches the CPU.  The fit's score of a read is bitwise the same in
-batches of any size (the mesh lane's shards are such batches)."""
+batches of any size (the mesh lane's shards are such batches).
+Detection (de novo, sample-compare, the alternative-model test with
+per-read blocks, a level test) from the card's device means matches
+the same code on the CPU, and so do ``alt_llhr`` and the level tests
+alone."""
 import numpy as np
 import pytest
 import torch
@@ -432,13 +436,12 @@ def test_fit_score_same_in_any_batch_size(card):
     assert diff == [], "reads %s score differently" % diff
 
 
-def test_detection_on_card_matches_cpu(card):
-    """Eight 1,000-base reads re-squiggled on the card register their
-    device means; de novo and sample-compare detection from them on the
-    card equal the same code on CPU copies of the means at float32:
-    positions and coverage exact, at most one flipped entry."""
+def _card_detection_index(card):
+    """Eight 1,000-base reads re-squiggled on the card; their device
+    means registered again as CPU copies.  Returns (index, reference,
+    model)."""
     from tombo_tpu_torch.io.index import ReadsIndex
-    from tombo_tpu_torch.stats import detect, device_levels
+    from tombo_tpu_torch.stats import device_levels
     from tombo_tpu_torch.types import ReadData
     rng = np.random.default_rng(9)
     model = KmerModel.load_default("DNA")
@@ -471,14 +474,24 @@ def test_detection_on_card_matches_cpu(card):
             gl.start, gl.start + n, False, 0, gl.strand, "", "g", False,
             read_id=rid))
     device_levels.register_batch(torch.stack(rows), entries)
+    return index, fasta, model
+
+
+def test_detection_on_card_matches_cpu(card):
+    """Eight 1,000-base reads re-squiggled on the card register their
+    device means; de novo and sample-compare detection from them on the
+    card equal the same code on CPU copies of the means at float32:
+    positions and coverage exact, at most one flipped entry."""
+    from tombo_tpu_torch.stats import detect, device_levels
+    index, fasta, model = _card_detection_index(card)
     for stat_type, th in (("de_novo", config.DE_NOVO_THRESH["DNA"]),
                           ("sample_compare",
                            config.SAMP_COMP_THRESH["DNA"])):
         p = detect.TestParams(stat_type, single_read_thresh=th[1],
                               lower_thresh=th[0], region_size=2000)
         ctrl = index if stat_type == "sample_compare" else None
-        on_card, on_cpu = (list(detect.iter_region_stats(
-            index, p, fasta, model, ctrl, device=d, core=512))
+        on_card, on_cpu = ([s for _, s, _ in detect.iter_region_stats(
+            index, p, fasta, model, ctrl, device=d, core=512)]
             for d in ("cuda", "cpu"))
         assert len(on_card) == len(on_cpu) >= 2
         flips = 0
@@ -490,4 +503,101 @@ def test_detection_on_card_matches_cpu(card):
                 a.reg_frac_standard_base, b.reg_frac_standard_base,
                 rtol=0, atol=0, equal_nan=True)))
         assert flips <= 1, (stat_type, flips)
+    device_levels.clear()
+
+
+def test_alt_llhr_on_card_matches_cpu(card):
+    """The alternative-model ratio of stacked windows, both forms, on the
+    card against the CPU at float32 (rtol 1e-5) and float64."""
+    from tombo_tpu_torch.stats import device as sdev
+    rng = np.random.default_rng(2)
+    H, k = 4096, 6
+    m = rng.normal(0, 1, (H, k))
+    args = [m, m + rng.normal(0, 0.5, (H, k)),
+            m + rng.normal(0.3, 0.5, (H, k)), rng.uniform(0.05, 0.5, H)]
+    for standard in (False, True):
+        c = [torch.tensor(a, dtype=torch.float32) for a in args]
+        on_card = sdev.alt_llhr(*(x.to(card) for x in c), standard,
+                                config.OCLLHR_SCALE, config.OCLLHR_HEIGHT,
+                                config.OCLLHR_POWER).cpu()
+        on_cpu = sdev.alt_llhr(*c, standard, config.OCLLHR_SCALE,
+                               config.OCLLHR_HEIGHT, config.OCLLHR_POWER)
+        f64 = sdev.alt_llhr(*(torch.tensor(a) for a in args), standard,
+                            config.OCLLHR_SCALE, config.OCLLHR_HEIGHT,
+                            config.OCLLHR_POWER)
+        assert on_card.dtype == torch.float32
+        np.testing.assert_allclose(on_card.numpy(), on_cpu.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(on_card.numpy(), f64.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["ks", "u", "t"])
+def test_level_tests_on_card_match_cpu(card, name):
+    """KS, U and t, both forms, on (sites, coverage) NaN-padded float32
+    level matrices on the card against the same call on the CPU: the KS
+    statistic and the U statistic exact (sorts and counts), p-values and
+    the t statistic within 1e-4 relative."""
+    from tombo_tpu_torch.stats import device as sdev
+    fn = {"ks": sdev.ks_tests, "u": sdev.u_tests, "t": sdev.t_tests}[name]
+    rng = np.random.default_rng(3)
+    P, C = 2048, 96
+    samp = rng.normal(0, 1, (P, C))
+    ctrl = rng.normal(0.2, 1, (P, C))
+    for x in (samp, ctrl):
+        x[np.arange(C)[None, :] >= rng.integers(1, C, P)[:, None]] = np.nan
+    samp[:4] = np.round(samp[:4] * 4) / 4      # ties
+    ctrl[:4] = np.round(ctrl[:4] * 4) / 4
+    samp[4] = np.nan                           # an empty site
+    s32 = torch.tensor(samp, dtype=torch.float32)
+    c32 = torch.tensor(ctrl, dtype=torch.float32)
+    for return_stat in (False, True):
+        on_card = fn(s32.to(card), c32.to(card), return_stat).cpu().numpy()
+        on_cpu = fn(s32, c32, return_stat).numpy()
+        exact = return_stat and name in ("ks", "u")
+        np.testing.assert_allclose(on_card, on_cpu, rtol=0 if exact else 1e-4,
+                                   atol=0 if exact else 1e-30,
+                                   equal_nan=True)
+
+
+def test_alt_level_per_read_on_card_match_cpu(card):
+    """From the card's device means: the alternative-model test (5mC and
+    CpG) with per-read blocks, and a level test with the reads split in
+    two, on the card against the same code on CPU copies of the means at
+    float32: positions and coverage exact, at most one flipped entry, the
+    per-read blocks' keys equal."""
+    from tombo_tpu_torch.io.index import ReadsIndex
+    from tombo_tpu_torch.io.model_io import load_alt_refs
+    from tombo_tpu_torch.stats import detect, device_levels
+    index, fasta, model = _card_detection_index(card)
+    lo, hi = config.LLR_THRESH["DNA"]
+    p = detect.TestParams("model_compare", single_read_thresh=hi,
+                          lower_thresh=lo, region_size=2000)
+    refs = load_alt_refs(["5mC", "CpG"], "DNA")
+    on_card, on_cpu = (list(detect.iter_region_stats(
+        index, p, fasta, model, device=d, alt_refs=refs,
+        emit_per_read=True)) for d in ("cuda", "cpu"))
+    assert len(on_card) == len(on_cpu) >= 2
+    flips = 0
+    for (na, a, pa), (nb, b, pb) in zip(on_card, on_cpu):
+        assert na == nb
+        np.testing.assert_array_equal(a.reg_poss, b.reg_poss)
+        np.testing.assert_array_equal(a.reg_cov, b.reg_cov)
+        flips += int(np.sum(a.valid_cov != b.valid_cov))
+        np.testing.assert_array_equal(pa[1]["pos"], pb[1]["pos"])
+        np.testing.assert_array_equal(pa[1]["read_id"], pb[1]["read_id"])
+    assert flips <= 1
+    samp, ctrl = ReadsIndex(), ReadsIndex()
+    for (chrm, strand), reads in index.reads_index.items():
+        for i, r in enumerate(reads):
+            (samp, ctrl)[i % 2].add_read_data(chrm, strand, r)
+    lv = detect.TestParams("u", min_test_reads=1, region_size=2000)
+    on_card, on_cpu = ([s for _, s, _ in detect.iter_region_stats(
+        samp, lv, None, None, ctrl, device=d)] for d in ("cuda", "cpu"))
+    assert len(on_card) == len(on_cpu)
+    for a, b in zip(on_card, on_cpu):
+        np.testing.assert_array_equal(a.reg_poss, b.reg_poss)
+        np.testing.assert_array_equal(a.reg_cov, b.reg_cov)
+        np.testing.assert_allclose(a.reg_stats, b.reg_stats, rtol=1e-3,
+                                   equal_nan=True)
     device_levels.clear()

@@ -500,8 +500,8 @@ def test_fused_lane_matches_fast5_means(long_ds, tmp_path):
     p = _params(t_dt, "de_novo", ds["region_size"])
 
     def run():
-        return list(t_dt.iter_region_stats(index, p, ds["t_fasta"],
-                                           ds["t_model"], device="cpu"))
+        return [s for _, s, _ in t_dt.iter_region_stats(
+            index, p, ds["t_fasta"], ds["t_model"], device="cpu")]
     fused = run()
     t_dl.clear()
     t_region.clear_levels_cache()
@@ -584,9 +584,6 @@ def test_failed_read_leaves_no_device_means():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(stat_type="model_compare"), "alternative_model"),
-    (dict(stat_type="ks"), "level statistics"),
-    (dict(per_read_bn="x"), "per-read statistics"),
     (dict(dist=type("D", (), {"n_hosts": 2})()), "more than one host")])
 def test_unported_options_raise(kw, item, tmp_path):
     p = t_dt.TestParams(stat_type=kw.pop("stat_type", "de_novo"),

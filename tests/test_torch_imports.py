@@ -31,8 +31,22 @@ PORT_MODULES = [
     "tombo_tpu_torch.stats.detect", "tombo_tpu_torch.stats.device",
     "tombo_tpu_torch.stats.device_levels", "tombo_tpu_torch.stats.files",
     "tombo_tpu_torch.stats.kernels", "tombo_tpu_torch.stats.levels_cache",
-    "tombo_tpu_torch.stats.region",
+    "tombo_tpu_torch.stats.region", "tombo_tpu_torch.stats.aggregate",
 ]
+
+
+def test_port_source_names_no_jax_no_jax_package_and_no_scipy():
+    """No module of the port imports jax, tombo_tpu or scipy, at the top
+    or inside a function."""
+    bad = re.compile(
+        r"^\s*(from|import)\s+(jax|jaxlib|tombo_tpu|scipy)\b(?!_)")
+    hits = []
+    for root, _, fns in os.walk(os.path.join(ROOT, "tombo_tpu_torch")):
+        for fn in fns:
+            if fn.endswith(".py"):
+                path = os.path.join(root, fn)
+                hits += [(path, ln) for ln in open(path) if bad.match(ln)]
+    assert not hits
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -41,7 +55,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         for m in %r:
             importlib.import_module(m)
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "tombo_tpu"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "tombo_tpu",
+                                            "scipy"))
         print(",".join(bad))
     """ % (PORT_MODULES,))
     env = dict(os.environ)
@@ -69,8 +84,10 @@ def test_port_imports_no_h5py():
 
 
 def test_detection_runs_without_h5py():
-    """The card's detection path with h5py unimportable: device-resident
-    means on the CPU, an in-memory index, iter_region_stats."""
+    """The card's detection paths with h5py unimportable: device-resident
+    means on the CPU, an in-memory index, iter_region_stats for de novo
+    with per-read blocks (and their file-free aggregation), the
+    alternative-model test and a level test."""
     code = textwrap.dedent("""
         import sys
         sys.modules["h5py"] = None
@@ -101,19 +118,39 @@ def test_detection_runs_without_h5py():
                 read_id="r%d" % i))
             entries.append(("r%d" % i, i, 400))
         device_levels.register_batch(means, entries)
+        from tombo_tpu_torch.io.model_io import load_alt_refs
+        from tombo_tpu_torch.stats import aggregate
         p = detect.TestParams("de_novo", single_read_thresh=0.5,
                               lower_thresh=0.15, region_size=1000)
         out = list(detect.iter_region_stats(index, p, fasta, model,
+                                            device="cpu",
+                                            emit_per_read=True))
+        agg = [aggregate.aggregate_block(pr[1], *pr[3:], 0.5, 0.15,
+                                         "de_novo") for _, _, pr in out]
+        same = all((a.reg_poss == s.reg_poss).all() and
+                   (a.valid_cov == s.valid_cov).all()
+                   for a, (_, s, _) in zip(agg, out))
+        alt = detect.TestParams("model_compare", single_read_thresh=2.5,
+                                lower_thresh=-1.5, region_size=1000)
+        n_alt = len(list(detect.iter_region_stats(
+            index, alt, fasta, model, device="cpu",
+            alt_refs=load_alt_refs(["5mC", "CpG"], "DNA"))))
+        # the reads their own control: the level test runs, D is 0
+        lv = detect.TestParams("ks", min_test_reads=1, region_size=1000)
+        n_lv = sum(int(s.reg_cov.sum()) for _, s, _ in
+                   detect.iter_region_stats(index, lv, None, None, index,
                                             device="cpu"))
-        print(len(out), sum(int(s.reg_cov.sum()) for s in out),
+        print(len(out), sum(int(s.reg_cov.sum()) for _, s, _ in out),
+              same, n_alt, n_lv,
               "h5py" in sys.modules and sys.modules["h5py"] is not None)
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_regs, n_obs, h5 = out.stdout.split()
-    assert int(n_regs) >= 3 and int(n_obs) > 1500 and h5 == "False"
+    n_regs, n_obs, same, n_alt, n_lv, h5 = out.stdout.split()
+    assert int(n_regs) >= 3 and int(n_obs) > 1500 and same == "True"
+    assert int(n_alt) >= 3 and int(n_lv) > 300 and h5 == "False"
 
 
 def test_port_reads_no_tombo_tpu_environment_variable():

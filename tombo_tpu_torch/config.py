@@ -17,6 +17,16 @@ STANDARD_MODELS = {
     DNA_SAMP_TYPE: "tombo.DNA.model.npz",
     RNA_SAMP_TYPE: "tombo.RNA.180mV.model.npz",
 }
+# bundled alternative-base models, "<sample type>_<name>" -> file
+# (reference: tombo/_default_parameters.py:11-22)
+ALTERNATE_MODELS = {
+    DNA_SAMP_TYPE + "_5mC": "tombo.DNA.5mC.model.npz",
+    DNA_SAMP_TYPE + "_6mA": "tombo.DNA.6mA.model.npz",
+    DNA_SAMP_TYPE + "_dcm": "tombo.DNA.dcm.model.npz",
+    DNA_SAMP_TYPE + "_dam": "tombo.DNA.dam.model.npz",
+    DNA_SAMP_TYPE + "_CpG": "tombo.DNA.CpG.model.npz",
+    RNA_SAMP_TYPE + "_5mC": "tombo.RNA.5mC.model.npz",
+}
 
 
 @dataclass(frozen=True)
@@ -144,10 +154,21 @@ class ResquiggleParams:
         return dataclasses.replace(self, **kw)
 
 
-# per-read testing thresholds, (lower, upper) p-values
-# (reference: _default_parameters.py:107-118)
+# per-read testing thresholds, (lower, upper): log-likelihood ratios
+# of the alternative-model test, p-values of the others (reference:
+# _default_parameters.py:107-118)
+LLR_THRESH = {DNA_SAMP_TYPE: (-1.5, 2.5), RNA_SAMP_TYPE: (-2.5, 2.5)}
 SAMP_COMP_THRESH = {DNA_SAMP_TYPE: (0.15, 0.5), RNA_SAMP_TYPE: (0.05, 0.4)}
 DE_NOVO_THRESH = {DNA_SAMP_TYPE: (0.15, 0.5), RNA_SAMP_TYPE: (0.05, 0.4)}
+
+# the outlier-robust scaled log-likelihood ratio (reference:
+# _default_parameters.py:132-134)
+OCLLHR_SCALE = 4.0
+OCLLHR_HEIGHT = 1.0
+OCLLHR_POWER = 0.2
+# the canonical model's SD is taken as constant (reference:
+# tombo/tombo_stats.py:112)
+CONST_SD_MODEL = True
 
 # Fisher's method window offset (reference: _default_parameters.py:136)
 FM_OFFSET_DEFAULT = 1

@@ -13,7 +13,8 @@ from typing import Mapping, Optional
 import numpy as np
 
 from .config import ResquiggleParams
-from .io.model_io import KmerModel
+from .io.model_io import AltModel, KmerModel
+from .seq import TomboMotif
 from .types import (AlignInfo, GenomeLocation, ResquiggleResults,
                     ScaleValues, SeqSampleType)
 
@@ -22,6 +23,13 @@ def kmer_model(means, sds, central_pos: int, name: str = "standard",
                seq_samp_type: Optional[str] = None) -> KmerModel:
     return KmerModel(np.array(means, np.float64), np.array(sds, np.float64),
                      int(central_pos), str(name), seq_samp_type)
+
+
+def alt_model(means, sds, central_pos: int, alt_base: str, name: str,
+              raw_motif: str, mod_pos: int) -> AltModel:
+    return AltModel(np.array(means, np.float64), np.array(sds, np.float64),
+                    int(central_pos), str(alt_base), str(name),
+                    TomboMotif(str(raw_motif), int(mod_pos)))
 
 
 def resquiggle_params(fields: Mapping) -> ResquiggleParams:

@@ -1,9 +1,23 @@
-"""Base encoding and k-mer codes (subset copy of ``tombo_tpu/seq.py``)."""
+"""Base encoding, k-mer codes and IUPAC motifs (subset copy of
+``tombo_tpu/seq.py``)."""
 from __future__ import annotations
+
+import re
+from typing import Optional
 
 import numpy as np
 
+from .errors import TomboError
+
 BASES = "ACGT"
+
+# IUPAC single-letter codes (reference: tombo/tombo_helper.py:490-505
+# SINGLE_LETTER_CODE, used by TomboMotif)
+IUPAC_CODES = {
+    "A": "A", "C": "C", "G": "G", "T": "T",
+    "B": "CGT", "D": "AGT", "H": "ACT", "K": "GT", "M": "AC",
+    "N": "ACGT", "R": "AG", "S": "CG", "V": "ACG", "W": "AT", "Y": "CT",
+}
 
 _COMP = str.maketrans("ACGTBDHKMNRSVWYacgtbdhkmnrsvwy",
                       "TGCAVHDMKNYSBWRtgcavhdmknysbwr")
@@ -38,3 +52,35 @@ def seq_to_kmer_codes(seq_codes: np.ndarray, kmer_width: int) -> np.ndarray:
         valid &= window >= 0
     codes[~valid] = -1
     return codes
+
+
+class TomboMotif:
+    """An IUPAC motif with a marked modified position (reference:
+    tombo/tombo_helper.py:542-640 ``TomboMotif``): the raw motif compiled
+    to forward and reverse-complement regular expressions, scanned
+    without overlaps as the reference scans."""
+
+    def __init__(self, raw_motif: str, mod_pos: Optional[int] = None):
+        raw_motif = raw_motif.upper()
+        invalid = [b for b in raw_motif if b not in IUPAC_CODES]
+        if invalid:
+            raise TomboError(
+                "Invalid IUPAC code(s) in motif: " + "".join(invalid))
+        self.raw_motif = raw_motif
+        self.motif_len = len(raw_motif)
+        # 1-based modified position within the motif
+        self.mod_pos = mod_pos
+        self.motif_pat = self._compile(raw_motif)
+        self.rev_comp_pat = self._compile(rev_comp(raw_motif))
+        self.is_palindrome = raw_motif == rev_comp(raw_motif)
+        self.mod_base = None if mod_pos is None else raw_motif[mod_pos - 1]
+
+    @staticmethod
+    def _compile(motif: str) -> "re.Pattern":
+        return re.compile("".join(
+            b if len(IUPAC_CODES[b]) == 1 else "[" + IUPAC_CODES[b] + "]"
+            for b in motif))
+
+    def __repr__(self):
+        return "TomboMotif({!r}, mod_pos={})".format(self.raw_motif,
+                                                     self.mod_pos)

@@ -1,2 +1,3 @@
-"""Modified-base detection: the de novo and model-sample-compare tests
-through the packed device lane (``detect.iter_region_stats``)."""
+"""Modified-base detection on one host: the per-read tests, the
+alternative-model test, the level tests and per-read statistics through
+the device lane (``detect.iter_region_stats``)."""

@@ -1,5 +1,6 @@
-"""Statistics files of the de novo and sample-compare tests (subset
-copy of ``tombo_tpu/stats/files.py:48-313``).
+"""Statistics files: ``ModelStats`` (per-read tests), ``LevelStats``
+(group level tests) and ``PerReadStats`` (copy of
+``tombo_tpu/stats/files.py``).
 
 The HDF5 layout is the reference's (reference: tombo/tombo_stats.py:
 2554-3565): per-region ``Statistic_Blocks`` groups, a
@@ -16,7 +17,7 @@ from typing import Dict
 import numpy as np
 
 from ..errors import TomboError
-from ..types import RegionStats
+from ..types import GroupStats, RegionStats
 from .kernels import calc_damp_fraction
 
 STAT_BLOCKS_H5_NAME = "Statistic_Blocks"
@@ -175,6 +176,58 @@ class _StatsFileBase:
                 yield (chrm, strand, start, start + self.region_size,
                        self.stat_blocks[block_name]["block_stats"][:])
 
+    def _get_chrm_name(self, pos_stat):
+        return _dec(self.most_signif_chrm_map[pos_stat["chrm"]])
+
+    def iter_most_signif_sites(self):
+        """(chrm, strand, pos, transformed statistic) of the stored most
+        significant sites, most significant first."""
+        for pos_stat in self.most_signif_stats:
+            yield (self._get_chrm_name(pos_stat),
+                   pos_stat["strand"].decode(), int(pos_stat["pos"]),
+                   self._stat_transform(pos_stat))
+
+    def get_reg_stats(self, chrm, strand, start, end):
+        """The per-site records of the blocks overlapping [start, end),
+        cut to it; None where there are none."""
+        if (chrm, strand) not in self.blocks_index:
+            return None
+        collected = []
+        for block_start, block_name in sorted(
+                self.blocks_index[(chrm, strand)].items()):
+            if end <= block_start or start >= block_start + self.region_size:
+                continue
+            bs = self.stat_blocks[block_name]["block_stats"][:]
+            collected.append(bs[(bs["pos"] >= start) & (bs["pos"] < end)])
+        if not collected:
+            return None
+        return np.concatenate(collected)
+
+    def get_most_signif_regions(self, num_bases, num_regions,
+                                unique_pos=True, prepend_loc_to_text=False):
+        """Intervals of ``num_bases`` centred on the most significant
+        sites (reference: tombo/tombo_stats.py:2864-2920)."""
+        selected = []
+        used = defaultdict(set)
+        for i, pos_stat in enumerate(self.most_signif_stats):
+            int_start = max(0, int(pos_stat["pos"]) - num_bases // 2)
+            chrm = self._get_chrm_name(pos_stat)
+            strand = pos_stat["strand"].decode()
+            if not unique_pos or \
+                    int(pos_stat["pos"]) not in used[(chrm, strand)]:
+                used[(chrm, strand)].update(
+                    range(int_start, int_start + num_bases))
+                txt = self._stat_text.format(self._stat_transform(pos_stat))
+                if prepend_loc_to_text:
+                    txt = "{0}:{1:d}:{2}".format(
+                        chrm, int(pos_stat["pos"]) + 1, strand) + " " + txt
+                selected.append((chrm, int_start, int_start + num_bases,
+                                 strand, "{:03d}".format(i), txt))
+                if len(selected) >= num_regions:
+                    break
+        return selected
+
+
 def _dec(v):
     return v.decode() if isinstance(v, bytes) else v
 
@@ -224,11 +277,13 @@ class ModelStats(_StatsFileBase):
         if self.stat_type not in PER_READ_STATS:
             if self.stat_type in LEVEL_STATS_TXTS:
                 raise TomboError(
-                    "This appears to be a group-comparison stats file "
-                    "(level statistics are not ported).")
+                    "This appears to be a group-comparison stats file. "
+                    "Open with LevelStats.")
             raise TomboError(
                 'This file is not a valid ModelStats file. `stat_type` '
                 'listed as "%s".' % self.stat_type)
+        self._stat_text = "Est. Frac. Alternate: {0:.2g}"
+        self._stat_transform = lambda ps: 1 - ps[self.stat_slot]
 
     def _write_stat_block(self, reg_stats: RegionStats):
         block_data = self.stat_blocks.create_group(
@@ -260,3 +315,192 @@ class ModelStats(_StatsFileBase):
         self._add_to_most_signif(reg_stats_arr, reg_stats.chrm,
                                  reg_stats.strand)
         self.is_empty = False
+
+
+class LevelStats(_StatsFileBase):
+    """Group-comparison (level test) statistics file (reference:
+    tombo/tombo_stats.py:3063 ``LevelStats``)."""
+
+    stat_slot = "stat"
+
+    def __init__(self, stats_fn, stat_type=None, region_size=None,
+                 cov_thresh=None, num_most_signif=None,
+                 most_signif_num_batches=MOST_SIGNIF_NUM_BATCHES_DEFAULT):
+        self.stats_fn = stats_fn
+        if any(a is None for a in (stat_type, region_size, cov_thresh,
+                                   num_most_signif)):
+            self.open_for_writing = False
+            try:
+                self._parse()
+            except (OSError, KeyError, TypeError, ValueError):
+                raise TomboError("Invalid statistics file provided.")
+        else:
+            self.open_for_writing = True
+            self.stat_type = stat_type
+            self.region_size = region_size
+            self.cov_thresh = cov_thresh
+            self.num_most_signif = num_most_signif
+            self.most_signif_num_batches = most_signif_num_batches
+            self._new_file_common()
+            self.running_most_signif_sites = _nan_fill(np.zeros(
+                (self.num_most_signif,),
+                dtype=_LEVEL_DTYPE + [("chrm", "u4"), ("strand", "S1")]))
+        if self.stat_type not in LEVEL_STATS_TXTS:
+            raise TomboError(
+                "This does not appear to be a group-comparison stats file.")
+        if self.stat_type in (KS_TEST_TXT, U_TEST_TXT, T_TEST_TXT):
+            self._stat_text = "-log10(p-value): {0:.2g}"
+
+            def neg_log10(ps):
+                with np.errstate(divide="ignore"):
+                    return -np.log10(ps[self.stat_slot])
+            self._stat_transform = neg_log10
+        elif self.stat_type == KS_STAT_TEST_TXT:
+            self._stat_text = "D Statistic: {0:.2g}"
+            self._stat_transform = lambda ps: 1 - ps[self.stat_slot]
+        elif self.stat_type == U_STAT_TEST_TXT:
+            self._stat_text = "Common Language Marginal Effect: {0:.2g}"
+            self._stat_transform = lambda ps: -ps[self.stat_slot]
+        else:
+            self._stat_text = "Cohen's D: {0:.2g}"
+            self._stat_transform = lambda ps: -ps[self.stat_slot]
+
+    def _write_stat_block(self, grp_stats: GroupStats):
+        block_data = self.stat_blocks.create_group(
+            "Block_" + str(self.curr_block_num))
+        self.curr_block_num += 1
+        block_data.attrs["chrm"] = grp_stats.chrm
+        block_data.attrs["strand"] = grp_stats.strand
+        block_data.attrs["start"] = grp_stats.start
+        cols = [np.asarray(grp_stats.reg_stats),
+                np.asarray(grp_stats.reg_poss),
+                np.asarray(grp_stats.reg_cov),
+                np.asarray(grp_stats.ctrl_cov)]
+        m = min(c.shape[0] for c in cols)
+        keep = ~np.isnan(cols[0][:m].astype(np.float64))
+        arr = np.empty(int(keep.sum()), dtype=_LEVEL_DTYPE)
+        for name, c in zip(("stat", "pos", "cov", "control_cov"), cols):
+            arr[name] = c[:m][keep]
+        block_data.create_dataset("block_stats", data=arr,
+                                  compression="gzip")
+        self._add_to_most_signif(arr, grp_stats.chrm, grp_stats.strand)
+        self.is_empty = False
+
+
+class PerReadStats:
+    """Per-read statistics file (reference: tombo/tombo_stats.py:3239
+    ``PerReadStats``): per region a block of (pos, stat, read_id)
+    records and the read ids' names."""
+
+    def __init__(self, per_read_stats_fn, stat_type=None, region_size=None):
+        self.per_read_stats_fn = per_read_stats_fn
+        if stat_type is None or region_size is None:
+            self.open_for_writing = False
+            try:
+                self._parse()
+            except (OSError, KeyError, TypeError, ValueError):
+                raise TomboError(
+                    "Non-existent or invalid per-read statistics file "
+                    "provided.")
+        else:
+            import h5py
+            self.open_for_writing = True
+            self.stat_type = stat_type
+            self.region_size = region_size
+            try:
+                os.remove(per_read_stats_fn)
+            except OSError:
+                pass
+            self._fp = h5py.File(per_read_stats_fn, "w")
+            self.curr_block_num = 0
+            self._fp.attrs["stat_type"] = stat_type
+            self._fp.attrs["block_size"] = region_size
+            self.per_read_blocks = self._fp.create_group(STAT_BLOCKS_H5_NAME)
+        self.are_pvals = self.stat_type != ALT_MODEL_TXT
+
+    def set_resolved_params(self, resolved_json: str):
+        if resolved_json is not None and self.open_for_writing:
+            self._fp.attrs["resolved_params"] = resolved_json
+
+    def _parse(self):
+        import h5py
+        self._fp = h5py.File(self.per_read_stats_fn, "r")
+        self.resolved_params = _dec(self._fp.attrs.get("resolved_params"))
+        self.stat_type = _dec(self._fp.attrs.get("stat_type"))
+        self.region_size = int(self._fp.attrs.get("block_size"))
+        self.per_read_blocks = self._fp[STAT_BLOCKS_H5_NAME]
+        self.num_blocks = 0
+        blocks_index: Dict = defaultdict(dict)
+        for block_name, block_data in self.per_read_blocks.items():
+            blocks_index[(_dec(block_data.attrs.get("chrm")),
+                          _dec(block_data.attrs.get("strand")))][
+                int(block_data.attrs.get("start"))] = block_name
+            self.num_blocks += 1
+        self.blocks_index = dict(blocks_index)
+
+    def _write_per_read_block(self, per_read_block, read_id_lookup,
+                              chrm, strand, start):
+        import h5py
+        block_data = self.per_read_blocks.create_group(
+            "Block_" + str(self.curr_block_num))
+        self.curr_block_num += 1
+        block_data.attrs["chrm"] = chrm
+        block_data.attrs["strand"] = strand
+        block_data.attrs["start"] = start
+        block_data.create_dataset("block_stats", data=per_read_block,
+                                  compression="gzip")
+        dt = h5py.special_dtype(vlen=str)
+        read_ids = np.array(list(read_id_lookup.keys()), dtype=dt)
+        ds = block_data.create_dataset("read_ids", read_ids.shape, dtype=dt,
+                                       compression="gzip")
+        ds[...] = read_ids
+        block_data.create_dataset(
+            "read_id_vals", data=np.array(list(read_id_lookup.values())),
+            compression="gzip")
+        self._fp.flush()
+
+    def _block(self, block_name):
+        grp = self.per_read_blocks[block_name]
+        lookup = dict(zip(grp["read_id_vals"][()],
+                          (_dec(r) for r in grp["read_ids"][()])))
+        return grp["block_stats"][:], lookup
+
+    def iter_per_read_blocks(self):
+        """(chrm, strand, start, block records, {number: read id}) of
+        every block."""
+        for (chrm, strand), starts in self.blocks_index.items():
+            for start, block_name in sorted(starts.items()):
+                yield (chrm, strand, start) + self._block(block_name)
+
+    def get_region_per_read_stats(self, chrm, strand, start, end,
+                                  num_reads=None):
+        """(pos, stat, read id string) records over [start, end)
+        (reference: tombo/tombo_stats.py:3370-3430); ``num_reads``: a
+        random sample of that many reads."""
+        if (chrm, strand) not in self.blocks_index:
+            return None
+        collected = []
+        for block_start, block_name in self.blocks_index[
+                (chrm, strand)].items():
+            if end < block_start or start > block_start + self.region_size:
+                continue
+            block_stats, lookup = self._block(block_name)
+            collected.append(np.array(
+                list(zip(block_stats["pos"], block_stats["stat"],
+                         [lookup[r] for r in block_stats["read_id"]])),
+                dtype=[("pos", "u4"), ("stat", "f8"), ("read_id", object)]))
+        if not collected:
+            return None
+        allb = (collected[0] if len(collected) == 1
+                else np.concatenate(collected))
+        allb = allb[(allb["pos"] >= start) & (allb["pos"] < end)]
+        if num_reads is not None:
+            import random
+            read_ids = set(allb["read_id"])
+            if num_reads < len(read_ids):
+                keep = set(random.sample(sorted(read_ids), num_reads))
+                allb = allb[np.array([r in keep for r in allb["read_id"]])]
+        return allb
+
+    def close(self):
+        self._fp.close()

@@ -6,7 +6,10 @@ A read's means come from, in this order: the device-resident means of a
 re-squiggle in this process (``stats/device_levels.py``), the directory's
 levels sidecar (``stats/levels_cache.py``), then the FAST5 corrected
 group, which needs ``h5py``.  The card path has no FAST5 file: its reads
-come from the first source alone."""
+come from the first source alone.  A read's sequence, which the
+alternative-model test reads, is the FAST5 ``base`` column where the
+means came from a file, and the reference's bases over the read's span
+(reverse complemented on '-') where they are device-resident."""
 from __future__ import annotations
 
 import os
@@ -21,6 +24,7 @@ import torch
 
 from ..errors import TomboError
 from ..io import fast5 as f5io
+from ..seq import rev_comp
 from ..types import ReadData
 from . import device_levels, levels_cache
 
@@ -44,16 +48,19 @@ def clear_levels_cache():
 class ReadLevels:
     """One read's level means over its mapped span, read-centric.  ``dev``
     is a (flat tensor, offset) handle of device-resident means, and then
-    ``means`` is None."""
+    ``means`` is None; ``seq`` is the read-centric sequence, where asked
+    for."""
     r_data: ReadData
     means: Optional[np.ndarray]
     read_id: Optional[str] = None
     dev: Optional[tuple] = None
+    seq: Optional[str] = None
 
 
-def load_read_levels(r_data: ReadData) -> ReadLevels:
-    """One read's norm_mean through the LRU, then the levels sidecar,
-    then the FAST5 corrected group (reference:
+def load_read_levels(r_data: ReadData, with_seq: bool = False
+                     ) -> ReadLevels:
+    """One read's norm_mean (and base sequence) through the LRU, then the
+    levels sidecar, then the FAST5 corrected group (reference:
     tombo/tombo_helper.py:1593-1659).  The file's mtime and size are in
     the key, so a re-squiggled file never serves stale levels."""
     try:
@@ -83,12 +90,14 @@ def load_read_levels(r_data: ReadData) -> ReadLevels:
                 _lru.move_to_end(key)
                 while len(_lru) > LEVELS_LRU_CAP:
                     _lru.popitem(last=False)
-    return ReadLevels(r_data, hit[0], hit[2])
+    return ReadLevels(r_data, hit[0], hit[2],
+                      seq=hit[1] if with_seq else None)
 
 
-def _safe_load(r_data: ReadData) -> Optional[ReadLevels]:
+def _safe_load(r_data: ReadData, with_seq: bool = False
+               ) -> Optional[ReadLevels]:
     try:
-        return load_read_levels(r_data)
+        return load_read_levels(r_data, with_seq)
     except (OSError, KeyError, TomboError):
         return None
 
@@ -126,12 +135,12 @@ class RegionData:
         return hits
 
     @staticmethod
-    def _load_files(reads) -> dict:
+    def _load_files(reads, with_seq: bool = False) -> dict:
         if not reads:
             return {}
         with ThreadPoolExecutor(_N_IO_THREADS) as pool:
-            return {id(r): rl for r, rl in zip(reads,
-                                               pool.map(_safe_load, reads))}
+            return {id(r): rl for r, rl in zip(reads, pool.map(
+                lambda r: _safe_load(r, with_seq), reads))}
 
     def load_levels_packed(self, device: Optional[torch.device] = None
                            ) -> List[ReadLevels]:
@@ -150,11 +159,13 @@ class RegionData:
                 out.append(loaded[id(r)])
         return out
 
-    def load_levels(self, device: Optional[torch.device] = None
-                    ) -> List[ReadLevels]:
+    def load_levels(self, device: Optional[torch.device] = None,
+                    with_seq: bool = False, fasta=None) -> List[ReadLevels]:
         """Host (float64) levels of every read found: with ``device``,
         device-resident means first (copied to the host in one gather a
-        source tensor), then the sidecar or FAST5."""
+        source tensor), then the sidecar or FAST5.  ``with_seq``: each
+        read's sequence too, from ``fasta`` for the device-resident
+        reads."""
         hits = self._device_hits(device)
         host = {}
         by_src: dict = {}
@@ -169,11 +180,22 @@ class RegionData:
             vals = np.split(arr[idx.to(arr.device)].cpu().numpy().astype(
                 np.float64), np.cumsum(lens)[:-1])
             for (r, _), v in zip(rr, vals):
-                host[id(r)] = ReadLevels(r, v, r.read_id)
+                host[id(r)] = ReadLevels(r, v, r.read_id, seq=(
+                    self._fasta_seq(r, fasta) if with_seq else None))
         host.update(self._load_files(
-            [r for r in self.reads if id(r) not in hits]))
+            [r for r in self.reads if id(r) not in hits], with_seq))
         return [host[id(r)] for r in self.reads
                 if host.get(id(r)) is not None]
+
+    def _fasta_seq(self, r: ReadData, fasta) -> str:
+        """The read-centric sequence of a read from the reference: the
+        bases of [start, end), reverse complemented on '-' (what
+        re-squiggle writes to the FAST5 ``base`` column)."""
+        if fasta is None:
+            raise TomboError("a device-resident read's sequence needs the "
+                             "reference")
+        seq = fasta.get_seq(self.chrm, r.start, r.end)
+        return rev_comp(seq) if r.strand == "-" else seq
 
     def get_base_levels(self, device: Optional[torch.device] = None
                         ) -> np.ndarray:

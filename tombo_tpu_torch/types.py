@@ -110,3 +110,16 @@ class RegionStats:
     reg_cov: np.ndarray
     ctrl_cov: np.ndarray
     valid_cov: np.ndarray
+
+
+@dataclass
+class GroupStats:
+    """Per-region group-comparison (level test) statistics block
+    (reference: tombo/tombo_helper.py:318-328 ``groupStats``)."""
+    reg_stats: np.ndarray
+    reg_poss: np.ndarray
+    chrm: str
+    strand: str
+    start: int
+    reg_cov: np.ndarray
+    ctrl_cov: np.ndarray
