@@ -32,7 +32,13 @@ de novo (1 kb, mixed, RNA), sample-compare (1 kb), the alternative-model
 test (five DNA models and RNA 5mC), per-read statistics (each block
 aggregated without a file and held to its region's statistics) and the
 level tests (KS, U, t on the level path), each run again on the CPU at
-float32 and float64 from the same means.
+float32 and float64 from the same means.  Model estimation follows from
+the same means: the canonical 6-mer DNA model with its re-centring fit
+over the 1 kb path's reads (K5), a motif model (the first bundled motif
+the coverage allows), the density model of an alternative sample (3 x
+512 1 kb reads, C-containing 6-mers raised by 1.0, re-squiggled here)
+and the RNA 5-mer model with the RNA re-centring; site statistics,
+tabulated means, corrections and densities again on CPU copies.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after, and fails if a kernel of that path was not launched (or,
@@ -63,6 +69,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12          # non-tensor float32; used for int32 too
 K1_OPS_PER_CELL = 20           # f32 ops per active band cell and row
 READ_LEN, BATCH, N_BATCHES, MEAN_DWELL = 1000, 512, 3, 7.0
+REF_LEN_1KB = 60000            # the 1 kb path's reference
 # bench.py's mixed-length recipe: log-normal read lengths (median ~2.7 kb)
 # clipped to 600-30,000 bases, on a 120,000-base reference
 MIXED_LOG_MEAN, MIXED_LOG_SD = 7.9, 0.85
@@ -86,6 +93,18 @@ LEVEL_MIN_TEST_READS = 50
 # (scripts/level_f32_tolerance.py, PERF.md)
 LEVEL_F32_ABS_TOL = {"ks": 4e-6, "u": 2.3e-4, "t": 2.7e-3, "ks_stat": 2e-7,
                      "u_stat": 2.2e-4, "t_stat": 9e-6}
+# model estimation (build_model) at the JAX CLI's defaults
+# (tombo_tpu/cli/main.py:734-735, 774-779): minimum test reads and k-mer
+# observations of the canonical and motif models (lowered, and printed,
+# where the path's coverage leaves a key uncovered), the density model's
+# k-mer observations, percentile and bandwidth; the bundled motifs in the
+# order tried; the alternative sample (3 x 512 1 kb reads on the 1 kb
+# path's reference, C-containing 6-mers raised by ALT_SHIFT); the reads
+# of the float64 CPU re-centring cross-check
+EST_MIN_TEST_READS, EST_MIN_KMER_OBS = 10, 5
+ALT_KMER_OBS, ALT_PCTL, ALT_BW, ALT_SHIFT = 1000, 5, 0.05, 1.0
+EST_MOTIFS = ["CG:1", "CCWGG:2", "GATC:2"]
+N_ALT_BATCHES, EST_F64_READS = 3, 32
 CHUNKED = ("banded_dp_chunked_fwd", "banded_dp_chunked_tb")
 CHUNKED_SLICE = 16             # reads of the captured long call held
 DEVICE = "cuda"
@@ -201,9 +220,11 @@ def ptxas_summary(log):
                  "spill stores": "?", "spill loads": "?"}, **e) for e in out]
 
 
-def build_reads(read_lens, seed, ref_len, prefix):
+def build_reads(read_lens, seed, ref_len, prefix, sim_model=None):
     """Simulated, mapped DNA reads of the given lengths (bench.py's
-    recipe), named ``prefix`` and a number; also the reference."""
+    recipe), named ``prefix`` and a number; also the reference (the same
+    for every call with this ``ref_len``).  ``sim_model``: the model the
+    signal is simulated from (default the DNA model, which maps them)."""
     from tombo_tpu_torch import config
     from tombo_tpu_torch.io.model_io import KmerModel
     from tombo_tpu_torch.pipeline import resquiggle as rsq
@@ -218,7 +239,8 @@ def build_reads(read_lens, seed, ref_len, prefix):
     params = config.load_resquiggle_parameters("DNA")
     maps = []
     for i, n in enumerate(read_lens):
-        read = simulate_read(rng, fasta, model, read_len=int(n),
+        read = simulate_read(rng, fasta, sim_model or model,
+                             read_len=int(n),
                              read_id="%s%05d" % (prefix, i),
                              mean_dwell=MEAN_DWELL)
         mr = rsq.map_read(SequenceData(read.seq, read.read_id, 12.0),
@@ -1044,6 +1066,329 @@ def detection_more_phase(dev, br, outs, outs_r, fasta_1kb, fasta_r, model,
     return lines
 
 
+def est_thresholds(label, idx, fasta, up, dn, dev, motif=None):
+    """The CLI's minimum test reads and k-mer observations, each lowered
+    to the largest value that covers every key of the model at this
+    path's coverage; (min test reads, min k-mer observations)."""
+    from tombo_tpu_torch import config
+    from tombo_tpu_torch.errors import TomboError
+    from tombo_tpu_torch.stats import estimate as est
+    for cov in range(EST_MIN_TEST_READS, -1, -1):
+        levels = est.extract_kmer_levels(
+            idx, fasta, config.DEFAULT_REGION_SIZE, cov, up, dn, None,
+            motif=motif, device=dev)
+        for min_obs in range(EST_MIN_KMER_OBS, 0, -1):
+            try:
+                if motif is None:
+                    est.tabulate_kmer_levels(levels, min_obs)
+                else:
+                    est.tabulate_mod_kmer_levels(levels, min_obs, motif)
+            except TomboError as e:
+                if "fewer observations" in str(e):
+                    continue
+                break
+            if (cov, min_obs) != (EST_MIN_TEST_READS, EST_MIN_KMER_OBS):
+                print("%s: minimum test reads %d, minimum k-mer "
+                      "observations %d (the CLI's %d and %d leave a key "
+                      "uncovered)" % (label, cov, min_obs,
+                                      EST_MIN_TEST_READS, EST_MIN_KMER_OBS))
+            return cov, min_obs
+    return None
+
+
+def levels_card_vs_cpu(got, want, sd_rtol):
+    """Same regions, keys, list lengths (per-site counts) and centers;
+    sds within ``sd_rtol``.  Returns the number of (center, sd) pairs, or
+    None on any difference past the bar."""
+    if len(got) != len(want):
+        return None
+    n = 0
+    for g, w in zip(got, want):
+        if list(g) != list(w):
+            return None
+        for key in w:
+            if len(g[key]) != len(w[key]):
+                return None
+            if not w[key]:
+                continue
+            a, b = np.array(g[key]), np.array(w[key])
+            if not (np.array_equal(a[:, 0], b[:, 0]) and np.allclose(
+                    a[:, 1], b[:, 1], rtol=sd_rtol, atol=0)):
+                return None
+            n += a.shape[0]
+    return n
+
+
+def timed_command(label, fn, layers):
+    """One command's wall time and launches, then its layer breakdown
+    and its card idle share (each from a run of its own); returns the
+    first run's result and a summary."""
+    from tombo_tpu_torch import kernels
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    br = layer_breakdown(fn, layers)
+    prof = profile_call(fn)
+    summary = {"wall_s": wall, "launches": launches,
+               "breakdown_s": br["layers_s"],
+               "breakdown_wall_s": br["wall_s"],
+               "device_idle_share": prof.get("device_idle_share",
+                                             "not measured"),
+               "torch_calls": prof["torch_calls"]}
+    print("estimation %s: %s" % (label, json.dumps(summary)))
+    return out, summary
+
+
+def estimation_phase(dev, br, outs, outs_r, batches, rna, fasta_1kb,
+                     fasta_r, model, model_r):
+    """Model estimation (build_model) from the device means the paths
+    registered: the canonical 6-mer DNA model with the re-centring fit
+    over the 1 kb path's reads (K5), the first bundled motif model the
+    coverage allows, the density model of an alternative sample
+    re-squiggled here, and the RNA canonical 5-mer model with the RNA
+    re-centring; each cross-checked on CPU copies of the same means.
+    Returns K5's summary at the re-centring shape."""
+    from tombo_tpu_torch import config, kernels
+    from tombo_tpu_torch.errors import TomboError
+    from tombo_tpu_torch.io.model_io import KmerModel
+    from tombo_tpu_torch.ops import normalize as nrm
+    from tombo_tpu_torch.ops import rescale
+    from tombo_tpu_torch.seq import TomboMotif, all_kmers
+    from tombo_tpu_torch.stats import estimate as est
+    from tombo_tpu_torch.stats import estimate_device as estd
+    k5 = rescale.count_le
+    res_1kb = [r for o in outs for r in o]
+    res_r = [r for o in outs_r for r in o]
+    idx, _, _ = detection_index(res_1kb, False, dev)
+    idx_r, _, _ = detection_index(res_r, True, dev)
+    # the raw signals as a FAST5 file would store them (RNA unflipped)
+    src = est.MemoryReadSource(res_1kb, {
+        m.align_info.read_id: m.raw_signal for b in batches for m in b})
+    src_r = est.MemoryReadSource(res_r, {
+        m.align_info.read_id: m.raw_signal[::-1] for b in rna for m in b})
+    rs = config.DEFAULT_REGION_SIZE
+    canon_layers = [
+        (estd, "site_stats", "site statistics"),
+        (estd, "_bucket_region", "k-mer bucketing (host)"),
+        (estd, "_chunk_device", "site stacking and dispatch"),
+        (est, "tabulate_kmer_levels", "tabulation"),
+        (nrm, "normalize_median_batch", "normalize"),
+        (est, "_rna_norm", "RNA changepoints, stalls and scale"),
+        (nrm, "compute_base_means_batch", "event means"),
+        (rescale, "count_le", "K5"),
+        (rescale, "masked_median_sorted", "medians"),
+        (rescale, "theil_sen_device", "Theil-Sen keys and selection"),
+        (est, "read_corr_factors", "re-centring host preparation")]
+
+    # -- the canonical DNA model: 6-mers, re-centred over every read
+    th = est_thresholds("canonical DNA", idx, fasta_1kb, 2, 3, dev)
+    if th is None:
+        fail("estimation: no threshold covers every 6-mer")
+    cov, min_obs = th
+    rec5 = Recorder(k5, lambda keys, piv: (piv.shape[1], keys.shape[0] *
+                                           keys.shape[1]))
+    with patched([(rescale, "count_le", rec5)]):
+        std6, canon = timed_command(
+            "canonical DNA 6-mer model", lambda: est.estimate_kmer_model(
+                idx, fasta_1kb, cov, 2, 3, min_obs, False, None,
+                region_size=rs, read_source=src, device=dev),
+            canon_layers)
+    if canon["launches"].get("count_le", 0) <= 0:
+        fail("estimation: the re-centring fit launched no count_le")
+    r = float(np.corrcoef(std6.means, model.means)[0, 1])
+    print("canonical DNA model: %d reads, min test reads %d, min k-mer "
+          "observations %d; correlation of the estimated means with the "
+          "generating model %.4f" % (sum(len(v) for v in
+                                         idx.reads_index.values()), cov,
+                                     min_obs, r))
+    if not (np.isfinite(std6.means).all() and r > 0.9):
+        fail("estimation: canonical model means not finite or "
+             "uncorrelated (r %.4f)" % r)
+
+    # K5 at the re-centring shape, against its plain version
+    keys, piv = max(rec5.calls.values(), key=lambda v: v[0])[1]
+    cerr = int((k5(keys, piv) - rescale.count_le_plain(keys, piv)).abs()
+               .max())
+    if cerr != 0:
+        fail("count_le at the re-centring shape differs from the plain "
+             "version by %d" % cerr)
+    B5, M5 = keys.shape
+    P5 = piv.shape[1]
+    t_b = (B5 * M5 * 4 + 3 * B5 * P5 * 4) / HBM_BYTES_PER_S
+    t_o = 2 * B5 * M5 * P5 / F32_OPS_PER_S
+    n_valid = int((keys != 2 ** 31 - 1).sum(1).max())
+    k_rank = max(1, (n_valid + 1) // 2)
+    try:
+        lib5 = cuda_ms(lambda: torch.kthvalue(keys, k_rank, dim=1), 5)
+    except RuntimeError as e:          # yardstick only, never on the path
+        print("torch.kthvalue yardstick unavailable: %s" % e)
+        lib5 = None
+    k5_est = {"B": B5, "M": M5, "P": P5, "max_abs_err": cerr,
+              "launches": canon["launches"]["count_le"],
+              "ms": cuda_ms(lambda: k5(keys, piv), 10),
+              "plain_ms": cuda_ms(lambda: rescale.count_le_plain(keys, piv),
+                                  3),
+              "bound_ms": 1e3 * max(t_b, t_o),
+              "bound_by": "bytes" if t_b >= t_o else "operations",
+              "library_ms": lib5}
+    print("count_le at the re-centring shape: %s" % json.dumps(k5_est))
+
+    # -- the motif model: the first bundled motif covering every key
+    motif_used = None
+    for desc in EST_MOTIFS:
+        raw, pos = desc.split(":")
+        th_m = est_thresholds("motif %s" % desc, idx, fasta_1kb, 2, 3, dev,
+                              TomboMotif(raw, int(pos)))
+        if th_m is not None:
+            motif_used = desc
+            break
+        print("motif %s: a (k-mer, offset) key is not covered at this "
+              "coverage" % desc)
+    if motif_used is None:
+        fail("estimation: no bundled motif is covered")
+    alt_m, motif_sum = timed_command(
+        "motif %s model" % motif_used, lambda: est.estimate_motif_alt_model(
+            idx, fasta_1kb, motif_used, 2, 3, th_m[1], th_m[0], None,
+            region_size=rs, device=dev),
+        canon_layers[:3] + [(est, "tabulate_mod_kmer_levels",
+                             "tabulation")])
+    n_def = int(np.isfinite(alt_m.means).sum())
+    print("motif model %s: %d defined (k-mer, offset) levels, min test "
+          "reads %d, min k-mer observations %d" % (
+              motif_used, n_def, th_m[0], th_m[1]))
+    if n_def == 0 or not np.isfinite(alt_m.sds[np.isfinite(
+            alt_m.means)]).all():
+        fail("estimation: malformed motif model")
+
+    # -- the density model: an alternative sample re-squiggled here
+    sim = KmerModel(model.means.copy(), model.sds.copy(), model.central_pos)
+    for code, km in enumerate(all_kmers(model.kmer_width)):
+        if "C" in km:
+            sim.means[code] += ALT_SHIFT
+    t0 = time.perf_counter()
+    _, _, _, alt_maps, _ = build_reads(
+        [READ_LEN] * (BATCH * N_ALT_BATCHES), 8642, REF_LEN_1KB, "alt_",
+        sim_model=sim)
+    print("alternative sample: %d reads simulated in %.1f s" % (
+        len(alt_maps), time.perf_counter() - t0))
+    outs_alt, _, launches = run_path("alternative sample", br, [
+        alt_maps[b * BATCH:(b + 1) * BATCH] for b in range(N_ALT_BATCHES)],
+        [])
+    for name in ("banded_dp", "count_le"):
+        if launches[name] <= 0:
+            fail("kernel %s was not launched on the alternative sample" %
+                 name)
+    idx_alt, _, _ = detection_index([x for o in outs_alt for x in o], False,
+                                    dev)
+    save_x = np.linspace(config.KERNEL_DENSITY_RANGE[0],
+                         config.KERNEL_DENSITY_RANGE[1],
+                         config.NUM_DENS_POINTS)
+    dens = {}
+
+    def kde_rec(flat, counts, *a, **kw):
+        out = est_kde(flat, counts, *a, **kw)
+        dens.setdefault(flat.device.type, []).append(out)
+        return out
+    est_kde = est.kde_evaluate
+    with patched([(est, "kde_evaluate", kde_rec)]):
+        alt_c, alt_sum = timed_command(
+            "density model (C)", lambda: est.estimate_alt_model(
+                idx_alt, idx, model, "C", ALT_PCTL, ALT_KMER_OBS,
+                kernel_dens_bw=ALT_BW, fasta=fasta_1kb, device=dev),
+            [(est, "parse_base_levels_flat", "base-level parsing"),
+             (est, "kde_evaluate", "KDE"),
+             (est, "isolate_alt_density", "isolation")])
+    single = [c for c, km in enumerate(all_kmers(model.kmer_width))
+              if km.count("C") == 1]
+    shift = [alt_c.means[c, all_kmers(model.kmer_width)[c].index("C")] -
+             model.means[c] for c in single]
+    print("density model: %d defined levels; mean level shift at single-C "
+          "6-mers %.4f (simulated %+.1f)" % (
+              int(np.isfinite(alt_c.means).sum()), float(np.mean(shift)),
+              ALT_SHIFT))
+    if not np.isfinite(shift).all():
+        fail("estimation: density model has undefined single-C levels")
+
+    # -- the RNA canonical model: 5-mers, the RNA re-centring
+    th_r = est_thresholds("canonical RNA", idx_r, fasta_r, 1, 3, dev)
+    if th_r is None:
+        fail("estimation: no threshold covers every RNA 5-mer")
+    rna5, rna_sum = timed_command(
+        "canonical RNA 5-mer model", lambda: est.estimate_kmer_model(
+            idx_r, fasta_r, th_r[0], 1, 3, th_r[1], False, None,
+            region_size=rs, read_source=src_r, device=dev), canon_layers)
+    if rna_sum["launches"].get("count_le", 0) <= 0:
+        fail("estimation: the RNA re-centring fit launched no count_le")
+    r_r = float(np.corrcoef(rna5.means, model_r.means)[0, 1])
+    print("canonical RNA model: min test reads %d, min k-mer observations "
+          "%d; correlation with the generating model %.4f" % (
+              th_r[0], th_r[1], r_r))
+    if not np.isfinite(rna5.means).all():
+        fail("estimation: RNA model means not finite")
+
+    # -- the same means as CPU tensors through the same code
+    t0 = time.perf_counter()
+    for ix in (idx, idx_r, idx_alt):
+        register_cpu_copies(ix, dev)
+    check = {}
+    for label, ix, fa, up, dn, c in (("DNA", idx, fasta_1kb, 2, 3, cov),
+                                     ("RNA", idx_r, fasta_r, 1, 3,
+                                      th_r[0])):
+        card = est.extract_kmer_levels(ix, fa, rs, c, up, dn, None,
+                                       device=dev)
+        cpu32 = est.extract_kmer_levels(ix, fa, rs, c, up, dn, None,
+                                        device="cpu")
+        n = levels_card_vs_cpu(card, cpu32, 1e-5)
+        if n is None:
+            fail("estimation %s: card and CPU float32 site statistics "
+                 "differ (counts, centers or sds past 1e-5)" % label)
+        cpu64 = est.extract_kmer_levels(ix, fa, rs, c, up, dn, None,
+                                        device="cpu", dtype=torch.float64)
+        d = max(abs(a[1] - b[1]) for a, b in zip(
+            est.tabulate_kmer_levels(card, 1),
+            est.tabulate_kmer_levels(cpu64, 1)))
+        check[label] = {"site_pairs": n, "tabulated_mean_max_abs_f64": d}
+        if d > 5e-3:
+            fail("estimation %s: tabulated means card vs CPU float64 %g" %
+                 (label, d))
+    # re-centring corrections, float64 on the CPU over the first reads
+    c_sh, c_sc = est.read_corrections(idx, std6, EST_F64_READS,
+                                      read_source=src, device=dev)
+    f_sh, f_sc = est.read_corrections(idx, std6, EST_F64_READS,
+                                      read_source=src, device="cpu",
+                                      dtype=torch.float64)
+    dsh = float(np.max(np.abs(np.subtract(c_sh, f_sh))))
+    dsc = float(np.max(np.abs(np.subtract(c_sc, f_sc))))
+    check["corrections_f64"] = {"reads": len(f_sh), "shift_max_abs": dsh,
+                                "scale_max_abs": dsc}
+    if len(c_sh) != len(f_sh) or dsh > 2e-3 or dsc > 2e-3:
+        fail("estimation: re-centring corrections card vs CPU float64 %s" %
+             check["corrections_f64"])
+    # densities, float64 on both from the same float32 observations
+    cpu_dens = [est.est_kernel_density(ix, model, ALT_KMER_OBS, None,
+                                       save_x, ALT_BW, fasta=fasta_1kb,
+                                       device="cpu")
+                for ix in (idx_alt, idx)]
+    worst = 0.0
+    for card_d, cpu_d in zip(dens[dev.type][:2], cpu_dens):
+        cpu_m = np.stack([cpu_d[km] for km in all_kmers(model.kmer_width)])
+        a = card_d.cpu().numpy()
+        worst = max(worst, float(np.max(np.abs(a - cpu_m) /
+                                        np.maximum(np.abs(cpu_m), 1e-300)
+                                        * (np.abs(cpu_m) > 1e-14))))
+        if not np.allclose(a, cpu_m, rtol=1e-10, atol=1e-14):
+            fail("estimation: densities card vs CPU past 1e-10")
+    check["kde_f64_max_rel"] = worst
+    check["cpu_s"] = time.perf_counter() - t0
+    print("estimation CPU cross-check: %s" % json.dumps(check))
+    return k5_est
+
+
 def k1_bound_ms(args, bw, io_bytes=False):
     """K1's least time: the larger of its input and output bytes over the
     memory rate and its operations over the float32 rate; with io_bytes,
@@ -1334,7 +1679,8 @@ def main():
     # ---- phase 2: the 1 kb path on the card
     with phase("1 kb path"):
         model, params, sst, maps, fasta_1kb = build_reads(
-            [READ_LEN] * (BATCH * (N_BATCHES + 1)), 1234, 60000, "smoke_")
+            [READ_LEN] * (BATCH * (N_BATCHES + 1)), 1234, REF_LEN_1KB,
+            "smoke_")
         warm, maps = maps[:BATCH], maps[BATCH:]
         batches = [maps[b * BATCH:(b + 1) * BATCH]
                    for b in range(N_BATCHES)]
@@ -1889,6 +2235,14 @@ def main():
         print("detection: alt, level, per-read phase: %.1f s" % (
             time.perf_counter() - t_det))
 
+    # ---- phase 13d: model estimation from the paths' device means
+    with phase("model estimation"):
+        t_est = time.perf_counter()
+        k5_est = estimation_phase(dev, br, outs, outs_r, batches, rna,
+                                  fasta_1kb, fasta_r, model, model_r)
+        print("model estimation phase: %.1f s" % (time.perf_counter() -
+                                                  t_est))
+
     # ---- phase 14: the read-sharded lane (K3) over the cards' mesh
     with phase("mesh lane"):
         from tombo_tpu_torch.parallel import mesh as pmesh
@@ -2031,6 +2385,8 @@ def main():
     k5_entry["launches_mixed"] = launches_m["count_le"]
     k5_entry["launches_rna"] = launches_r["count_le"]
     k5_entry["shape_rna"] = k5_rna
+    k5_entry["launches_estimation"] = k5_est.pop("launches")
+    k5_entry["shape_recentring"] = k5_est
     entries.append(k5_entry)
     k3m = k3_shapes[0]
     entries.append({

@@ -23,7 +23,8 @@ batches of any size (the mesh lane's shards are such batches).
 Detection (de novo, sample-compare, the alternative-model test with
 per-read blocks, a level test) from the card's device means matches
 the same code on the CPU, and so do ``alt_llhr`` and the level tests
-alone."""
+alone.  The model re-centring fit (DNA and RNA) on the card matches its
+float32 run on the CPU."""
 import numpy as np
 import pytest
 import torch
@@ -601,3 +602,41 @@ def test_alt_level_per_read_on_card_match_cpu(card):
         np.testing.assert_allclose(a.reg_stats, b.reg_stats, rtol=1e-3,
                                    equal_nan=True)
     device_levels.clear()
+
+
+@pytest.mark.parametrize("samp_type", ["DNA", "RNA"])
+def test_recentring_on_card_matches_cpu(card, samp_type):
+    """The re-centring fit's corrections of simulated reads (their true
+    segments, 1,200 bases: more than the Theil-Sen cap of 1,000 points;
+    one RNA read with a stall) on the card, through the count kernel,
+    against the same code at float32 on the CPU: the same reads fitted,
+    corrections within 1e-5 relative."""
+    from tombo_tpu_torch.stats import estimate as est
+    rng = np.random.default_rng(61)
+    rna = samp_type == "RNA"
+    model = KmerModel.load_default(samp_type)
+    fasta = testing.random_reference(np.random.default_rng(62), 20000)
+    reads = []
+    for i in range(12):
+        read = testing.simulate_read(
+            rng, fasta, model, read_len=1200, read_id="rc_%02d" % i,
+            **(dict(mean_dwell=12.0, rev_sig=True) if rna else {}))
+        rsrtr = read.read_start_rel_to_raw
+        segs = read.true_segs - rsrtr
+        raw = read.raw_signal
+        if rna and i == 0:
+            sig = testing.insert_stall(rng, raw[::-1], rsrtr + segs[600],
+                                       3000)
+            segs = np.where(np.arange(segs.shape[0]) >= 600, segs + 3000,
+                            segs)
+            raw = sig[::-1]
+        reads.append(est.RecenterRead(raw, segs[:-1], read.seq, rna, rsrtr))
+    before = kernels.LAUNCHES["count_le"]
+    g_sh, g_sc, g_ok = est.read_corr_factors(reads, model, device=card)
+    assert kernels.LAUNCHES["count_le"] > before
+    c_sh, c_sc, c_ok = est.read_corr_factors(reads, model, device="cpu")
+    np.testing.assert_array_equal(g_ok, c_ok)
+    assert g_ok.sum() >= 10
+    np.testing.assert_allclose(g_sh[g_ok], c_sh[c_ok], rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(g_sc[g_ok], c_sc[c_ok], rtol=1e-5)

@@ -32,6 +32,8 @@ PORT_MODULES = [
     "tombo_tpu_torch.stats.device_levels", "tombo_tpu_torch.stats.files",
     "tombo_tpu_torch.stats.kernels", "tombo_tpu_torch.stats.levels_cache",
     "tombo_tpu_torch.stats.region", "tombo_tpu_torch.stats.aggregate",
+    "tombo_tpu_torch.stats.estimate", "tombo_tpu_torch.stats.estimate_device",
+    "tombo_tpu_torch.stats.kde", "tombo_tpu_torch.io.bed",
 ]
 
 
@@ -151,6 +153,89 @@ def test_detection_runs_without_h5py():
     n_regs, n_obs, same, n_alt, n_lv, h5 = out.stdout.split()
     assert int(n_regs) >= 3 and int(n_obs) > 1500 and same == "True"
     assert int(n_alt) >= 3 and int(n_lv) > 300 and h5 == "False"
+
+
+def test_estimation_runs_without_h5py(tmp_path):
+    """Model estimation on the card's route with h5py unimportable:
+    device-resident means of simulated reads (on the CPU), an in-memory
+    index and read source; the canonical 3-mer model with its re-centring
+    fit, a motif model and the density model of an alternative sample
+    (the same reads, C-containing 3-mers raised by 1.0), each written to
+    and read back from ``.npz``."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["h5py"] = None
+        import numpy as np, torch
+        from tombo_tpu_torch import testing
+        from tombo_tpu_torch.io.index import ReadsIndex
+        from tombo_tpu_torch.io.model_io import AltModel, KmerModel
+        from tombo_tpu_torch.ops.ref_impl import new_means
+        from tombo_tpu_torch.seq import all_kmers
+        from tombo_tpu_torch.stats import device_levels, estimate as est
+        from tombo_tpu_torch.types import (AlignInfo, GenomeLocation,
+                                           ReadData, ResquiggleResults)
+        rng = np.random.default_rng(0)
+        model = KmerModel.load_default("DNA")
+        fasta = testing.random_reference(rng, 3000)
+        tri = KmerModel(np.zeros(64), np.ones(64), 1)
+        has_c = np.array(["C" in km for km in all_kmers(3)])
+        idx = {"s": ReadsIndex(), "a": ReadsIndex()}
+        results, raws = [], {}
+        mats = {"s": torch.zeros((16, 400)), "a": torch.zeros((16, 400))}
+        for i in range(16):
+            read = testing.simulate_read(rng, fasta, model, read_len=400,
+                                         read_id="r%d" % i)
+            segs = read.true_segs - read.read_start_rel_to_raw
+            raw = read.raw_signal.astype(np.float64)
+            sig = raw[read.read_start_rel_to_raw:]
+            m = new_means((sig - np.median(raw)) /
+                          np.median(np.abs(raw - np.median(raw))), segs)
+            codes = tri.get_kmer_codes("A" + read.seq + "A")
+            for k, shift in (("s", 0.0), ("a", 1.0)):
+                mats[k][i] = torch.tensor(m + shift * has_c[codes])
+                idx[k].add_read_data(read.chrm, read.strand, ReadData(
+                    read.start, read.end, False,
+                    read.read_start_rel_to_raw, read.strand, "", "g",
+                    False, read_id=k + read.read_id))
+            results.append(ResquiggleResults(
+                align_info=AlignInfo("sr%d" % i), genome_seq=read.seq,
+                genome_loc=GenomeLocation(read.start, read.strand,
+                                          read.chrm),
+                read_start_rel_to_raw=read.read_start_rel_to_raw,
+                segs=segs))
+            raws["sr%d" % i] = read.raw_signal
+        for k in "sa":
+            device_levels.register_batch(
+                mats[k], [(k + "r%d" % i, i, 400) for i in range(16)])
+        src = est.MemoryReadSource(results, raws)
+        std = est.estimate_kmer_model(idx["s"], fasta, 0, 1, 1, 1, False,
+                                      None, region_size=1000,
+                                      read_source=src, device="cpu")
+        std.save_npz("@DIR@/std.npz")
+        back = KmerModel.load("@DIR@/std.npz")
+        motif = est.estimate_motif_alt_model(
+            idx["s"], fasta, "CG:1", 1, 1, 1, 0, None, region_size=1000,
+            device="cpu")
+        alt = est.estimate_alt_model(idx["a"], idx["s"], std, "C", 5, 10,
+                                     fasta=fasta, device="cpu")
+        alt.save_npz("@DIR@/alt.npz")
+        alt_back = AltModel.load("@DIR@/alt.npz")
+        single = [c for c, km in enumerate(all_kmers(3))
+                  if km.count("C") == 1]
+        shift = np.mean([alt_back.means[c, all_kmers(3)[c].index("C")] -
+                         std.means[c] for c in single])
+        print(bool(np.array_equal(back.means, std.means) and
+                   np.isfinite(std.means).all()),
+              int(np.isfinite(motif.means).sum()), round(float(shift), 2),
+              "h5py" in sys.modules and sys.modules["h5py"] is not None)
+    """).replace("@DIR@", str(tmp_path))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    same, n_motif, shift, h5 = out.stdout.split()
+    assert same == "True" and int(n_motif) > 0 and h5 == "False"
+    assert 0.5 < float(shift) < 1.5
 
 
 def test_port_reads_no_tombo_tpu_environment_variable():

@@ -188,6 +188,18 @@ DEFAULT_REGION_SIZE = 10000
 
 DEFAULT_CORRECTED_GROUP = "RawGenomeCorrected_000"
 
+# model estimation (reference: tombo/_default_parameters.py:147-152,
+# 158-197): observations kept per k-mer by the density estimate, the
+# fewest a k-mer may have to be estimated, the density grid, and the
+# reads the re-centring fit takes
+MAX_KMER_OBS = 10000
+MIN_KMER_OBS_TO_EST = 50
+KERNEL_DENSITY_RANGE = (-5, 5)
+NUM_DENS_POINTS = 500
+NUM_READS_TO_ADJUST_MODEL = 5000
+# central base of a nanopolish-style text model
+NANOPOLISH_CENTRAL_POS = 2
+
 
 def get_dynamic_prog_params(match_evalue: float) -> Tuple[float, float]:
     """(z_shift, stay_pen) from the expected match e-value."""

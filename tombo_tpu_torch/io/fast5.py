@@ -1,6 +1,6 @@
-"""FAST5 reads of the detection path (subset copy of
+"""FAST5 reads of the detection and estimation paths (subset copy of
 ``tombo_tpu/io/fast5.py``): a re-squiggled read's corrected-group
-``Events`` and its read id.
+``Events``, its raw signal and its read id.
 
 ``h5py`` is imported inside the functions that open a file, so the card
 path, which reads no FAST5, runs without it."""
@@ -47,6 +47,22 @@ def read_corrected_levels(fn: str, corr_group: str,
             except TomboError:
                 read_id = "unknown"
     return means, seq, read_id
+
+
+def read_raw_and_events(fn: str, corr_group: str
+                        ) -> Tuple[np.ndarray, np.ndarray, str]:
+    """(stored raw signal, event starts, base sequence) of one read's
+    corrected group (reference: tombo/tombo_stats.py:1618-1624)."""
+    import h5py
+    with h5py.File(fn, "r") as fp:
+        try:
+            raw = next(iter(fp["/Raw/Reads"].values()))["Signal"][:]
+        except (KeyError, StopIteration):
+            raise TomboError("Cannot read raw signal data")
+        events = fp["/Analyses/" + corr_group + "/Events"]
+        starts = events["start"][:].astype(np.int64)
+        seq = b"".join(events["base"][:]).decode()
+    return raw, starts, seq
 
 
 def iter_fast5_reads(fast5s_dir: str) -> Iterator[str]:

@@ -217,16 +217,12 @@ def _stage_a_dna(raw, sig_lens, has_sv, sv_shift, sv_scale, sv_lower,
             start_score)
 
 
-def _stage_a_rna(raw, sig_lens, has_sv, sv_shift, sv_scale, sv_lower,
-                 sv_upper, num_cpts, stall_starts, stall_ends, rm_start,
-                 rs_start, outlier_thresh, w: int, min_base_obs: int,
-                 max_cpts: int, sp: StartDpParams):
-    """RNA stages 1-3: t-test changepoint scores -> greedy selection ->
-    removal of the changepoints inside stall intervals, compacted ->
-    event-based scale values (median and MAD of the first events' raw
-    means) -> normalize -> event means -> start DP + validity score
-    (reference flow: tombo/resquiggle.py:1057-1120, RNA branches).
-    Returns the compacted changepoints with their per-read counts."""
+def rna_event_scale(raw, sig_lens, num_cpts, stall_starts, stall_ends,
+                    w: int, min_base_obs: int, max_cpts: int):
+    """RNA changepoints and scale: t-test changepoint scores -> greedy
+    selection -> removal of the changepoints inside stall intervals,
+    compacted -> event-based scale values (median and MAD of the first
+    events' raw means).  Returns (cpts, n_cpts, status, shift, scale)."""
     scores = seg.cpt_scores_t_test_batch(raw, sig_lens, w)
     cpts, status = sel.greedy_cpts_device(
         scores, sig_lens - 2 * w, num_cpts, min_base_obs, w, max_cpts)
@@ -253,6 +249,21 @@ def _stage_a_rna(raw, sig_lens, has_sv, sv_shift, sv_scale, sv_lower,
     n_means = torch.clamp(k_sc - 1, min=1)
     shift = nrm.masked_median(em_raw, n_means)
     scale = nrm.masked_mad(em_raw, shift, n_means)
+    return cpts, n_cpts, status, shift, scale
+
+
+def _stage_a_rna(raw, sig_lens, has_sv, sv_shift, sv_scale, sv_lower,
+                 sv_upper, num_cpts, stall_starts, stall_ends, rm_start,
+                 rs_start, outlier_thresh, w: int, min_base_obs: int,
+                 max_cpts: int, sp: StartDpParams):
+    """RNA stages 1-3: changepoints and event-based scale values
+    (:func:`rna_event_scale`) -> normalize -> event means -> start DP +
+    validity score (reference flow: tombo/resquiggle.py:1057-1120, RNA
+    branches).  Returns the compacted changepoints with their per-read
+    counts."""
+    cpts, n_cpts, status, shift, scale = rna_event_scale(
+        raw, sig_lens, num_cpts, stall_starts, stall_ends, w, min_base_obs,
+        max_cpts)
     ot = nrm.POS_LARGE if outlier_thresh is None else outlier_thresh
     lower = torch.full_like(shift, -ot)
     upper = torch.full_like(shift, ot)

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import re
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -54,6 +54,20 @@ def seq_to_kmer_codes(seq_codes: np.ndarray, kmer_width: int) -> np.ndarray:
     return codes
 
 
+def kmer_code_to_str(code: int, kmer_width: int) -> str:
+    out = []
+    for _ in range(kmer_width):
+        out.append(BASES[code % 4])
+        code //= 4
+    return "".join(reversed(out))
+
+
+def all_kmers(kmer_width: int) -> List[str]:
+    """Every ACGT k-mer in base-4 code order (first base most
+    significant)."""
+    return [kmer_code_to_str(c, kmer_width) for c in range(4 ** kmer_width)]
+
+
 class TomboMotif:
     """An IUPAC motif with a marked modified position (reference:
     tombo/tombo_helper.py:542-640 ``TomboMotif``): the raw motif compiled
@@ -80,6 +94,37 @@ class TomboMotif:
         return re.compile("".join(
             b if len(IUPAC_CODES[b]) == 1 else "[" + IUPAC_CODES[b] + "]"
             for b in motif))
+
+    def find_mod_poss(self, seq: str) -> List[int]:
+        """1-based positions of the modified base within forward-strand
+        matches of the motif in ``seq``, including partial matches hanging
+        off either end of ``seq`` that still place the modified base inside
+        it (reference: tombo/tombo_helper.py:672-707)."""
+        poss = set()
+        L, ml, mp = len(seq), self.motif_len, self.mod_pos
+        if L >= ml:
+            for m in self.motif_pat.finditer(seq):
+                poss.add(m.start() + mp)
+        else:
+            # seq shorter than the motif: slide the motif over the seq
+            for off in range(ml - L + 1):
+                if 1 <= mp - off <= L and re.match(
+                        self._compile(self.raw_motif[off:off + L]).pattern,
+                        seq):
+                    poss.add(mp - off)
+        # motif hanging off the start: its length-sl suffix matches seq[:sl]
+        for sl in range(1, min(L + 1, ml)):
+            off = ml - sl
+            smp = mp - off
+            if 1 <= smp <= sl and re.match(
+                    self._compile(self.raw_motif[off:]).pattern, seq[:sl]):
+                poss.add(smp)
+        # motif hanging off the end: its length-el prefix matches seq[-el:]
+        for el in range(1, min(L + 1, ml)):
+            if mp <= el and re.match(
+                    self._compile(self.raw_motif[:el]).pattern, seq[-el:]):
+                poss.add(L - el + mp)
+        return sorted(poss)
 
     def __repr__(self):
         return "TomboMotif({!r}, mod_pos={})".format(self.raw_motif,
