@@ -40,6 +40,16 @@ the coverage allows), the density model of an alternative sample (3 x
 and the RNA 5-mer model with the RNA re-centring; site statistics,
 tabulated means, corrections and densities again on CPU copies.
 
+The runner phase last drives the command line's path: the 1 kb and
+mixed reads, given basecalls with 8% errors, go through
+``pipeline/runner.py::resquiggle_all_reads`` over an in-memory read
+source (the card machine has no h5py, so no FAST5 is written), mapped by
+the native minimizer aligner and batched 64 at a time through the look-
+ahead window.  Each read mapped as simulated is held against its direct
+result (bitwise count and the batch-parity bars), 32 reads run again
+through the runner on the CPU, and de novo detection from the runner's
+index of the 1 kb reads is held against the direct path's.
+
 Each path is driven with the launch counts set to 0 just before it and
 read just after, and fails if a kernel of that path was not launched (or,
 on the 1 kb path, if a chunked kernel was).  Every kernel is then held
@@ -107,6 +117,14 @@ EST_MOTIFS = ["CG:1", "CCWGG:2", "GATC:2"]
 N_ALT_BATCHES, EST_F64_READS = 3, 32
 CHUNKED = ("banded_dp_chunked_fwd", "banded_dp_chunked_tb")
 CHUNKED_SLICE = 16             # reads of the captured long call held
+# the runner phase: the 1 kb and mixed paths' reads with basecalls of 8%
+# errors (tombo_tpu/testing.py:118 mutate_seq's mix) through
+# resquiggle_all_reads at the command line's batch size
+# (tombo_tpu/cli/main.py:269) over a memory source; reads of the CPU
+# cross-check; a mapping counts as right within this many bases of the
+# simulated start, on the simulated strand
+RUNNER_SEED, RUNNER_ERR, RUNNER_BATCH = 97, 0.08, 64
+RUNNER_CPU_READS, RUNNER_START_TOL = 32, 10
 DEVICE = "cuda"
 
 
@@ -1639,6 +1657,239 @@ def detection_phase(dev, outs, outs_m, outs_r, fasta_1kb, fasta_m,
     return lane
 
 
+def basecalls(maps, model, rng):
+    """Each simulated read's basecalls with errors: its read-oriented
+    sequence (the mapped sequence less the k-mer context) mutated at
+    RUNNER_ERR; (name, raw signal, SequenceData) for a memory source."""
+    from tombo_tpu_torch.testing import mutate_seq
+    from tombo_tpu_torch.types import SequenceData
+    k, cp = model.kmer_width, model.central_pos
+    out = []
+    for mr in maps:
+        seq = mr.genome_seq[cp:len(mr.genome_seq) - (k - cp - 1)]
+        rid = mr.align_info.read_id
+        out.append((rid, mr.raw_signal, SequenceData(
+            mutate_seq(rng, seq, RUNNER_ERR), rid, 12.0)))
+    return out
+
+
+def run_runner(source, aligner, model, params, sst, device):
+    """``resquiggle_all_reads`` over a memory source; returns (summary,
+    index, each read's result by read id, wall seconds)."""
+    from tombo_tpu_torch.pipeline import runner
+    from tombo_tpu_torch.pipeline.batch import BatchedResquiggler
+    got = {}
+    orig = BatchedResquiggler.resquiggle_batches
+
+    def keep(self, batches, **kw):
+        for res in orig(self, batches, **kw):
+            for r, _ in res:
+                if r is not None:
+                    got[r.align_info.read_id] = r
+            yield res
+    with patched([(BatchedResquiggler, "resquiggle_batches", keep)]):
+        t0 = time.perf_counter()
+        summary, index = runner.resquiggle_all_reads(
+            source, aligner, model, sst, params,
+            runner.RunConfig(device=device, batch_size=RUNNER_BATCH))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return summary, index, got, wall
+
+
+def result_diffs(a, b):
+    """(bitwise equal, within the batch-parity bars) of two results of
+    one read: segs, start, shift, scale and score."""
+    same_shape = (a.segs.shape == b.segs.shape and
+                  a.read_start_rel_to_raw == b.read_start_rel_to_raw)
+    bitwise = (same_shape and np.array_equal(a.segs, b.segs) and
+               a.scale_values.shift == b.scale_values.shift and
+               a.scale_values.scale == b.scale_values.scale and
+               a.sig_match_score == b.sig_match_score)
+    sc = b.scale_values.scale
+    close = (same_shape and np.mean(a.segs == b.segs) > 0.99 and
+             abs(a.scale_values.shift - b.scale_values.shift) / sc < 2e-3
+             and abs(a.scale_values.scale - sc) / sc < 2e-3 and
+             abs(a.sig_match_score - b.sig_match_score) < 1e-2)
+    return bitwise, close
+
+
+def runner_phase(dev, model, params, sst, paths):
+    """The re-squiggle runner on the card: each path's reads (``paths``:
+    (label, batches of mapped reads, their direct results, reference)),
+    with basecalls of 8% errors, mapped by the native minimizer aligner
+    and re-squiggled by ``resquiggle_all_reads`` at the command line's
+    batch size over a memory source, the launch counts zeroed just
+    before and read just after each path's run.  Each read whose mapping
+    equals the simulated one is held against its direct result (bitwise
+    count, batch-parity bars); 32 reads run again through the runner on
+    the CPU; de novo detection from the runner's index of the 1 kb reads
+    is held against the direct path's de novo pass on the same reads.
+    Returns the launches of both runs, summed."""
+    from tombo_tpu_torch import config, kernels
+    from tombo_tpu_torch.errors import TomboError
+    from tombo_tpu_torch.pipeline import resquiggle as rsq
+    from tombo_tpu_torch.pipeline import runner
+    from tombo_tpu_torch.pipeline.aligner import MinimizerAligner
+    from tombo_tpu_torch.stats import detect, device_levels
+    rng = np.random.default_rng(RUNNER_SEED)
+    total = {n: 0 for n in kernels.LAUNCHES}
+    de_novo = detect.TestParams(
+        stat_type="de_novo", single_read_thresh=config.DE_NOVO_THRESH[
+            "DNA"][1], lower_thresh=config.DE_NOVO_THRESH["DNA"][0],
+        min_test_reads=1, fm_offset=config.FM_OFFSET_DEFAULT,
+        region_size=config.DEFAULT_REGION_SIZE)
+    for label, batches, outs, fasta in paths:
+        maps = [m for b in batches for m in b]
+        direct = {m.align_info.read_id: r for m, (r, _) in
+                  zip(maps, [x for o in outs for x in o])}
+        truth = {m.align_info.read_id: m for m in maps}
+        reads = basecalls(maps, model, rng)
+        source = runner.MemoryReads(reads)
+        t0 = time.perf_counter()
+        aligner = MinimizerAligner(fasta)
+        index_s = time.perf_counter() - t0
+        # the reads whose basecalls map where they were simulated, to the
+        # base: their re-squiggle inputs equal the direct path's
+        same, mapped, right = set(), 0, 0
+        for name, _, seq in reads:
+            try:
+                mr = rsq.map_read(seq, aligner, model, sst)
+            except TomboError:
+                continue
+            tm = truth[name]
+            mapped += 1
+            right += (mr.genome_loc.strand == tm.genome_loc.strand and
+                      abs(mr.genome_loc.start - tm.genome_loc.start) <=
+                      RUNNER_START_TOL)
+            if (mr.genome_loc.start, mr.genome_loc.strand, mr.genome_seq) == \
+                    (tm.genome_loc.start, tm.genome_loc.strand,
+                     tm.genome_seq):
+                same.add(name)
+        if label == "1 kb":
+            ix_direct, _, _ = detection_index(
+                [(direct[n], None) for n in sorted(same)
+                 if direct[n] is not None], False, dev)
+            want = [st for _, st, _ in detect.iter_region_stats(
+                ix_direct, de_novo, fasta, model, None, device=dev)]
+        for name in kernels.LAUNCHES:
+            kernels.LAUNCHES[name] = 0
+        summary, index, got, wall = run_runner(source, aligner, model,
+                                               params, sst, DEVICE)
+        launches = dict(kernels.LAUNCHES)
+        for name, n in launches.items():
+            total[name] += n
+        want_k = ["banded_dp", "count_le", "banded_dp_sharded"] + (
+            list(CHUNKED) if label == "mixed" else [])
+        for name in want_k:
+            if launches[name] <= 0:
+                fail("runner, %s: kernel %s was not launched" % (label,
+                                                                 name))
+        # the runner's results against the direct path's, same mappings
+        n_cmp = n_bit = n_close = n_err = 0
+        for name in sorted(same):
+            a, b = got.get(name), direct[name]
+            if (a is None) != (b is None):
+                n_err += 1
+                continue
+            if a is None:
+                continue
+            n_cmp += 1
+            bit, close = result_diffs(a, b)
+            n_bit += bit
+            n_close += close
+        line = {
+            "path": label, "reads": len(reads),
+            "mapped": mapped, "right_start_strand": right,
+            "right_share": right / len(reads),
+            "same_mapping_as_simulated": len(same),
+            "succeeded": summary.n_success, "failed": summary.n_failed,
+            "failure_modes": dict(summary.failure_modes),
+            "wall_s": wall, "reads_per_s": summary.n_success / wall,
+            "aligner_index_s": index_s,
+            "mapping_thread_s": summary.timings["io_map"],
+            "batch_loop_s": summary.timings["batch_loop"],
+            "launches": launches,
+            "vs_direct": {"compared": n_cmp, "bitwise": n_bit,
+                          "within_bars": n_close,
+                          "error_differs": n_err}}
+        print("runner, %s path: %s" % (label, json.dumps(line)))
+        if n_err or n_close < n_cmp or n_cmp < 0.5 * len(reads):
+            fail("runner, %s: %d of %d same-mapped reads outside the "
+                 "batch-parity bars of the direct path, %d with another "
+                 "error" % (label, n_cmp - n_close, n_cmp, n_err))
+        if summary.n_success < 0.85 * len(reads):
+            fail("runner, %s: only %d of %d reads succeeded" % (
+                label, summary.n_success, len(reads)))
+        if label != "1 kb":
+            continue
+
+        # 32 of the reads through the runner on the CPU
+        cpu_reads = [r for r in reads if r[0] in got][:RUNNER_CPU_READS]
+        c_sum, _, c_got, c_wall = run_runner(
+            runner.MemoryReads(cpu_reads), aligner, model, params, sst,
+            "cpu")
+        worst_ok = 0
+        for name, _, _ in cpu_reads:
+            c = c_got.get(name)
+            if c is None:
+                fail("runner CPU cross-check: %s failed on the CPU" % name)
+            worst_ok += result_diffs(got[name], c)[1]
+        print("runner CPU cross-check: %d reads in %.1f s, %d within the "
+              "bars of the card's" % (len(cpu_reads), c_wall, worst_ok))
+        if worst_ok < len(cpu_reads):
+            fail("runner CPU cross-check: %d reads outside the bars" % (
+                len(cpu_reads) - worst_ok))
+
+        # de novo from the runner's index: the reads with device means
+        index_dev = type(index)()
+        left = 0
+        for (chrm, strand), v in index.reads_index.items():
+            for r in v:
+                if device_levels.lookup(r.read_id, r.end - r.start,
+                                        dev) is None:
+                    left += 1
+                else:
+                    index_dev.add_read_data(chrm, strand, r)
+        t0 = time.perf_counter()
+        full = [st for _, st, _ in detect.iter_region_stats(
+            index_dev, de_novo, fasta, model, None, device=dev)]
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        same_ix = type(index)()
+        for (chrm, strand), v in index_dev.reads_index.items():
+            for r in v:
+                if r.read_id in same:
+                    same_ix.add_read_data(chrm, strand, r)
+        got_st = [st for _, st, _ in detect.iter_region_stats(
+            same_ix, de_novo, fasta, model, None, device=dev)]
+        # regions in (chrm, strand, start) order: an index lists its
+        # strands in the order its reads arrived
+        key = lambda st: (st.chrm, st.strand, st.start)
+        sites, cov_bad, flips = detection_flips(sorted(got_st, key=key),
+                                                sorted(want, key=key))
+        det = {"reads_in_index": sum(len(v) for v in
+                                     index_dev.reads_index.values()),
+               "left_out_no_device_means": left,
+               "sites": sum(st.reg_poss.shape[0] for st in full),
+               "wall_s": full_s,
+               "same_mapping_reads": sum(len(v) for v in
+                                         same_ix.reads_index.values()),
+               "direct_reads": sum(len(v) for v in
+                                   ix_direct.reads_index.values()),
+               "compared_sites": sites, "coverage_differs": cov_bad,
+               "flips": flips}
+        print("runner, de novo from its index: %s" % json.dumps(det))
+        if sites is None or cov_bad:
+            fail("runner de novo: positions or coverage differ from the "
+                 "direct path's")
+        if flips > max(1, 2 * sites // 10000):
+            fail("runner de novo: %d of %d entries flip" % (flips,
+                                                            2 * sites))
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2081,8 +2332,9 @@ def main():
               "of them reads that lost changepoints inside a stall and reads "
               "routed to the static band, static-band assignments): %s" %
               json.dumps(per_batch))
-        for (L, bw), (n, reads) in sorted(rec_k1r.count.items()):
-            print("  K1 L %d bw %d: %d calls, %d reads" % (L, bw, n, reads))
+        for (kl, kbw), (n, reads) in sorted(rec_k1r.count.items()):
+            print("  K1 L %d bw %d: %d calls, %d reads" % (kl, kbw, n,
+                                                          reads))
 
     # ---- phase 11: K1, K2/K2' and K5 at the RNA shapes
     with phase("kernels vs plain, RNA shapes"):
@@ -2342,6 +2594,14 @@ def main():
             if launches_k3.get(name, 0) <= 0:
                 fail("kernel %s was not launched on the mesh lane" % name)
 
+    # ---- phase 15: the re-squiggle runner over the 1 kb and mixed reads
+    with phase("runner"):
+        t_rn = time.perf_counter()
+        launches_rn = runner_phase(dev, model, params, sst, [
+            ("1 kb", batches, outs, fasta_1kb),
+            ("mixed", mixed, outs_m, fasta_m)])
+        print("runner phase: %.1f s" % (time.perf_counter() - t_rn))
+
     # ---- the kernels line
     m = k1_shapes[0]
     entries.append({
@@ -2351,6 +2611,7 @@ def main():
         "launches": launches_1kb["banded_dp"],
         "launches_mixed": launches_m["banded_dp"],
         "launches_rna": launches_r["banded_dp"],
+        "launches_runner": launches_rn["banded_dp"],
         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"], "library_ms": None,
@@ -2362,6 +2623,7 @@ def main():
         "source": "tombo_tpu_torch/csrc/banded_dp_chunked.cu",
         "replaces": "tombo_tpu/ops/pallas_dp.py:798",
         "launches": launches_m["banded_dp_chunked_fwd"],
+        "launches_runner": launches_rn["banded_dp_chunked_fwd"],
         "max_abs_err": ferr, "ms": fwd_ms,
         "plain_ms": plain_fwd_ms, "bound_ms": k2_bound, "bound_by": k2_by,
         "library_ms": None, "shape": ch_shape,
@@ -2372,6 +2634,7 @@ def main():
         "source": "tombo_tpu_torch/csrc/banded_dp_chunked.cu",
         "replaces": "tombo_tpu/ops/pallas_dp.py:842",
         "launches": launches_m["banded_dp_chunked_tb"],
+        "launches_runner": launches_rn["banded_dp_chunked_tb"],
         "max_abs_err": seg_err, "ms": tb_ms,
         "plain_ms": plain_pair_ms - plain_fwd_ms, "bound_ms": tb_bound,
         "bound_by": tb_by,
@@ -2384,6 +2647,7 @@ def main():
                              for ps in pair_rna]})
     k5_entry["launches_mixed"] = launches_m["count_le"]
     k5_entry["launches_rna"] = launches_r["count_le"]
+    k5_entry["launches_runner"] = launches_rn["count_le"]
     k5_entry["shape_rna"] = k5_rna
     k5_entry["launches_estimation"] = k5_est.pop("launches")
     k5_entry["shape_recentring"] = k5_est
@@ -2396,6 +2660,7 @@ def main():
                            "tombo_tpu_torch/csrc/banded_dp_chunked.cu"],
         "replaces": "tombo_tpu/ops/pallas_dp.py:957",
         "launches": launches_k3["banded_dp_sharded"],
+        "launches_runner": launches_rn["banded_dp_sharded"],
         "max_abs_err": max(x["max_abs_err"] for x in k3_shapes),
         "ms": k3m["ms"], "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
         "bound_by": k3_by, "library_ms": None, "shards": len(mesh),

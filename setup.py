@@ -12,6 +12,8 @@ setup(
     python_requires=">=3.10",
     install_requires=["numpy", "scipy", "h5py", "jax"],
     entry_points={
-        "console_scripts": ["tombo-tpu = tombo_tpu.cli.main:main"],
+        "console_scripts": [
+            "tombo-tpu = tombo_tpu.cli.main:main",
+            "tombo-tpu-torch = tombo_tpu_torch.cli.main:main"],
     },
 )

@@ -24,7 +24,8 @@ Detection (de novo, sample-compare, the alternative-model test with
 per-read blocks, a level test) from the card's device means matches
 the same code on the CPU, and so do ``alt_llhr`` and the level tests
 alone.  The model re-centring fit (DNA and RNA) on the card matches its
-float32 run on the CPU."""
+float32 run on the CPU, and so does the re-squiggle runner over a memory
+source of mapped error-prone reads."""
 import numpy as np
 import pytest
 import torch
@@ -640,3 +641,64 @@ def test_recentring_on_card_matches_cpu(card, samp_type):
     np.testing.assert_allclose(g_sh[g_ok], c_sh[c_ok], rtol=1e-5,
                                atol=1e-6)
     np.testing.assert_allclose(g_sc[g_ok], c_sc[c_ok], rtol=1e-5)
+
+
+def test_memory_runner_on_card_matches_cpu(card):
+    """The re-squiggle runner over a memory source of 128 simulated 1 kb
+    reads with 8% basecall errors (the native minimizer aligner), on the
+    card and on the CPU: the same summary and index, each read within
+    the batch-parity bars; the card's run launches K1 and K5."""
+    from tombo_tpu_torch.pipeline import runner
+    from tombo_tpu_torch.pipeline.aligner import MinimizerAligner
+    rng = np.random.default_rng(71)
+    model = KmerModel.load_default("DNA")
+    fasta = testing.random_reference(np.random.default_rng(72), 60000)
+    reads = []
+    for i in range(128):
+        r = testing.simulate_read(rng, fasta, model, read_len=1000,
+                                  read_id="mr_%03d" % i)
+        reads.append((r.read_id, r.raw_signal, SequenceData(
+            testing.mutate_seq(rng, r.seq, 0.08), r.read_id, 12.0)))
+    source = runner.MemoryReads(reads)
+    aligner = MinimizerAligner(fasta)
+    sst = SeqSampleType("DNA", False)
+    params = config.load_resquiggle_parameters("DNA")
+    results = {}
+    orig = BatchedResquiggler.resquiggle_batches
+    out = {}
+    for dev in ("cuda", "cpu"):
+        got = results.setdefault(dev, {})
+        before = dict(kernels.LAUNCHES)
+
+        def rec(self, batches, **kw):
+            for res in orig(self, batches, **kw):
+                for r, e in res:
+                    if r is not None:
+                        got[r.align_info.read_id] = r
+                yield res
+        BatchedResquiggler.resquiggle_batches = rec
+        try:
+            out[dev] = runner.resquiggle_all_reads(
+                source, aligner, model, sst, params,
+                runner.RunConfig(device=dev, num_io_threads=4))
+        finally:
+            BatchedResquiggler.resquiggle_batches = orig
+        if dev == "cuda":
+            launches = {n: kernels.LAUNCHES[n] - before[n] for n in before}
+    assert launches["banded_dp"] > 0 and launches["count_le"] > 0
+    (g_sum, g_idx), (c_sum, c_idx) = out["cuda"], out["cpu"]
+    assert g_sum.as_dict() == c_sum.as_dict() and g_sum.n_success >= 100
+    assert sorted(results["cuda"]) == sorted(results["cpu"])
+    for rid, g in results["cuda"].items():
+        c = results["cpu"][rid]
+        assert g.segs.shape == c.segs.shape
+        assert g.read_start_rel_to_raw == c.read_start_rel_to_raw
+        assert np.mean(g.segs == c.segs) > 0.99
+        sc = c.scale_values.scale
+        assert abs(g.scale_values.shift - c.scale_values.shift) / sc < 2e-3
+        assert abs(g.scale_values.scale - sc) / sc < 2e-3
+        assert abs(g.sig_match_score - c.sig_match_score) < 1e-2
+    assert sorted((k, r.read_id, r.start, r.end)
+                  for k, v in g_idx.reads_index.items() for r in v) == \
+        sorted((k, r.read_id, r.start, r.end)
+               for k, v in c_idx.reads_index.items() for r in v)

@@ -34,6 +34,10 @@ PORT_MODULES = [
     "tombo_tpu_torch.stats.region", "tombo_tpu_torch.stats.aggregate",
     "tombo_tpu_torch.stats.estimate", "tombo_tpu_torch.stats.estimate_device",
     "tombo_tpu_torch.stats.kde", "tombo_tpu_torch.io.bed",
+    "tombo_tpu_torch._version", "tombo_tpu_torch.native",
+    "tombo_tpu_torch.filters", "tombo_tpu_torch.pipeline.ingest",
+    "tombo_tpu_torch.pipeline.runner", "tombo_tpu_torch.cli",
+    "tombo_tpu_torch.cli.main", "tombo_tpu_torch.__main__",
 ]
 
 
@@ -236,6 +240,54 @@ def test_estimation_runs_without_h5py(tmp_path):
     same, n_motif, shift, h5 = out.stdout.split()
     assert same == "True" and int(n_motif) > 0 and h5 == "False"
     assert 0.5 < float(shift) < 1.5
+
+
+def test_runner_runs_without_h5py():
+    """The card's route through the re-squiggle runner with h5py
+    unimportable: simulated reads with 8% basecall errors in a memory
+    source, the native minimizer aligner, the runner on the CPU; it maps,
+    re-squiggles, builds an in-memory index and writes no file."""
+    code = textwrap.dedent("""
+        import os, sys
+        sys.modules["h5py"] = None
+        import numpy as np
+        from tombo_tpu_torch import config, testing
+        from tombo_tpu_torch.io.model_io import KmerModel
+        from tombo_tpu_torch.pipeline import runner
+        from tombo_tpu_torch.pipeline.aligner import MinimizerAligner
+        from tombo_tpu_torch.types import SeqSampleType, SequenceData
+        rng = np.random.default_rng(4)
+        model = KmerModel.load_default("DNA")
+        fasta = testing.random_reference(rng, 8000)
+        reads = []
+        for i in range(12):
+            r = testing.simulate_read(rng, fasta, model, read_len=400,
+                                      read_id="m%d" % i)
+            reads.append(("m%d" % i, r.raw_signal, SequenceData(
+                testing.mutate_seq(rng, r.seq, 0.08), r.read_id, 12.0)))
+        before = sorted(os.listdir("."))
+        summary, index = runner.resquiggle_all_reads(
+            runner.MemoryReads(reads), MinimizerAligner(fasta), model,
+            SeqSampleType("DNA", False),
+            config.load_resquiggle_parameters("DNA"),
+            runner.RunConfig(batch_size=8, device="cpu"))
+        print(summary.n_success, sum(1 for _ in index.iter_reads()),
+              sorted(os.listdir(".")) == before,
+              "h5py" in sys.modules and sys.modules["h5py"] is not None)
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_ok, n_index, no_files, h5 = out.stdout.split()
+    assert int(n_ok) >= 10 and int(n_index) >= 10
+    assert no_files == "True" and h5 == "False"
+
+
+def test_setup_names_the_console_script():
+    src = open(os.path.join(ROOT, "setup.py")).read()
+    assert "tombo-tpu-torch = tombo_tpu_torch.cli.main:main" in src
+    assert "tombo-tpu = tombo_tpu.cli.main:main" in src
 
 
 def test_port_reads_no_tombo_tpu_environment_variable():

@@ -186,7 +186,14 @@ COV_DAMP_COUNTS = (2.0, 0.0)
 # tombo/_option_parsers.py:290-291 --multiprocess-region-size)
 DEFAULT_REGION_SIZE = 10000
 
+# HDF5 group names (reference: tombo/_option_parsers.py:100-101)
 DEFAULT_CORRECTED_GROUP = "RawGenomeCorrected_000"
+DEFAULT_BASECALL_GROUP = "Basecall_1D_000"
+DEFAULT_BASECALL_SUBGROUP = "BaseCalled_template"
+
+# reads whose raw-signal MADs estimate the global scale (reference:
+# _default_parameters.py:158-197)
+NUM_READS_FOR_SCALE = 1000
 
 # model estimation (reference: tombo/_default_parameters.py:147-152,
 # 158-197): observations kept per k-mer by the density estimate, the

@@ -1,8 +1,9 @@
 """Reads index: per-(chrm, strand) read records with coverage queries
 (subset copy of ``tombo_tpu/io/index.py:33-315``).
 
-It reads the hidden pickle index ``.<dir>.<corr_grp>.tombo.index`` that a
-re-squiggle run writes (the reference's record layout, reference:
+It reads and writes the hidden pickle index
+``.<dir>.<corr_grp>.tombo.index`` of a re-squiggle run (the reference's
+11-field record layout, pickle protocol 2, reference:
 tombo/tombo_helper.py:1093-1586), falls back to scanning the FAST5
 corrected groups when the index is missing or corrupt, and builds in
 memory from re-squiggle results (``add_read_data``), the card's route,
@@ -13,6 +14,7 @@ import glob
 import io
 import os
 import pickle
+import re
 from collections import defaultdict
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -37,18 +39,61 @@ class ReadsIndex:
     for ``add_read_data``."""
 
     def __init__(self, fast5s_basedirs: Optional[List[str]] = None,
-                 corrected_group: str = DEFAULT_CORRECTED_GROUP):
+                 corrected_group: str = DEFAULT_CORRECTED_GROUP,
+                 basecall_subgroups: Optional[List[str]] = None,
+                 for_writing: bool = False):
+        """``basecall_subgroups``: keep only reads of these subgroups.
+        ``for_writing``: start empty for one directory (given alone),
+        whose old index file is removed; ``write_index_file`` writes the
+        new one."""
         self.fast5s_dirs: Dict[str, str] = {}
         self.corr_grp = corrected_group
+        self.bc_subgrps = basecall_subgroups
         self.coverage: Optional[Dict[Tuple[str, str], np.ndarray]] = None
         self.reads_index: Dict[Tuple[str, str], List[ReadData]] = \
             defaultdict(list)
-        if fast5s_basedirs:
+        if for_writing:
+            if len(fast5s_basedirs or []) != 1:
+                raise ValueError("an index for writing takes one FAST5 "
+                                 "base directory")
+            d = fast5s_basedirs[0]
+            d = d if d.endswith("/") else d + "/"
+            self.fast5s_dirs[d] = get_index_fn(d, self.corr_grp)
+            if os.path.exists(self.fast5s_dirs[d]):
+                os.remove(self.fast5s_dirs[d])
+        elif fast5s_basedirs:
             self._parse_fast5s(fast5s_basedirs)
 
+    # ------------------------------------------------------------ building
     def add_read_data(self, chrm: str, strand: str, read_data: ReadData):
         self.reads_index[(chrm, strand)].append(read_data)
         self.coverage = None
+
+    def replace_index(self, new_reads_index):
+        if sum(len(x) for x in new_reads_index.values()) == 0:
+            raise TomboError("Cannot replace with an empty index.")
+        self.reads_index = defaultdict(list, new_reads_index)
+        self.coverage = None
+
+    def write_index_file(self, shard_suffix: str = ""):
+        """Write the pickle index of the one directory, in the reference's
+        record layout (reference: tombo/tombo_helper.py:1149-1185).
+        ``shard_suffix`` (``.host<i>``) names one host's shard of a
+        multi-host run; readers merge ``<index>.host*``."""
+        if len(self.fast5s_dirs) != 1:
+            raise ValueError("an index file is written for one directory")
+        basedir, index_fn = next(iter(self.fast5s_dirs.items()))
+        index_data = defaultdict(list)
+        for chrm_strand, cs_reads in self.reads_index.items():
+            for rd in cs_reads:
+                index_data[chrm_strand].append((
+                    re.sub(re.escape(basedir), "", rd.fn, 1), rd.start,
+                    rd.end, rd.read_start_rel_to_raw,
+                    rd.corr_group.split("/")[0],
+                    rd.corr_group.split("/")[-1], rd.filtered, rd.rna,
+                    rd.sig_match_score, rd.mean_q_score, rd.read_id))
+        with io.open(index_fn + shard_suffix, "wb") as fp:
+            pickle.dump(dict(index_data), fp, protocol=2)
 
     # ------------------------------------------------------------- parsing
     def _load_index_data(self, fast5s_dir: str, index_fn: str):
@@ -88,8 +133,10 @@ class ReadsIndex:
             for read_fn in f5io.iter_fast5_reads(d):
                 try:
                     with h5py.File(read_fn, "r") as fast5_data:
-                        for bc_subgrp in fast5_data["/Analyses/" +
-                                                    self.corr_grp]:
+                        subgrps = (
+                            list(fast5_data["/Analyses/" + self.corr_grp])
+                            if self.bc_subgrps is None else self.bc_subgrps)
+                        for bc_subgrp in subgrps:
                             corr = fast5_data["/Analyses/" + self.corr_grp +
                                               "/" + bc_subgrp]
                             if "Events" not in corr:
@@ -137,7 +184,9 @@ class ReadsIndex:
                     merged[cs].extend(
                         rd for rd in reads
                         if rd.corr_group.split("/")[0] == self.corr_grp and
-                        not rd.filtered)
+                        (self.bc_subgrps is None or
+                         rd.corr_group.split("/")[-1] in self.bc_subgrps)
+                        and not rd.filtered)
             if failed and not merged:
                 wo_index_dirs.append(d)
         if wo_index_dirs:

@@ -353,13 +353,20 @@ def trim_rna(all_raw_signal, rsqgl_params: ResquiggleParams,
 
 def map_read(seq_data: SequenceData, aligner, std_ref,
              seq_samp_type=SeqSampleType(config.DNA_SAMP_TYPE, False),
-             bc_subgrp="BaseCalled_template") -> ResquiggleResults:
+             bc_subgrp="BaseCalled_template",
+             seq_len_rng=None) -> ResquiggleResults:
     """Map basecalls and extract the k-mer-context-expanded genome
-    sequence (reference: tombo/resquiggle.py:1278 ``map_read``)."""
+    sequence (reference: tombo/resquiggle.py:1278 ``map_read``);
+    ``seq_len_rng`` (exclusive bounds) fails a read whose mapped span
+    lies outside it."""
     alignment = aligner.map(str(seq_data.seq))
     if alignment is None:
         raise TomboError("Alignment not produced")
     chrm, ref_start, ref_end = alignment.ctg, alignment.r_st, alignment.r_en
+    if not (seq_len_rng is None or
+            seq_len_rng[0] < ref_end - ref_start < seq_len_rng[1]):
+        raise TomboError(
+            "Mapped location not within --sequence-length-range")
     strand = "+" if alignment.strand == 1 else "-"
     num_ins = num_del = num_aligned = 0
     for op_len, op in alignment.cigar:

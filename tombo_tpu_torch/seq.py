@@ -29,8 +29,28 @@ for _i, _b in enumerate(BASES):
     _BASE_LUT[ord(_b.lower())] = _i
 
 
+_INVALID_BASES = re.compile("[^ACGT]")
+
+
 def rev_comp(seq: str) -> str:
     return seq.translate(_COMP)[::-1]
+
+
+def rev_transcribe(seq: str) -> str:
+    """RNA U -> DNA T (reference: tombo/tombo_helper.py:384-386)."""
+    return seq.replace("U", "T").replace("u", "t")
+
+
+def invalid_seq(seq: str) -> bool:
+    """True if the sequence holds a base other than A, C, G, T
+    (reference: tombo/tombo_helper.py:380-381)."""
+    return bool(_INVALID_BASES.search(seq))
+
+
+def get_mean_q_score(read_q: str, phred_base: int = 33) -> float:
+    """Mean basecall q-score of a FASTQ quality string (reference:
+    tombo/tombo_helper.py:368-373)."""
+    return float(np.mean([ord(c) - phred_base for c in read_q]))
 
 
 def encode_seq(seq: str) -> np.ndarray:

@@ -824,7 +824,8 @@ def test_significance(reads_index, params: TestParams, stats_fn: str,
                       per_read_bn: Optional[str] = None,
                       num_processes: int = 4, verbose: bool = False,
                       dist=None, device: DeviceLike = None, dtype=None,
-                      core: int = dev_lane.CORE_DEFAULT) -> str:
+                      core: int = dev_lane.CORE_DEFAULT,
+                      levels_sidecar: bool = True) -> str:
     """Test every covered region and write the statistics files
     (reference: tombo/tombo_stats.py:4574-4634 ``test_significance``):
     a ``ModelStats`` file (one a model for the alternative-model test,
@@ -834,7 +835,8 @@ def test_significance(reads_index, params: TestParams, stats_fn: str,
     region order, so the files do not depend on the worker count
     (reference guarantee: docs/modified_base_detection.rst:151-153).
     Levels loaded from FAST5 files are appended to their directory's
-    levels sidecar."""
+    levels sidecar; with ``levels_sidecar`` false no sidecar is read or
+    written."""
     stat_type = params.stat_type
     _check_ported(stat_type, dist)
     is_level = stat_type in LEVEL_STATS_TXTS
@@ -862,7 +864,7 @@ def test_significance(reads_index, params: TestParams, stats_fn: str,
                     _alt_stats_fn(per_read_bn, name), stat_type,
                     params.region_size)
                 pr_files[name].set_resolved_params(resolved)
-        with levels_cache.building():
+        with levels_cache.building(levels_sidecar):
             for name, stats, payload in iter_region_stats(
                     reads_index, params, fasta, std_ref, ctrl_reads_index,
                     device, dtype, core, num_processes, alt_refs,

@@ -15,9 +15,11 @@ region per run).
 * Readers index record offsets in one sequential scan and seek records on
   demand; a truncated tail (a crashed writer) is ignored, and the next
   builder truncates back to the last complete record.
-* Records are appended during a detection pass's cache misses, inside a
-  ``building()`` block (the data is in memory then); reading is always
-  on.
+* Records are appended by the re-squiggle writeback (``.w<i>`` shards,
+  one a writer) and during a detection pass's cache misses, inside a
+  ``building()`` block (the data is in memory then).  ``building(False)``
+  neither reads nor writes a sidecar during its block (the command
+  line's ``--skip-levels-cache``).
 """
 from __future__ import annotations
 
@@ -170,16 +172,23 @@ class LevelsCacheBuilder:
         self._lock = threading.Lock()
 
     def add(self, fn: str, group: str, read_id: str, mtime_ns: int,
-            size: int, means: np.ndarray, seq: str):
-        """Append one record unless its key is already present."""
+            size: int, means: np.ndarray, seq: str, replace: bool = False):
+        """Append one record unless its key is already present.
+        ``replace`` (re-squiggle writeback: the FAST5 was just rewritten)
+        appends all the same: the scanner keeps the last record of a key,
+        and the staleness check retires the old one."""
         key = (os.path.basename(fn), group)
         rec = _pack_record(key[0], group, read_id, mtime_ns, size,
                            means, seq)
         with self._lock:
-            if key in self._have:
+            if key in self._have and not replace:
                 return
             self._have.add(key)
             self._fp.write(rec)
+
+    def flush(self):
+        with self._lock:
+            self._fp.flush()
 
     def finalize(self):
         with self._lock:
@@ -196,11 +205,14 @@ _readers: Dict[Tuple[str, str], Optional[LevelsCache]] = {}
 _builders: Dict[Tuple[str, str], Optional[LevelsCacheBuilder]] = {}
 _reg_lock = threading.Lock()
 _building_active = False
+_skip_active = False
 
 
 def lookup(fn: str, corr_group: str, mtime_ns: int, size: int):
     """Serve one read's (means, seq, read_id) from the directory's
-    sidecar, or None (missing or stale)."""
+    sidecar, or None (missing or stale, or inside ``building(False)``)."""
+    if _skip_active:
+        return None
     dirpath = os.path.dirname(fn) or "."
     key = (dirpath, corr_group)
     with _reg_lock:
@@ -239,16 +251,21 @@ def record(fn: str, corr_group: str, read_id: str, mtime_ns: int,
 
 class building:
     """Context manager around a detection pass: cache misses append to
-    the sidecars, finalized (fsync + registry reset) on exit."""
+    the sidecars, finalized (fsync + registry reset) on exit.  With
+    ``use_sidecar`` false no sidecar is read or written in the block."""
+
+    def __init__(self, use_sidecar: bool = True):
+        self.use_sidecar = use_sidecar
 
     def __enter__(self):
-        global _building_active
-        _building_active = True
+        global _building_active, _skip_active
+        _building_active = self.use_sidecar
+        _skip_active = not self.use_sidecar
         return self
 
     def __exit__(self, *exc):
-        global _building_active
-        _building_active = False
+        global _building_active, _skip_active
+        _building_active = _skip_active = False
         with _reg_lock:
             builders, readers = dict(_builders), dict(_readers)
             _builders.clear()

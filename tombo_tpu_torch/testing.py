@@ -81,6 +81,26 @@ def simulate_read(
         read_start_rel_to_raw=pre_len)
 
 
+def mutate_seq(rng: np.random.Generator, seq: str,
+               err: float = 0.05) -> str:
+    """Nanopore-like basecall errors at total rate ``err``: half
+    substitutions, a quarter insertions, a quarter deletions."""
+    bases = "ACGT"
+    out = []
+    for c in seq:
+        r = rng.random()
+        if r < err * 0.5:
+            out.append(bases[int(rng.integers(0, 4))])
+        elif r < err * 0.75:
+            out.append(c)
+            out.append(bases[int(rng.integers(0, 4))])
+        elif r < err:
+            pass
+        else:
+            out.append(c)
+    return "".join(out)
+
+
 def insert_stall(rng: np.random.Generator, raw: np.ndarray, pos: int,
                  n_obs: int, noise_sd: float = 11.0) -> np.ndarray:
     """``raw`` with a pore stall before sample ``pos``: ``n_obs`` samples

@@ -54,6 +54,16 @@ class SequenceData:
 
 
 @dataclass
+class ChannelInfo:
+    """Reference: tombo/tombo_helper.py:288-298 ``channelInfo``."""
+    offset: float
+    range: float
+    digitisation: float
+    number: int = 0
+    sampling_rate: int = 4000
+
+
+@dataclass
 class DpResults:
     read_start_rel_to_raw: int
     segs: np.ndarray
