@@ -1,6 +1,7 @@
 """Card smoke run of the PyTorch/CUDA port (tombo_tpu_torch).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --plain-rows
 
 Needs one CUDA card and nvcc (CUDA_HOME, default /usr/local/cuda).  It
 builds the port's kernels from tombo_tpu_torch/csrc/ and drives four paths
@@ -40,6 +41,30 @@ the coverage allows), the density model of an alternative sample (3 x
 and the RNA 5-mer model with the RNA re-centring; site statistics,
 tabulated means, corrections and densities again on CPU copies.
 
+The multi-host phase, after the detection phases, runs detection over
+two hosts: the 1 kb path's and the level path's reads (index records and
+float32 device means) go to one .npz, and two processes spawned on the
+one card meet over gloo on 127.0.0.1 (NCCL refuses two ranks on one
+card).  Each registers every read's means on the card and runs de novo
+and the 5mC alternative model with per-read blocks on the 1 kb reads
+(each host its own reads, the counts merged by ``psum_hosts``), and
+model_sample_compare and KS on the level path (KS: each host its own
+regions) through ``iter_region_stats(..., dist=...)``.  Host 0's merged
+statistics are held against this process's one-host run on the same
+means (positions, coverage and fractions exactly, KS within
+``LEVEL_F32_ABS_TOL``), every host's statistics against host 0's, and
+the union of the hosts' per-read blocks, by read id, against the
+one-host blocks.  It prints each process's wall time, its time in
+``psum_hosts`` and the regions (KS) or reads it owned; a host that
+fails, outlives ``MULTIHOST_TIMEOUT`` (it is killed) or writes nothing
+fails the phase.
+
+Text output, the index filters and preprocess are host work on FAST5
+and HDF5 files, which need ``h5py``, which the card machine lacks; they
+run no device code, and the CPU tests hold them against the JAX package
+(tests/test_torch_text_output.py, test_torch_filters.py,
+test_torch_preprocess.py).
+
 The runner phase last drives the command line's path: the 1 kb and
 mixed reads, given basecalls with 8% errors, go through
 ``pipeline/runner.py::resquiggle_all_reads`` over an in-memory read
@@ -61,14 +86,29 @@ lane's reads against the 1-device lane's.  It prints per-phase wall
 times, a per-layer breakdown of one batch of each path, one JSON line of
 kernel summaries and a final status line.  Any failed phase exits
 non-zero without the status line.
+
+``--plain-rows`` runs none of this: it times, once each (host clock
+around a synchronised call, tens of seconds a call), the plain versions
+of the DP shapes whose plain time the default run leaves out, beside the
+kernels' CUDA-event times on the same synthetic inputs
+(:func:`synthetic_dp_args`): the chunked pair (K2 + K2') at the RNA
+widths, 4 reads at bw 500 (L 32,768) and at bw 1,500 (L 8,192), the
+fewest rows past the fused cap; and K3 over the chunked layout, 16
+reads of L 32,768 at bw 300 in two shards on one card, the plain pair
+run shard by shard.  One JSON line a shape, after the card line.
 """
 import contextlib
 import json
 import math
+import multiprocessing
+import os
+import pickle
 import re
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -125,6 +165,10 @@ CHUNKED_SLICE = 16             # reads of the captured long call held
 # simulated start, on the simulated strand
 RUNNER_SEED, RUNNER_ERR, RUNNER_BATCH = 97, 0.08, 64
 RUNNER_CPU_READS, RUNNER_START_TOL = 32, 10
+# the multi-host phase: this many processes on the one card, merged over
+# gloo on 127.0.0.1 (NCCL refuses two ranks on one card), each killed
+# past this many seconds
+MULTIHOST_HOSTS, MULTIHOST_TIMEOUT = 2, 300
 DEVICE = "cuda"
 
 
@@ -831,7 +875,7 @@ def extra_detection_run(label, index, params, fasta, model, ctrl, dev,
         (sdev.PackedRegionBatch, "read_streams", "per-read blocks"),
         (detect, "per_read_block", "per-read blocks"),
         (sdev, "alt_llhr", "alt_llhr dispatch"),
-        (detect, "apply_per_read_thresh", "per-site fractions"),
+        (detect, "site_accumulators", "per-site fractions"),
         (detect, "_group_device_tests", "level dispatch"),
         (detect, "_group_post", "windows to GroupStats"),
         (sdev.PackedRegionBatch, "unpack_region", "unpack to RegionStats"),
@@ -873,7 +917,8 @@ def detection_more_phase(dev, br, outs, outs_r, fasta_1kb, fasta_r, model,
     then ``alt_llhr``, the level tests and the packed dispatch with
     per-read p-values, each alone.  Runs after the detection phase (the
     CPU copies of the 1 kb and RNA paths are registered) and before the
-    mesh lane."""
+    mesh lane.  Returns the level path's (control index, sample index,
+    reference)."""
     from tombo_tpu_torch import config, kernels
     from tombo_tpu_torch.io.model_io import load_alt_refs
     from tombo_tpu_torch.stats import detect
@@ -1081,7 +1126,7 @@ def detection_more_phase(dev, br, outs, outs_r, fasta_1kb, fasta_r, model,
         "library_ms": None})
     for line in lines:
         print("detection function: %s" % json.dumps(line), flush=True)
-    return lines
+    return idx_ctrl, idx_samp, fasta_lv
 
 
 def est_thresholds(label, idx, fasta, up, dn, dev, motif=None):
@@ -1889,10 +1934,415 @@ def runner_phase(dev, model, params, sst, paths):
                                                             2 * sites))
     return total
 
+# ---------------------------------------------------------------------------
+# multi-host detection: processes on the one card, merged over gloo
+# ---------------------------------------------------------------------------
+
+def multihost_save(fn, groups, fastas, dev):
+    """One .npz of each group's reads (index record and float32 device
+    means, in the index's order) and each reference."""
+    from tombo_tpu_torch.stats import device_levels
+    arrs = {}
+    for g, idx in groups.items():
+        recs = [(c, s, r) for (c, s), reads in idx for r in reads]
+        means = []
+        for _, _, r in recs:
+            src, off = device_levels.lookup(r.read_id, r.end - r.start, dev)
+            means.append(src[off:off + r.end - r.start].float().cpu()
+                         .numpy())
+        arrs[g + "__chrm"] = np.array([c for c, _, _ in recs])
+        arrs[g + "__strand"] = np.array([s for _, s, _ in recs])
+        arrs[g + "__start"] = np.array([r.start for _, _, r in recs],
+                                       np.int64)
+        arrs[g + "__end"] = np.array([r.end for _, _, r in recs], np.int64)
+        arrs[g + "__read_id"] = np.array([r.read_id for _, _, r in recs])
+        arrs[g + "__means"] = np.concatenate(means)
+    for name, fa in fastas.items():
+        for i, chrm in enumerate(fa.iter_chrms()):
+            arrs["fasta__%s__%d" % (name, i)] = np.array([chrm,
+                                                          fa.get_seq(chrm)])
+    np.savez(fn, **arrs)
+
+
+def multihost_load(fn, dev, register):
+    """The groups' in-memory indexes and the references of
+    :func:`multihost_save`'s file; with ``register`` every read's means
+    registered on ``dev`` (one padded matrix a group)."""
+    from tombo_tpu_torch import config
+    from tombo_tpu_torch.io.fasta import Fasta
+    from tombo_tpu_torch.io.index import ReadsIndex
+    from tombo_tpu_torch.stats import device_levels
+    from tombo_tpu_torch.types import ReadData
+    data = np.load(fn)
+    groups, seqs = {}, {}
+    for key in data.files:
+        if key.startswith("fasta__"):
+            chrm, seq = data[key]
+            seqs.setdefault(key.split("__")[1], {})[str(chrm)] = str(seq)
+    for g in sorted({k.split("__")[0] for k in data.files
+                     if k.endswith("__means")}):
+        idx, entries, rows, off = ReadsIndex(), [], [], 0
+        means = data[g + "__means"]
+        for chrm, strand, start, end, rid in zip(
+                data[g + "__chrm"], data[g + "__strand"],
+                data[g + "__start"], data[g + "__end"],
+                data[g + "__read_id"]):
+            n = int(end - start)
+            idx.add_read_data(str(chrm), str(strand), ReadData(
+                int(start), int(end), False, 0, str(strand), "",
+                config.DEFAULT_CORRECTED_GROUP + "/" +
+                config.DEFAULT_BASECALL_SUBGROUP, False, read_id=str(rid)))
+            rows.append(means[off:off + n])
+            entries.append((str(rid), len(entries), n))
+            off += n
+        if register:
+            width = max(r.shape[0] for r in rows)
+            mat = np.zeros((len(rows), width), np.float32)
+            for i, r in enumerate(rows):
+                mat[i, :r.shape[0]] = r
+            device_levels.register_batch(torch.from_numpy(mat).to(dev),
+                                         entries)
+        groups[g] = idx
+    return groups, {k: Fasta(v) for k, v in seqs.items()}
+
+
+def multihost_models(runs):
+    """{run label: (canonical model or None, alternative models or None)}
+    of :func:`multihost_phase`'s table, loaded once before any timed
+    run."""
+    from tombo_tpu_torch.io.model_io import KmerModel, load_alt_refs
+    std_ref = KmerModel.load_default("DNA")
+    return {label: (std_ref if spec["fasta"] is not None else None,
+                    load_alt_refs(spec["alts"], "DNA") if spec["alts"]
+                    else None) for label, spec in runs}
+
+
+def multihost_run(spec, models, groups, fastas, dev, dist):
+    """One detection run of :func:`multihost_phase`'s table through
+    ``iter_region_stats`` with its preloaded ``models``; a list of its
+    (name, statistics, per-read block) tuples."""
+    from tombo_tpu_torch.stats import detect
+    std_ref, alt_refs = models
+    return list(detect.iter_region_stats(
+        groups[spec["samp"]], detect.TestParams(**spec["params"]),
+        fastas.get(spec["fasta"]), std_ref, groups.get(spec["ctrl"]),
+        device=dev, alt_refs=alt_refs, emit_per_read=spec["per_read"],
+        dist=dist))
+
+
+def timed_passes(fn, dev):
+    """``fn`` twice (the first pass warms the process's first calls):
+    the second pass's result and both passes' wall seconds."""
+    walls = []
+    for _ in range(2):
+        t = time.perf_counter()
+        res = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return res, walls
+
+
+def multihost_worker(rank, n_hosts, port, fn, runs, device, out_fn):
+    """One host of the phase (a spawned process): joins the gloo group,
+    registers the file's means on ``device``, loads the models, runs
+    every detection of ``runs`` with its ``DistContext`` twice
+    (:func:`timed_passes`) and pickles the second pass's results, each
+    pass's wall time and time in ``psum_hosts``, and the reads or
+    regions it owned to ``out_fn``."""
+    from tombo_tpu_torch.parallel import distributed
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    ctx = distributed.init_distributed("127.0.0.1:%d" % port, n_hosts,
+                                       rank)
+    groups, fastas = multihost_load(fn, dev, register=True)
+    models = multihost_models(runs)
+    out = {"rank": rank, "setup_s": time.perf_counter() - t0, "runs": {}}
+    psum = {"s": [], "calls": []}
+    real_psum = distributed.psum_hosts
+
+    def timed_psum(*args):
+        t = time.perf_counter()
+        try:
+            return real_psum(*args)
+        finally:
+            psum["s"][-1] += time.perf_counter() - t
+            psum["calls"][-1] += 1
+    distributed.psum_hosts = timed_psum
+    for label, spec in runs:
+        psum["s"], psum["calls"] = [], []
+
+        def one_pass():
+            psum["s"].append(0.0)
+            psum["calls"].append(0)
+            return multihost_run(spec, models[label], groups, fastas, dev,
+                                 ctx)
+        res, walls = timed_passes(one_pass, dev)
+        run = out["runs"][label] = {
+            "res": res, "wall_s": walls, "psum_s": psum["s"],
+            "psum_calls": psum["calls"]}
+        if spec["level"]:
+            # level statistics shard regions, the others reads
+            n_regs = sum(1 for _ in groups[spec["samp"]].iter_cov_regs(
+                1, spec["params"]["region_size"], groups[spec["ctrl"]]))
+            run.update(regions=n_regs, regions_owned=sum(
+                ctx.owns_region(i) for i in range(n_regs)))
+        else:
+            reads = list(groups[spec["samp"]].iter_reads())
+            run.update(reads=len(reads), reads_owned=sum(
+                ctx.owns_read(distributed.read_key(r)) for r in reads))
+    torch.distributed.destroy_process_group()
+    with open(out_fn, "wb") as fp:
+        pickle.dump(out, fp)
+
+
+def multihost_detection(fn, runs, device, n_hosts, tmp, timeout):
+    """:func:`multihost_worker` in ``n_hosts`` spawned processes; their
+    outputs in rank order.  A process that fails, outlives ``timeout``
+    seconds (it is killed) or writes nothing fails the phase; no process
+    outlives the call."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    out_fns = [os.path.join(tmp, "host%d.pkl" % r) for r in range(n_hosts)]
+    procs = [ctx.Process(target=multihost_worker, args=(
+        r, n_hosts, port, fn, runs, device, out_fns[r]))
+        for r in range(n_hosts)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout
+    try:
+        for r, p in enumerate(procs):
+            p.join(max(deadline - time.perf_counter(), 0))
+            if p.is_alive():
+                raise RuntimeError("multi-host: host %d ran past %d s"
+                                   % (r, timeout))
+            if p.exitcode != 0 or not os.path.exists(out_fns[r]):
+                raise RuntimeError("multi-host: host %d failed (exit code "
+                                   "%s)" % (r, p.exitcode))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    outs = []
+    for fn_r in out_fns:
+        with open(fn_r, "rb") as fp:
+            outs.append(pickle.load(fp))
+    return outs
+
+
+def _same(x, y) -> bool:
+    """Equal arrays, NaN equal to NaN."""
+    x, y = np.asarray(x), np.asarray(y)
+    if x.shape != y.shape:
+        return False
+    eq = x == y
+    if x.dtype.kind == "f":
+        eq |= np.isnan(x) & np.isnan(y)
+    return bool(eq.all())
+
+
+def _per_read_records(results):
+    """{(name, chrm, strand, start): sorted (pos, read id, stat)} of the
+    per-read blocks of a run's results."""
+    out = {}
+    for name, _, payload in results:
+        if payload is None:
+            continue
+        _, block, lookup, chrm, strand, start = payload
+        names = {v: k for k, v in lookup.items()}
+        out.setdefault((name, chrm, strand, start), []).extend(
+            (int(p), names[int(r)], float(st)) for p, st, r in zip(
+                block["pos"], block["stat"], block["read_id"]))
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def multihost_compare(hosts, single, level_tol):
+    """Host 0's merged statistics against the one-process run: regions,
+    positions and coverage exact; model fractions exact (they come from
+    the merged integer counts); level statistics within ``level_tol``
+    (and whether bitwise); every host's statistics bitwise host 0's; the
+    union of the hosts' per-read blocks, by read id, equal to the
+    one-process blocks.  Returns a summary, or raises."""
+    def key(results):
+        return [(n, s.chrm, s.strand, s.start) for n, s, _ in results]
+    merged = hosts[0]
+    if key(merged) != key(single):
+        raise RuntimeError("multi-host: the regions differ")
+    sites, max_abs, bitwise = 0, 0.0, True
+    for (_, a, _), (_, b, _) in zip(merged, single):
+        sites += a.reg_poss.shape[0]
+        ints = ["reg_poss", "reg_cov", "ctrl_cov"]
+        if hasattr(a, "valid_cov"):
+            ints.append("valid_cov")
+        for f in ints:
+            if not _same(getattr(a, f), getattr(b, f)):
+                raise RuntimeError("multi-host: %s differs in %s:%s:%d" % (
+                    f, a.chrm, a.strand, a.start))
+        x, y = ((a.reg_frac_standard_base, b.reg_frac_standard_base)
+                if hasattr(a, "valid_cov") else (a.reg_stats, b.reg_stats))
+        bitwise &= _same(x, y)
+        if not np.array_equal(np.isnan(x), np.isnan(y)):
+            raise RuntimeError("multi-host: NaN statistics differ")
+        d = np.abs(x - y)[~np.isnan(x)]
+        max_abs = max(max_abs, float(d.max()) if d.shape[0] else 0.0)
+    if max_abs > (level_tol if level_tol is not None else 0.0):
+        raise RuntimeError("multi-host: statistics differ by %g" % max_abs)
+    for h, res in enumerate(hosts[1:], 1):
+        if key(res) != key(merged) or not all(
+                _same(getattr(a, f), getattr(b, f))
+                for (_, a, _), (_, b, _) in zip(res, merged)
+                for f in vars(a) if isinstance(getattr(a, f), np.ndarray)):
+            raise RuntimeError("multi-host: host %d's statistics differ "
+                               "from host 0's" % h)
+    want = _per_read_records(single)
+    union = {}
+    for res in hosts:
+        for k, recs in _per_read_records(res).items():
+            union.setdefault(k, []).extend(recs)
+    if {k: sorted(v) for k, v in union.items()} != want:
+        raise RuntimeError("multi-host: the hosts' per-read blocks differ "
+                           "from the one-process blocks")
+    return {"regions": len(merged), "sites": sites,
+            "stats_bitwise": bitwise, "max_abs_diff": max_abs,
+            "per_read_entries": sum(len(v) for v in want.values())}
+
+
+def multihost_phase(dev, groups, fastas, runs, n_hosts=MULTIHOST_HOSTS,
+                    timeout=MULTIHOST_TIMEOUT):
+    """Multi-host detection on the card: the groups' reads and device
+    means written to one .npz, ``n_hosts`` spawned processes that each
+    register them on the card and run every detection of ``runs`` with
+    their ``DistContext`` (gloo on 127.0.0.1), against this process's
+    one-host run of the same means; every side loads its models before
+    any timed run and runs each detection twice (:func:`timed_passes`),
+    so both the hosts' and the one-process walls are warm second passes
+    without model loads.  ``runs``: (label, spec: params,
+    samp / ctrl / fasta group names, alternative models, per-read,
+    level statistic type or None).  Prints one line a run; returns the
+    summaries."""
+    from tombo_tpu_torch.stats import device_levels
+    summaries = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fn = os.path.join(tmp, "reads.npz")
+        multihost_save(fn, groups, fastas, dev)
+        own, own_fastas = multihost_load(fn, dev, register=False)
+        for g, idx in own.items():
+            if any(device_levels.lookup(r.read_id, r.end - r.start, dev)
+                   is None for r in idx.iter_reads()):
+                fail("multi-host: group %s has reads without means" % g)
+        t0 = time.perf_counter()
+        hosts = multihost_detection(fn, runs, dev.type, n_hosts, tmp,
+                                    timeout)
+        hosts_s = time.perf_counter() - t0
+        models = multihost_models(runs)
+        for label, spec in runs:
+            single, single_s = timed_passes(lambda: multihost_run(
+                spec, models[label], own, own_fastas, dev, None), dev)
+            lv = spec["level"]
+            try:
+                check = multihost_compare(
+                    [h["runs"][label]["res"] for h in hosts], single,
+                    LEVEL_F32_ABS_TOL[lv] if lv else None)
+            except RuntimeError as e:
+                fail("%s: %s" % (label, e))
+            check.update({
+                "one_process_s": single_s,
+                "hosts": [{k: v for k, v in h["runs"][label].items()
+                           if k != "res"} for h in hosts]})
+            summaries[label] = check
+            print("multi-host %s: %s" % (label, json.dumps(check)),
+                  flush=True)
+    print("multi-host: %d processes, %.1f s from spawn to the last result "
+          "(setup %s s)" % (n_hosts, hosts_s, ", ".join(
+              "%.1f" % h["setup_s"] for h in hosts)), flush=True)
+    return summaries
+
+
+def multihost_runs(level_min_reads=LEVEL_MIN_TEST_READS,
+                   region_size=None):
+    """The phase's table: de novo and the 5mC alternative model with
+    per-read blocks on the "1kb" group, model_sample_compare and KS
+    ("samp" against "ctrl", on the "level" reference)."""
+    from tombo_tpu_torch import config
+    rs = region_size or config.DEFAULT_REGION_SIZE
+
+    def spec(stat_type, thresh, samp, ctrl, fasta, alts, per_read,
+             min_reads=1):
+        th = thresh["DNA"] if thresh else (None, None)
+        return {"params": dict(
+            stat_type=stat_type, single_read_thresh=th[1],
+            lower_thresh=th[0], min_test_reads=min_reads,
+            fm_offset=config.FM_OFFSET_DEFAULT, region_size=rs),
+            "samp": samp, "ctrl": ctrl, "fasta": fasta, "alts": alts,
+            "per_read": per_read,
+            "level": stat_type if thresh is None else None}
+    return [
+        ("1 kb de novo, per-read", spec(
+            "de_novo", config.DE_NOVO_THRESH, "1kb", None, "1kb", None,
+            True)),
+        ("1 kb alt 5mC, per-read", spec(
+            "model_compare", config.LLR_THRESH, "1kb", None, "1kb",
+            ["5mC"], True)),
+        ("level model_sample_compare", spec(
+            "sample_compare", config.SAMP_COMP_THRESH, "samp", "ctrl",
+            "level", None, False)),
+        ("level ks", spec("ks", None, "samp", "ctrl", None, None, False,
+                          level_min_reads))]
+
+
+def host_ms(fn):
+    """Host-clock ms of one synchronised call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def plain_rows(smi, seed=0):
+    """``--plain-rows`` (see the module's docstring)."""
+    from tombo_tpu_torch import kernels
+    from tombo_tpu_torch.ops import banded_dp
+    from tombo_tpu_torch.parallel import mesh as pmesh
+    from tombo_tpu_torch.pipeline import batch as batch_mod
+    print("card: " + smi, flush=True)
+    kernels.build()
+    dev = torch.device(DEVICE)
+    pch = banded_dp.adaptive_banded_dp_tb_chunked_plain
+    k2 = banded_dp.adaptive_banded_dp_tb_chunked
+    for bw in (500, 1500):
+        L = batch_mod._pow2_bucket(banded_dp.PER_READ_MOVE_CAP // bw + 1, 256)
+        Lc = banded_dp.plan_dp_layout(L, bw)[1]
+        a = synthetic_dp_args(4, L, bw, seed + bw, dev)
+        print(json.dumps({
+            "shape": "chunked pair at an RNA width", "B": 4, "L": L,
+            "bw": bw, "Lc": Lc,
+            "plain_ms": host_ms(lambda: pch(*a, chunk_rows=Lc)),
+            "pair_ms": cuda_ms(lambda: k2(*a, chunk_rows=Lc), 3)}),
+            flush=True)
+    cards = pmesh.make_mesh()
+    mesh = cards if len(cards) > 1 else cards * 2
+    L, bw = 32768, 300
+    layout = banded_dp.plan_dp_layout(L, bw)
+    a = synthetic_dp_args(16, L, bw, seed, dev)
+    print(json.dumps({
+        "shape": "K3, chunked layout", "B": 16, "L": L, "bw": bw,
+        "Lc": layout[1], "shards": len(mesh),
+        "plain_ms": host_ms(lambda: [
+            pch(*sh, *a[9:], chunk_rows=layout[1])
+            for sh in pmesh.shard_batch(mesh, *a[:9])]),
+        "k3_ms": cuda_ms(lambda: banded_dp.adaptive_banded_dp_tb_sharded(
+            mesh, a[:9], *a[9:], layout), 3)}), flush=True)
+
 
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
+    if sys.argv[1:] not in ([], ["--plain-rows"]):
+        fail("usage: chip_smoke.py [--plain-rows]")
     from tombo_tpu_torch import config, kernels
     from tombo_tpu_torch.ops import banded_dp, rescale
     from tombo_tpu_torch.pipeline import batch as batch_mod
@@ -1903,6 +2353,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
+    if sys.argv[1:]:
+        return plain_rows(smi)
     print("card: " + smi)
     print("torch %s, CUDA %s, python %s" % (
         torch.__version__, torch.version.cuda, sys.version.split()[0]))
@@ -2482,10 +2934,23 @@ def main():
     # ---- phase 13c: the rest of detection, and the level path
     with phase("detection: alt, level, per-read"):
         t_det = time.perf_counter()
-        detection_more_phase(dev, br, outs, outs_r, fasta_1kb, fasta_r,
-                             model, model_r)
+        idx_lv_ctrl, idx_lv_samp, fasta_lv = detection_more_phase(
+            dev, br, outs, outs_r, fasta_1kb, fasta_r, model, model_r)
         print("detection: alt, level, per-read phase: %.1f s" % (
             time.perf_counter() - t_det))
+
+    # ---- phase 13c2: multi-host detection, two processes on the card
+    with phase("multi-host detection"):
+        t_mh = time.perf_counter()
+        print("card for the multi-host phase: " + smi)
+        idx_mh, _, _ = detection_index([r for o in outs for r in o], False,
+                                       dev)
+        multihost_phase(dev, {"1kb": idx_mh, "ctrl": idx_lv_ctrl,
+                              "samp": idx_lv_samp},
+                        {"1kb": fasta_1kb, "level": fasta_lv},
+                        multihost_runs())
+        print("multi-host detection phase: %.1f s" % (
+            time.perf_counter() - t_mh))
 
     # ---- phase 13d: model estimation from the paths' device means
     with phase("model estimation"):

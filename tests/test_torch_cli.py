@@ -9,10 +9,13 @@ commands run on directories re-squiggled by the JAX command line:
 statistics files with positions and coverage equal and at most
 max(1, n/10,000) differing entries, level statistics within the float32
 level bar, models within the float32 bar of the estimation tests, the
-scale equal.  Also --help, --version, --print-advanced-arguments, and
-exit code 1 with the device's error without ``--device cpu``."""
+scale equal.  ``detect_modifications de_novo`` in two gloo processes
+(``--num-hosts 2``) writes the one-host statistics file bit for bit.
+Also --help, --version, --print-advanced-arguments, and exit code 1 with
+the device's error without ``--device cpu``."""
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import textwrap
@@ -321,10 +324,10 @@ def test_estimate_scale_matches_jax(dirs, capsys):
 def test_help_version_and_advanced_arguments():
     out = _port_cli(["--help"])
     assert out.returncode == 0
-    for cmd in ("resquiggle", "detect_modifications", "build_model"):
+    for cmd in ("resquiggle", "preprocess", "filter",
+                "detect_modifications", "text_output", "build_model"):
         assert cmd in out.stdout
-    for gone in ("text_output", "filter", "plot", "preprocess"):
-        assert gone not in out.stdout
+    assert "plot" not in out.stdout
     out = _port_cli(["--version"])
     assert out.returncode == 0 and out.stdout.strip() == \
         "tombo-tpu-torch 0.1.0"
@@ -345,7 +348,43 @@ def test_no_card_exits_1_with_the_device_error(argv, capsys):
     assert "no CUDA device is available" in capsys.readouterr().err
 
 
-def test_multi_host_detection_is_refused(dirs, capsys):
-    assert t_cli.main(DETECT["de_novo"](dirs, "o") + [
-        "--device", "cpu", "--num-hosts", "2", "--host-id", "0"]) == 1
-    assert "Queue 1 item 2.4" in capsys.readouterr().err
+def test_two_host_detection_command_writes_the_one_host_file(dirs,
+                                                             tmp_path):
+    """``detect_modifications de_novo --num-hosts 2`` in two processes
+    that meet over gloo on 127.0.0.1: host 0 writes the statistics file
+    of the one-host command, bit for bit; each host writes the per-read
+    blocks of its own reads to ``<file>.host<i>``."""
+    one, two = str(tmp_path / "one"), str(tmp_path / "two")
+    assert t_cli.main(DETECT["de_novo"](dirs, one) +
+                      ["--device", "cpu", "--processes", "2"]) == 0
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tombo_tpu_torch"] +
+        DETECT["de_novo"](dirs, two) +
+        ["--device", "cpu", "--processes", "2", "--num-hosts", "2",
+         "--host-id", str(rank), "--coordinator-address",
+         "127.0.0.1:%d" % port], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(2)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=240)
+            assert p.returncode == 0, err
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    got = _stat_blocks(two + ".tombo.stats", ModelStats)
+    want = _stat_blocks(one + ".tombo.stats", ModelStats)
+    assert [b[:3] for b in got] == [b[:3] for b in want] and len(want) > 1
+    for (_, _, _, a), (_, _, _, b) in zip(got, want):
+        assert a.dtype == b.dtype
+        for name in a.dtype.names:
+            np.testing.assert_array_equal(a[name], b[name])
+    pr = two + ".tombo.per_read_stats"
+    assert not os.path.exists(pr)
+    assert all(os.path.exists("%s.host%d" % (pr, i)) for i in range(2))

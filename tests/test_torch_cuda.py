@@ -25,7 +25,8 @@ per-read blocks, a level test) from the card's device means matches
 the same code on the CPU, and so do ``alt_llhr`` and the level tests
 alone.  The model re-centring fit (DNA and RNA) on the card matches its
 float32 run on the CPU, and so does the re-squiggle runner over a memory
-source of mapped error-prone reads."""
+source of mapped error-prone reads.  Two processes on the card merge
+their detection over gloo into the one-process statistics."""
 import numpy as np
 import pytest
 import torch
@@ -505,6 +506,27 @@ def test_detection_on_card_matches_cpu(card):
                 a.reg_frac_standard_base, b.reg_frac_standard_base,
                 rtol=0, atol=0, equal_nan=True)))
         assert flips <= 1, (stat_type, flips)
+    device_levels.clear()
+
+
+def test_two_process_merge_on_card_matches_one_process(card, tmp_path):
+    """chip_smoke.py's multi-host phase at a smaller size: the eight
+    reads' device means in two spawned processes on the card that meet
+    over gloo; de novo and 5mC with per-read blocks, sample-compare and
+    KS (the reads their own control) merged by host 0 equal this
+    process's one-host run (model statistics exactly, KS within the
+    float32 level bar), and the hosts' per-read blocks are the one-host
+    blocks."""
+    import chip_smoke
+    from tombo_tpu_torch.stats import device_levels
+    index, fasta, _ = _card_detection_index(card)
+    out = chip_smoke.multihost_phase(
+        card, {"1kb": index, "ctrl": index, "samp": index},
+        {"1kb": fasta, "level": fasta},
+        chip_smoke.multihost_runs(level_min_reads=2, region_size=2000),
+        timeout=240)
+    assert len(out) == 4 and all(v["sites"] > 0 for v in out.values())
+    assert out["1 kb de novo, per-read"]["per_read_entries"] > 1000
     device_levels.clear()
 
 

@@ -584,7 +584,7 @@ def test_failed_read_leaves_no_device_means():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(dist=type("D", (), {"n_hosts": 2})()), "more than one host")])
+    (dict(stat_type="bogus"), "unknown statistic type")])
 def test_unported_options_raise(kw, item, tmp_path):
     p = t_dt.TestParams(stat_type=kw.pop("stat_type", "de_novo"),
                         single_read_thresh=0.5, lower_thresh=0.15)

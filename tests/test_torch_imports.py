@@ -38,6 +38,8 @@ PORT_MODULES = [
     "tombo_tpu_torch.filters", "tombo_tpu_torch.pipeline.ingest",
     "tombo_tpu_torch.pipeline.runner", "tombo_tpu_torch.cli",
     "tombo_tpu_torch.cli.main", "tombo_tpu_torch.__main__",
+    "tombo_tpu_torch.output", "tombo_tpu_torch.output.text",
+    "tombo_tpu_torch.preprocess",
 ]
 
 
@@ -87,6 +89,22 @@ def test_port_imports_no_h5py():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "False"
+
+
+def test_port_source_imports_h5py_only_inside_functions():
+    """No module of the port imports h5py at its top level (the JAX
+    package's text output, filters and preprocess modules do)."""
+    top = re.compile(r"^(from|import)\s+h5py\b")
+    hits = []
+    for root, _, fns in os.walk(os.path.join(ROOT, "tombo_tpu_torch")):
+        for fn in fns:
+            if fn.endswith(".py"):
+                path = os.path.join(root, fn)
+                hits += [(path, ln) for ln in open(path) if top.match(ln)]
+    assert not hits
+    nested = [os.path.join(ROOT, "tombo_tpu_torch", *p) for p in (
+        ("output", "text.py"), ("filters.py",), ("preprocess.py",))]
+    assert all("    import h5py\n" in open(p).read() for p in nested)
 
 
 def test_detection_runs_without_h5py():

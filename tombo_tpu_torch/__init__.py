@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of tombo_tpu's batched re-squiggle: DNA and direct
 RNA (t-test segmentation, stall removal, event-based scale), with the
 constant-scale and skip-sequence-scaling options, on one card or over a
-reads mesh; and of de novo and model-sample-compare detection
-(``stats/``), fed by the event means re-squiggle leaves on the device.
+reads mesh; of modified-base detection on one host or several and of
+model estimation (``stats/``), fed by the event means re-squiggle leaves
+on the device; and of the command line with its host-only commands
+(``output/``, ``filters.py``, ``preprocess.py``).
 
 A package of its own beside ``tombo_tpu``: it imports torch, numpy and
 the standard library (``h5py`` only inside the functions that open an

@@ -3,14 +3,21 @@
 
 The same command tree and option names as the JAX package's (reference:
 tombo/__main__.py:22-147, tombo/_option_parsers.py) for the commands the
-port has: ``resquiggle``, ``detect_modifications`` (``de_novo``,
-``alternative_model``, ``model_sample_compare``, ``level_sample_compare``,
-``aggregate_per_read_stats``) and ``build_model`` (``estimate_reference``,
+port has: ``resquiggle``, ``preprocess annotate_raw_with_fastqs``,
+``filter`` (``clear_filters``, ``genome_locations``,
+``raw_signal_matching``, ``q_score``, ``level_coverage``, ``stuck``),
+``detect_modifications`` (``de_novo``, ``alternative_model``,
+``model_sample_compare``, ``level_sample_compare``,
+``aggregate_per_read_stats``), ``text_output`` (``browser_files``,
+``signif_sequence_context``) and ``build_model`` (``estimate_reference``,
 ``estimate_alt_reference``, ``estimate_motif_alt_reference``,
-``estimate_scale``).  Every command takes ``--device`` (default
-``cuda``): without a card a command fails unless ``--device cpu`` is
-given.  A per-read-run error or a missing card ends the command with exit
-code 1 and its message.
+``estimate_scale``).  The commands that run batched work take
+``--device`` (default ``cuda``): without a card such a command fails
+unless ``--device cpu`` is given; ``preprocess``, ``filter`` and
+``text_output`` are host only.  ``resquiggle`` and the detection tests
+run over several hosts with ``--num-hosts``, ``--host-id`` and
+``--coordinator-address`` (gloo).  A run error or a missing card ends
+the command with exit code 1 and its message.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ def _add_fast5_dirs_arg(p):
                    nargs="+", help="Directories containing FAST5 files.")
 
 
-def _add_common(p):
+def _add_common(p, device: bool = True):
     p.add_argument("--corrected-group",
                    default=config.DEFAULT_CORRECTED_GROUP,
                    help="FAST5 group created by resquiggle. Default: "
@@ -53,7 +60,8 @@ def _add_common(p):
                         "run batched on the device). Default: "
                         "%(default)d")
     p.add_argument("--quiet", "-q", action="store_true")
-    _add_device(p)
+    if device:
+        _add_device(p)
 
 
 def _add_device(p):
@@ -293,6 +301,127 @@ def _add_resquiggle_parser(subparsers):
     p.set_defaults(func=_resquiggle_main, _parser=p)
 
 
+# ------------------------------------------------------------- preprocess
+
+def _annotate_fastqs_main(args):
+    from ..preprocess import annotate_reads_with_fastq
+    total_ann = total_miss = 0
+    for fast5s_dir in args.fast5_basedir:
+        n_ann, n_miss = annotate_reads_with_fastq(
+            fast5s_dir, args.fastq_filenames,
+            args.sequencing_summary_filenames, args.basecall_group,
+            args.basecall_subgroup, args.overwrite, args.processes)
+        total_ann += n_ann
+        total_miss += n_miss
+    if not args.quiet:
+        print("Annotated %d reads (%d FASTQ records unmatched)" %
+              (total_ann, total_miss))
+    return 0
+
+
+def _add_preprocess_parsers(subparsers):
+    grp = subparsers.add_parser(
+        "preprocess", help="Pre-process nanopore reads for processing.")
+    sub = grp.add_subparsers(dest="subcommand", required=True)
+    p = sub.add_parser("annotate_raw_with_fastqs",
+                       help="Add basecalled sequence from FASTQs to raw "
+                            "FAST5s.")
+    p.add_argument("--fast5-basedir", dest="fast5_basedir", nargs="+",
+                   required=True)
+    p.add_argument("--fastq-filenames", nargs="+", required=True)
+    p.add_argument("--sequencing-summary-filenames", nargs="+")
+    p.add_argument("--basecall-group", default="Basecall_1D_000")
+    p.add_argument("--basecall-subgroup", default="BaseCalled_template")
+    p.add_argument("--overwrite", action="store_true")
+    p.add_argument("--processes", type=int, default=4)
+    p.add_argument("--quiet", "-q", action="store_true")
+    p.set_defaults(func=_annotate_fastqs_main)
+
+
+# ----------------------------------------------------------------- filter
+
+def _add_filter_parsers(subparsers):
+    from .. import filters as filt
+
+    grp = subparsers.add_parser(
+        "filter", help="Apply filter to Tombo index file.")
+    sub = grp.add_subparsers(dest="subcommand", required=True)
+
+    def add(name, help_text, fn, extra=None):
+        p = sub.add_parser(name, help=help_text)
+        _add_fast5_dirs_arg(p)
+        _add_common(p, device=False)
+        if extra:
+            extra(p)
+        p.set_defaults(func=fn)
+
+    def _clear(args):
+        for d in args.fast5_basedirs:
+            filt.clear_filters(d, args.corrected_group)
+        return 0
+    add("clear_filters", "Clear filters.", _clear)
+
+    def _gloc(args):
+        try:
+            regs = filt.parse_genome_regions(args.include_regions)
+        except ValueError:
+            raise TomboError("Invalid --include-regions: use chrm or "
+                             "chrm:start-end")
+        for d in args.fast5_basedirs:
+            filt.filter_reads_for_genome_pos(
+                d, args.corrected_group, regs, args.include_partial_overlap,
+                args.quiet)
+        return 0
+    add("genome_locations", "Filter reads by mapping location.", _gloc,
+        lambda p: (p.add_argument("--include-regions", nargs="+",
+                                  required=True),
+                   p.add_argument("--include-partial-overlap",
+                                  action="store_true")))
+
+    def _sigmatch(args):
+        for d in args.fast5_basedirs:
+            filt.filter_reads_for_signal_matching(
+                d, args.corrected_group, args.signal_matching_score,
+                args.quiet)
+        return 0
+    add("raw_signal_matching", "Filter by signal matching score.",
+        _sigmatch,
+        lambda p: p.add_argument("--signal-matching-score", type=float,
+                                 required=True))
+
+    def _qscore(args):
+        for d in args.fast5_basedirs:
+            filt.filter_reads_for_qscore(
+                d, args.basecall_group, args.corrected_group,
+                args.q_score, args.quiet)
+        return 0
+    add("q_score", "Filter by mean q-score.", _qscore,
+        lambda p: (p.add_argument("--q-score", type=float, required=True),
+                   p.add_argument("--basecall-group",
+                                  default=config.DEFAULT_BASECALL_GROUP)))
+
+    def _cov(args):
+        for d in args.fast5_basedirs:
+            filt.filter_reads_for_coverage(
+                d, args.corrected_group, args.percent_to_filter / 100.0,
+                args.quiet)
+        return 0
+    add("level_coverage", "Filter reads for more even coverage.", _cov,
+        lambda p: p.add_argument("--percent-to-filter", type=float,
+                                 default=10.0))
+
+    def _stuck(args):
+        obs = filt.parse_obs_filter(args.obs_per_base_filter)
+        for d in args.fast5_basedirs:
+            filt.filter_reads_for_stuck(d, args.corrected_group, obs,
+                                        args.quiet)
+        return 0
+    add("stuck", 'Filter reads with more "stuck" bases.', _stuck,
+        lambda p: p.add_argument("--obs-per-base-filter", nargs="+",
+                                 required=True,
+                                 help="pctl:thresh pairs, e.g. 99:200"))
+
+
 # ------------------------------------------------- detect_modifications
 
 def _add_detect_parsers(subparsers):
@@ -368,7 +497,7 @@ def _add_detect_parsers(subparsers):
     def run(args, idx, params, **kw):
         dt.test_significance(
             idx, params, stats_fn_of(args), num_processes=args.processes,
-            device=args.device,
+            device=args.device, dist=_dist_from_args(args),
             levels_sidecar=not getattr(args, "skip_levels_cache", False),
             **kw)
         return 0
@@ -506,6 +635,57 @@ def _add_detect_parsers(subparsers):
     p.add_argument("--quiet", "-q", action="store_true")
     _add_device(p)
     p.set_defaults(func=_aggregate)
+
+
+# ------------------------------------------------------------ text_output
+
+def _add_text_output_parsers(subparsers):
+    from ..output import text as txt
+
+    grp = subparsers.add_parser(
+        "text_output", help="Output results in text files.")
+    sub = grp.add_subparsers(dest="subcommand", required=True)
+
+    def _browser(args):
+        from ..io.fasta import Fasta
+        txt.write_all_browser_files(
+            _reads_index(args.fast5_basedirs, args)
+            if args.fast5_basedirs else None,
+            _reads_index(args.control_fast5_basedirs, args)
+            if args.control_fast5_basedirs else None,
+            args.statistics_filename, args.browser_file_basename,
+            args.file_types, args.motif_descriptions,
+            Fasta.read(args.genome_fasta) if args.genome_fasta else None)
+        return 0
+    p = sub.add_parser("browser_files",
+                       help="Write wiggle/bedGraph browser files.")
+    p.add_argument("--fast5-basedirs", nargs="+")
+    p.add_argument("--control-fast5-basedirs", nargs="+")
+    p.add_argument("--statistics-filename")
+    p.add_argument("--browser-file-basename", default="tombo_results")
+    p.add_argument("--file-types", nargs="+", default=["coverage"],
+                   choices=list(txt.ALL_WIG_TYPES))
+    p.add_argument("--motif-descriptions", nargs="+")
+    p.add_argument("--genome-fasta")
+    _add_common(p, device=False)
+    p.set_defaults(func=_browser)
+
+    def _signif_seq(args):
+        from ..io.fasta import Fasta
+        txt.write_most_signif(
+            args.statistics_filename, args.sequences_filename,
+            args.num_regions, args.num_bases, Fasta.read(args.genome_fasta))
+        return 0
+    p = sub.add_parser("signif_sequence_context",
+                       help="FASTA around most modified sites.")
+    p.add_argument("--statistics-filename", required=True)
+    p.add_argument("--genome-fasta", required=True)
+    p.add_argument("--sequences-filename",
+                   default="tombo_results.significant_regions.fasta")
+    p.add_argument("--num-regions", type=int, default=100)
+    p.add_argument("--num-bases", type=int, default=21)
+    p.add_argument("--quiet", "-q", action="store_true")
+    p.set_defaults(func=_signif_seq)
 
 
 # ------------------------------------------------------------ build_model
@@ -662,7 +842,10 @@ def build_parser() -> argparse.ArgumentParser:
                         version="tombo-tpu-torch " + VERSION)
     subparsers = parser.add_subparsers(dest="command", required=True)
     _add_resquiggle_parser(subparsers)
+    _add_preprocess_parsers(subparsers)
+    _add_filter_parsers(subparsers)
     _add_detect_parsers(subparsers)
+    _add_text_output_parsers(subparsers)
     _add_build_model_parsers(subparsers)
     return parser
 
@@ -687,16 +870,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                 "Must provide FAST5 base directories (--fast5-basedirs)")
     from ..device import resolve_device
     try:
-        if not getattr(args, "print_advanced_arguments", False):
+        if hasattr(args, "device") and \
+                not getattr(args, "print_advanced_arguments", False):
             resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
         return _error(str(e))
     try:
-        if args.command == "detect_modifications" and \
-                getattr(args, "num_hosts", 1) > 1:
-            raise TomboError(
-                "detect_modifications over more than one host is not "
-                "ported yet (ROADMAP.md, Queue 1 item 2.4)")
         return args.func(args)
     except TomboError as e:
         return _error(str(e))

@@ -332,3 +332,23 @@ def clear_locks(lock_fns: List[str]):
                 os.remove(fn)
         except OSError:
             pass
+
+
+# ------------------------------------------------------------- basecalls
+
+def write_fastq(fast5_fn: str, record: str, bc_grp: str, bc_subgrp: str,
+                overwrite: bool) -> bool:
+    """Store a FASTQ record as ``/Analyses/<bc_grp>/<bc_subgrp>/Fastq``
+    (a variable-length string, as basecallers write it; reference:
+    tombo/_preprocess.py:253-290).  False, and the file unchanged, where
+    the slot exists and ``overwrite`` is off."""
+    import h5py
+    slot = "/Analyses/" + bc_grp + "/" + bc_subgrp
+    with h5py.File(fast5_fn, "r+") as fp:
+        if slot + "/Fastq" in fp:
+            if not overwrite:
+                return False
+            del fp[slot + "/Fastq"]
+        fp.require_group(slot).create_dataset(
+            "Fastq", data=record, dtype=h5py.special_dtype(vlen=str))
+    return True

@@ -1,5 +1,5 @@
 """Reads index: per-(chrm, strand) read records with coverage queries
-(subset copy of ``tombo_tpu/io/index.py:33-315``).
+(copy of ``tombo_tpu/io/index.py:33-315``).
 
 It reads and writes the hidden pickle index
 ``.<dir>.<corr_grp>.tombo.index`` of a re-squiggle run (the reference's
@@ -35,20 +35,22 @@ def get_index_fn(fast5s_dir: str, corr_grp: str) -> str:
 
 class ReadsIndex:
     """Per-(chrm, strand) lists of :class:`ReadData` with lazy coverage;
-    filtered reads are left out.  With no directories it starts empty,
-    for ``add_read_data``."""
+    filtered reads are left out unless asked for.  With no directories it
+    starts empty, for ``add_read_data``."""
 
     def __init__(self, fast5s_basedirs: Optional[List[str]] = None,
                  corrected_group: str = DEFAULT_CORRECTED_GROUP,
                  basecall_subgroups: Optional[List[str]] = None,
-                 for_writing: bool = False):
+                 for_writing: bool = False, remove_filtered: bool = True):
         """``basecall_subgroups``: keep only reads of these subgroups.
         ``for_writing``: start empty for one directory (given alone),
         whose old index file is removed; ``write_index_file`` writes the
-        new one."""
+        new one.  ``remove_filtered`` false keeps the reads the filters
+        marked (the filters read and rewrite every record)."""
         self.fast5s_dirs: Dict[str, str] = {}
         self.corr_grp = corrected_group
         self.bc_subgrps = basecall_subgroups
+        self.remove_filtered = remove_filtered
         self.coverage: Optional[Dict[Tuple[str, str], np.ndarray]] = None
         self.reads_index: Dict[Tuple[str, str], List[ReadData]] = \
             defaultdict(list)
@@ -186,7 +188,7 @@ class ReadsIndex:
                         if rd.corr_group.split("/")[0] == self.corr_grp and
                         (self.bc_subgrps is None or
                          rd.corr_group.split("/")[-1] in self.bc_subgrps)
-                        and not rd.filtered)
+                        and not (self.remove_filtered and rd.filtered))
             if failed and not merged:
                 wo_index_dirs.append(d)
         if wo_index_dirs:
@@ -260,9 +262,48 @@ class ReadsIndex:
                         curr_reg_start = reg_start
 
     # ------------------------------------------------------------- queries
+    def get_all_cs(self) -> List[Tuple[str, str]]:
+        return list(self.reads_index.keys())
+
+    def is_empty(self) -> bool:
+        return all(len(v) == 0 for v in self.reads_index.values())
+
+    def __contains__(self, chrm_strand) -> bool:
+        return chrm_strand in self.reads_index
+
+    def __iter__(self):
+        return iter(self.reads_index.items())
+
     def iter_reads(self) -> Iterator[ReadData]:
         for cs_reads in self.reads_index.values():
             yield from cs_reads
 
     def get_cs_reads(self, chrm: str, strand: str, invalid_return=()):
         return self.reads_index.get((chrm, strand), list(invalid_return))
+
+    def _strand_cov(self, chrm, pos, strand, invalid_return):
+        cov = self.coverage.get((chrm, strand))
+        if cov is None or pos >= cov.shape[0]:
+            return invalid_return
+        return int(cov[pos])
+
+    def get_coverage(self, chrm: str, pos: int, strand: Optional[str] = None,
+                     invalid_return=0):
+        """Reads covering ``pos`` on ``strand``, or the larger strand's
+        count with no strand."""
+        if self.coverage is None:
+            self._compute_coverage()
+        if strand is None:
+            return max(self._strand_cov(chrm, pos, "+", invalid_return),
+                       self._strand_cov(chrm, pos, "-", invalid_return))
+        return self._strand_cov(chrm, pos, strand, invalid_return)
+
+    def get_cs_coverage(self, chrm: str, strand: str, invalid_return=None):
+        if self.coverage is None:
+            self._compute_coverage()
+        return self.coverage.get((chrm, strand), invalid_return)
+
+    def iter_cs_coverage(self):
+        if self.coverage is None:
+            self._compute_coverage()
+        return self.coverage.items()

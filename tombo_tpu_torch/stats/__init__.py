@@ -1,3 +1,4 @@
-"""Modified-base detection on one host: the per-read tests, the
-alternative-model test, the level tests and per-read statistics through
-the device lane (``detect.iter_region_stats``)."""
+"""Modified-base detection on one host or several: the per-read tests,
+the alternative-model test, the level tests and per-read statistics
+through the device lane (``detect.iter_region_stats``); model
+estimation."""

@@ -1,7 +1,8 @@
-"""Modified-base detection on one host: the de novo, model-sample-compare
-and alternative-model per-read tests, the group level tests (KS, U, t)
-and per-read statistics, through the device lane (counterpart of
-``tombo_tpu/stats/detect.py:55-1147, 1194-1544, 1604-1613``).
+"""Modified-base detection on one host or several: the de novo,
+model-sample-compare and alternative-model per-read tests, the group
+level tests (KS, U, t) and per-read statistics, through the device lane
+(counterpart of ``tombo_tpu/stats/detect.py:55-1147, 1194-1544,
+1604-1613``).
 
 :func:`iter_region_stats` is the region loop of the JAX
 ``test_significance`` with the writers lifted out: it chunks the covered
@@ -11,8 +12,15 @@ opening no file of its own (the card path reads its levels from the
 device-resident means of re-squiggle).  :func:`test_significance`
 consumes it and writes the statistics files.
 
-Detection over more than one host is not ported and is refused with a
-:class:`TomboError` (``ROADMAP.md``, Queue 1).
+Over several hosts (a ``parallel/distributed.py::DistContext``), model
+statistics shard reads: each host runs only the reads it owns through the
+same lane, keeps each region's dense (coverage, valid coverage, above)
+counts before they become ``RegionStats``, and ``psum_hosts`` sums a
+chunk's counts over the hosts in one gather.  Level statistics shard
+regions: the owning host tests a region with all its reads, the others
+add zeros.  Chunks are cut from the full index, which every host holds,
+and merged on the calling thread in region order, so every host runs the
+same collectives and ends with the same statistics as one host.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from .. import config
 from ..device import DeviceLike, resolve_device, resolve_dtype
 from ..errors import TomboError
 from ..io.model_io import AltModel, KmerModel
+from ..parallel import distributed
 from ..seq import encode_seq, rev_comp, seq_to_kmer_codes
 from ..types import GroupStats, RegionStats
 from . import device as dev_lane
@@ -64,9 +73,7 @@ class TestParams:
     cov_damp_counts: Tuple[float, float] = config.COV_DAMP_COUNTS
 
 
-def _check_ported(stat_type: str, dist=None):
-    if dist is not None and dist.n_hosts > 1:
-        raise TomboError("detection over more than one host is not ported")
+def _check_stat_type(stat_type: str):
     if stat_type not in PER_READ_STATS + LEVEL_STATS_TXTS:
         raise TomboError("unknown statistic type %r" % stat_type)
 
@@ -168,31 +175,43 @@ def apply_per_read_thresh(stats: np.ndarray, poss: np.ndarray, chrm: str,
                           stat_type: str) -> Optional[RegionStats]:
     """A region's per-site fractions from its per-read statistics (the
     JAX per-site lists of ``detect.py:402``, in array form; NaN
-    statistics left out, None when none is left): at each position the
-    fraction at or above ``single_read_thresh`` among the valid
-    statistics, NaN with none valid.  Valid: at or below ``lower_thresh``
-    or at or above the threshold when there is a lower threshold, |stat|
-    at or above it for the alternative-model test, every statistic
-    otherwise."""
+    statistics left out, None when none is left): the
+    :func:`site_accumulators` of the span the positions cover, unpacked
+    by :func:`region_stats_from_accumulators`."""
     keep = ~np.isnan(stats)
     if not keep.any():
         return None
-    stats = stats[keep]
-    us, inv = np.unique(poss[keep], return_inverse=True)
-    n = us.shape[0]
+    lo, hi = int(poss[keep].min()), int(poss[keep].max())
+    return region_stats_from_accumulators(
+        chrm, strand, start, lo, *site_accumulators(
+            stats, poss, lo, hi - lo + 1, single_read_thresh, lower_thresh,
+            stat_type), None, stat_type)
+
+
+def site_accumulators(stats: np.ndarray, poss: np.ndarray, span_lo: int,
+                      span_n: int, single_read_thresh: float,
+                      lower_thresh: Optional[float], stat_type: str):
+    """Dense (coverage, valid coverage, above-threshold) counts over a
+    span from per-read statistics at genome positions, NaN left out;
+    they add across hosts (counterpart of
+    ``tombo_tpu/stats/detect.py:477``).  Above: at or above
+    ``single_read_thresh``.  Valid: at or below ``lower_thresh`` or above
+    when there is a lower threshold, |stat| at or above the threshold for
+    the alternative-model test, every statistic otherwise."""
+    keep = ~np.isnan(stats)
+    stats, rel = stats[keep], poss[keep] - span_lo
+    if rel.shape[0] and (rel.min() < 0 or rel.max() >= span_n):
+        raise TomboError("Per-read statistic position outside accumulator "
+                         "span")
     if lower_thresh is not None:
         is_valid = (stats <= lower_thresh) | (stats >= single_read_thresh)
     elif stat_type == ALT_MODEL_TXT:
         is_valid = np.abs(stats) >= single_read_thresh
     else:
         is_valid = np.ones(stats.shape[0], bool)
-    cov = np.bincount(inv, minlength=n)
-    valid = np.bincount(inv[is_valid], minlength=n)
-    above = np.bincount(inv[stats >= single_read_thresh], minlength=n)
-    with np.errstate(invalid="ignore", divide="ignore"):
-        frac = np.where(valid > 0, above / np.maximum(valid, 1), np.nan)
-    return RegionStats(frac, us, chrm, strand, start, cov,
-                       np.zeros(n, np.int64), valid)
+    return (np.bincount(rel, minlength=span_n),
+            np.bincount(rel[is_valid], minlength=span_n),
+            np.bincount(rel[stats >= single_read_thresh], minlength=span_n))
 
 
 def per_read_block(stats_l, locs_l, read_ids, reg_data: RegionData,
@@ -235,11 +254,13 @@ def _accum_span(reg_data: RegionData, params: TestParams):
         2 * margin
 
 
-def region_stats_from_accumulators(reg_data: RegionData, span_lo: int,
-                                   cov, valid, above, ctrl_cov_dense,
+def region_stats_from_accumulators(chrm: str, strand: str, start: int,
+                                   span_lo: int, cov, valid, above,
+                                   ctrl_cov_dense,
                                    stat_type) -> Optional[RegionStats]:
-    """A region's ``RegionStats`` from its dense (coverage, valid
-    coverage, above-threshold) accumulators; None with no covered site."""
+    """The ``RegionStats`` of the region at (chrm, strand, start) from its
+    dense (coverage, valid coverage, above-threshold) accumulators over a
+    span from ``span_lo``; None with no covered site."""
     poss = np.where(cov > 0)[0]
     if poss.shape[0] == 0:
         return None
@@ -251,9 +272,8 @@ def region_stats_from_accumulators(reg_data: RegionData, span_lo: int,
         out_ctrl = ctrl_cov_dense[poss]
     else:
         out_ctrl = np.zeros(poss.shape[0], np.int64)
-    return RegionStats(frac_std, poss + span_lo, reg_data.chrm,
-                       reg_data.strand, reg_data.start, cov[poss],
-                       np.asarray(out_ctrl), valid[poss])
+    return RegionStats(frac_std, poss + span_lo, chrm, strand, start,
+                       cov[poss], np.asarray(out_ctrl), valid[poss])
 
 
 def _span_exp_codes(reg_data: RegionData, fasta, std_ref: KmerModel,
@@ -274,8 +294,9 @@ def _device_region_job(reg_data: RegionData, params: TestParams,
                        std_ref: Optional[KmerModel],
                        device: Optional[torch.device] = None):
     """One region's packed-lane inputs (expected levels or k-mer codes,
-    read levels, clipping bounds); raises TomboError where the host lane
-    skips the region."""
+    read levels, clipping bounds).  A region whose reads give no levels
+    keeps its job, which adds zero counts (a host of a multi-host run
+    owns no read of some regions)."""
     span_lo, span_n = _accum_span(reg_data, params)
     fm = params.fm_offset
     ctrl_cov_dense = ref_means = ref_sds = ref_codes = None
@@ -308,8 +329,6 @@ def _device_region_job(reg_data: RegionData, params: TestParams,
         raise ValueError("the packed lane runs de_novo and sample_compare "
                          "only, not %r" % params.stat_type)
     levels = reg_data.load_levels_packed(device)
-    if not levels:
-        raise TomboError("Reads contain no statistics in this region.")
     return dict(reg=reg_data, span_lo=span_lo, span_n=span_n,
                 ref_means=ref_means, ref_sds=ref_sds, ref_codes=ref_codes,
                 table=((std_ref.means, std_ref.sds)
@@ -319,16 +338,16 @@ def _device_region_job(reg_data: RegionData, params: TestParams,
                 clamp_after=clamp_after, ctrl_cov_dense=ctrl_cov_dense)
 
 
-def compute_reg_stats_device_batch(jobs, params: TestParams,
-                                   core: int = dev_lane.CORE_DEFAULT,
-                                   device: DeviceLike = None, dtype=None,
-                                   emit_per_read: bool = False):
-    """Many prepared region jobs (None: a skipped region) through one
-    packed pass; returns one list per job, [(stat_type, RegionStats,
-    per-read block or None)] or [] (the shape of the JAX
-    ``compute_reg_stats`` output).  With ``emit_per_read`` the p-values
-    come back from the same dispatches, in the lane's dtype, and each
-    region gets its per-read block (:func:`per_read_block`)."""
+def packed_accumulators(jobs, params: TestParams,
+                        core: int = dev_lane.CORE_DEFAULT,
+                        device: DeviceLike = None, dtype=None,
+                        emit_per_read: bool = False):
+    """Many prepared region jobs through one packed pass: per job its
+    dense (coverage, valid coverage, above-threshold) int64 counts over
+    its span and, with ``emit_per_read``, its per-read block
+    (:func:`per_read_block`, None with no valid statistic); None for a
+    None job.  The p-values come back from the same dispatches, in the
+    lane's dtype, only with ``emit_per_read``."""
     table = next((j["table"] for j in jobs
                   if j is not None and j["table"] is not None), None)
     packer = dev_lane.PackedRegionBatch(params.fm_offset, core=core,
@@ -351,14 +370,16 @@ def compute_reg_stats_device_batch(jobs, params: TestParams,
         want_pvals=emit_per_read)
     out = []
     for j, job in enumerate(jobs):
-        reg_stats = payload = None
-        if job is not None and counts is not None:
+        if job is None:
+            out.append(None)
+            continue
+        if counts is None:
+            cov = valid_cov = above = np.zeros(job["span_n"], np.int64)
+        else:
             cov, valid_cov, above = packer.unpack_region(
                 j, job["span_lo"], job["span_n"], counts)
-            reg_stats = region_stats_from_accumulators(
-                job["reg"], job["span_lo"], cov, valid_cov, above,
-                job["ctrl_cov_dense"], params.stat_type)
-        if reg_stats is not None and emit_per_read:
+        payload = None
+        if emit_per_read and cov.any():
             streams = packer.read_streams(j, pvals)
             ridxs = [i for i in sorted(streams) if streams[i][1].shape[0]]
             if ridxs:
@@ -367,9 +388,21 @@ def compute_reg_stats_device_batch(jobs, params: TestParams,
                     [streams[i][0] for i in ridxs],
                     [(job["levels"][i].read_id, streams[i][1].shape[0])
                      for i in ridxs], job["reg"], params.stat_type)
-        out.append([] if reg_stats is None else
-                   [(params.stat_type, reg_stats, payload)])
+        out.append((cov, valid_cov, above, payload))
     return out
+
+
+def compute_reg_stats_device_batch(jobs, params: TestParams,
+                                   core: int = dev_lane.CORE_DEFAULT,
+                                   device: DeviceLike = None, dtype=None,
+                                   emit_per_read: bool = False):
+    """Many prepared region jobs (None: a skipped region) through one
+    packed pass, as one host's chunk of :func:`iter_region_stats`;
+    returns one list per job, [(stat_type, RegionStats, per-read block or
+    None)] or [] (the shape of the JAX ``compute_reg_stats`` output).
+    With ``emit_per_read`` each region also gets its per-read block."""
+    return _one_host_batch(jobs, params, [params.stat_type], None, core,
+                           device, dtype, emit_per_read)
 
 
 def compute_reg_stats_device(reg_data: RegionData, params: TestParams,
@@ -378,8 +411,9 @@ def compute_reg_stats_device(reg_data: RegionData, params: TestParams,
                              core: int = dev_lane.CORE_DEFAULT,
                              device: DeviceLike = None, dtype=None,
                              emit_per_read: bool = False):
-    """The packed lane over one region."""
-    _check_ported(params.stat_type)
+    """The packed lane over one region; raises TomboError where it has no
+    tested site."""
+    _check_stat_type(params.stat_type)
     device = resolve_device(device)
     job = _device_region_job(reg_data, params, ctrl_reg_data, fasta,
                              std_ref, device)
@@ -505,18 +539,16 @@ def _alt_device_region_job(reg_data: RegionData, std_ref: KmerModel,
     return dict(reg=reg_data, per_alt=per_alt)
 
 
-def compute_alt_stats_device_batch(jobs, params: TestParams, alt_items,
-                                   emit_per_read: bool = False,
-                                   device: DeviceLike = None, dtype=None):
-    """The alternative-model test of many prepared regions, one
+def alt_read_stats(jobs, params: TestParams, alt_items,
+                   device: DeviceLike = None, dtype=None):
+    """The alternative-model ratios of many prepared regions, one
     :func:`dev_lane.alt_llhr` dispatch a model over every motif hit of
-    every read of the chunk, stacked to a power of two (>= 256) of rows;
-    the per-site fractions then build on the host from the (position,
-    ratio) streams.  Returns one list per job of (model name,
-    RegionStats, per-read block or None), in model order."""
+    every read of the chunk, stacked to a power of two (>= 256) of rows.
+    Returns {model name: {job index: [(read id, positions, float64
+    ratios)]}}, reads in job order."""
     device = resolve_device(device)
     dtype = resolve_dtype(dtype, device)
-    out_per_job = [[] for _ in jobs]
+    out = {}
     for name, _ in alt_items:
         chunks, wins = [], []
         h0 = 0
@@ -528,6 +560,7 @@ def compute_alt_stats_device_batch(jobs, params: TestParams, alt_items,
                 chunks.append((j, read_id, w[0], slice(h0, h0 + H)))
                 wins.append(w)
                 h0 += H
+        out[name] = per_job = {}
         if h0 == 0:
             continue
         k = wins[0][1].shape[1]
@@ -542,26 +575,21 @@ def compute_alt_stats_device_batch(jobs, params: TestParams, alt_items,
             bool(params.use_standard_llhr), float(config.OCLLHR_SCALE),
             float(config.OCLLHR_HEIGHT), float(config.OCLLHR_POWER)
         ).cpu().numpy().astype(np.float64)[:h0]
-        per_job: dict = {}
         for j, read_id, poss, sl in chunks:
             per_job.setdefault(j, []).append((read_id, poss, llhrs[sl]))
-        for j, reads in per_job.items():
-            reg = jobs[j]["reg"]
-            stats_l = [st for _, _, st in reads]
-            locs_l = [p for _, p, _ in reads]
-            reg_stats = apply_per_read_thresh(
-                np.concatenate(stats_l), np.concatenate(locs_l), reg.chrm,
-                reg.strand, reg.start, params.single_read_thresh,
-                params.lower_thresh, ALT_MODEL_TXT)
-            if reg_stats is None:
-                continue
-            payload = None
-            if emit_per_read:
-                payload = per_read_block(
-                    stats_l, locs_l, [(rid, st.shape[0])
-                                      for rid, _, st in reads], reg, name)
-            out_per_job[j].append((name, reg_stats, payload))
-    return out_per_job
+    return out
+
+
+def compute_alt_stats_device_batch(jobs, params: TestParams, alt_items,
+                                   emit_per_read: bool = False,
+                                   device: DeviceLike = None, dtype=None):
+    """The alternative-model test of many prepared regions (None: a
+    skipped region), as one host's chunk of :func:`iter_region_stats`.
+    Returns one list per job of (model name, RegionStats, per-read block
+    or None), in model order."""
+    return _one_host_batch(jobs, params, [name for name, _ in alt_items],
+                           alt_items, dev_lane.CORE_DEFAULT, device, dtype,
+                           emit_per_read)
 
 
 def _alt_stats_fn(base_fn: str, alt_name: str) -> str:
@@ -703,6 +731,37 @@ def _group_post(reg_data: RegionData, params: TestParams, samp, ctrl,
         np.concatenate(reg_cov), np.concatenate(reg_ctrl_cov)))]
 
 
+def group_stats_dense(reg_data: RegionData, params: TestParams, results):
+    """A region's level statistics as dense (statistic float64, mask,
+    coverage, control coverage) arrays over its span, zeros where it has
+    none, so a host that does not own the region adds zeros to the
+    cross-host sum (counterpart of ``tombo_tpu/stats/detect.py:603``)."""
+    span_lo, span_n = _accum_span(reg_data, params)
+    stat = np.zeros(span_n, np.float64)
+    ints = np.zeros((3, span_n), np.int64)
+    for _, gs in results:
+        rel = gs.reg_poss - span_lo
+        stat[rel] = gs.reg_stats
+        ints[0, rel] = 1
+        ints[1, rel] = gs.reg_cov
+        ints[2, rel] = gs.ctrl_cov
+    return stat, ints
+
+
+def group_stats_from_dense(reg_data: RegionData, params: TestParams, stat,
+                           ints) -> Optional[GroupStats]:
+    """The GroupStats of :func:`group_stats_dense`'s arrays (summed over
+    hosts), None with no tested site (counterpart of
+    ``tombo_tpu/stats/detect.py:621``)."""
+    span_lo, _ = _accum_span(reg_data, params)
+    rel = np.where(ints[0] > 0)[0]
+    if rel.shape[0] == 0:
+        return None
+    return GroupStats(stat[rel], rel + span_lo, reg_data.chrm,
+                      reg_data.strand, reg_data.start, ints[1, rel],
+                      ints[2, rel])
+
+
 # --------------------------------------------------------------------------
 # orchestration (reference: tombo/tombo_stats.py:4400-4634)
 # --------------------------------------------------------------------------
@@ -733,7 +792,9 @@ def _prep_chunk(pool, regs, params, reads_index, ctrl_reads_index, fasta,
                 std_ref, device, alt_items=None):
     """Region jobs of one chunk of regions with their reads, prepared on
     the thread pool (the control's reads, expected levels, level loads,
-    motif windows); None where a region has nothing to test."""
+    motif windows); None where a region has nothing to test.  A de novo
+    or sample-compare region whose reads give no levels keeps its job,
+    which adds zero counts (:func:`_device_region_job`)."""
     def prep_one(reg):
         ctrl_reg = None
         if ctrl_reads_index is not None:
@@ -753,12 +814,113 @@ def _prep_chunk(pool, regs, params, reads_index, ctrl_reads_index, fasta,
     return list(pool.map(prep_one, regs))
 
 
+def _host_model_counts(regs, jobs, params, names, alt_items, core, device,
+                       dtype, emit_per_read):
+    """One host's part of a chunk of model statistics: (counts (names, 3,
+    regions, span) int64 over the host's reads, zeros where it has none;
+    per region its control coverage or None and {name: per-read block or
+    None})."""
+    span_n = _accum_span(regs[0], params)[1]
+    counts = np.zeros((len(names), 3, len(regs), span_n), np.int64)
+    ctrl = [None] * len(regs)
+    payloads = [{} for _ in regs]
+    if params.stat_type == ALT_MODEL_TXT:
+        for n, (name, per_job) in enumerate(alt_read_stats(
+                jobs, params, alt_items, device, dtype).items()):
+            for j, reads in per_job.items():
+                counts[n, :, j] = site_accumulators(
+                    np.concatenate([st for _, _, st in reads]),
+                    np.concatenate([p for _, p, _ in reads]),
+                    _accum_span(regs[j], params)[0], span_n,
+                    params.single_read_thresh, params.lower_thresh,
+                    ALT_MODEL_TXT)
+                if emit_per_read:
+                    payloads[j][name] = per_read_block(
+                        [st for _, _, st in reads], [p for _, p, _ in reads],
+                        [(rid, st.shape[0]) for rid, _, st in reads], regs[j],
+                        name)
+        return counts, ctrl, payloads
+    for j, acc in enumerate(packed_accumulators(jobs, params, core, device,
+                                                dtype, emit_per_read)):
+        if acc is not None:
+            counts[0, :, j] = acc[:3]
+            ctrl[j] = jobs[j]["ctrl_cov_dense"]
+            payloads[j][names[0]] = acc[3]
+    return counts, ctrl, payloads
+
+
+def _model_stats_chunk(dist, regs, jobs, params, names, alt_items, core,
+                       device, dtype, emit_per_read):
+    """A chunk's model statistics: this host's counts, summed over the
+    hosts in one gather (none with one host), then unpacked region by
+    region.  Returns one list a region of (name, RegionStats, this
+    host's per-read block or None), in name order."""
+    counts, ctrl, payloads = _host_model_counts(
+        regs, jobs, params, names, alt_items, core, device, dtype,
+        emit_per_read)
+    (counts,) = distributed.psum_hosts(dist, counts)
+    out = []
+    for j, reg in enumerate(regs):
+        span_lo = _accum_span(reg, params)[0]
+        out.append([])
+        for n, name in enumerate(names):
+            reg_stats = region_stats_from_accumulators(
+                reg.chrm, reg.strand, reg.start, span_lo, *counts[n, :, j],
+                ctrl[j], params.stat_type)
+            if reg_stats is not None:
+                out[-1].append((name, reg_stats, payloads[j].get(name)))
+    return out
+
+
+def _one_host_batch(jobs, params, names, alt_items, core, device, dtype,
+                    emit_per_read):
+    """:func:`_model_stats_chunk` on one host over prepared jobs, [] for
+    a None job."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype, device)
+    live = [j for j, job in enumerate(jobs) if job is not None]
+    out = [[] for _ in jobs]
+    if live:
+        for j, res in zip(live, _model_stats_chunk(
+                distributed.DistContext(), [jobs[j]["reg"] for j in live],
+                [jobs[j] for j in live], params, names, alt_items, core,
+                device, dtype, emit_per_read)):
+            out[j] = res
+    return out
+
+
+def _level_stats_chunk(dist, offset, regs, pool, params, reads_index,
+                       ctrl_reads_index, device, dtype):
+    """A chunk of level statistics: the regions this host owns
+    (``dist.owns_region`` of their index in the run; every region with
+    one host), each with all its reads, in one dispatch; the others
+    zeros; summed over the hosts in one gather of the statistics
+    (float64) and one of the counts.  Yields (stat_type, GroupStats,
+    None) in region order."""
+    own = [i for i in range(len(regs)) if dist.owns_region(offset + i)]
+    jobs = [None] * len(regs)
+    for i, job in zip(own, _prep_chunk(
+            pool, [regs[i].add_reads(reads_index) for i in own], params,
+            reads_index, ctrl_reads_index, None, None, device)):
+        jobs[i] = job
+    dense = [group_stats_dense(reg, params, res) for reg, res in zip(
+        regs, compute_group_stats_device_batch(jobs, params, device,
+                                               dtype))]
+    stat, ints = distributed.psum_hosts(
+        dist, np.stack([d[0] for d in dense]),
+        np.stack([d[1] for d in dense]))
+    for j, reg in enumerate(regs):
+        gs = group_stats_from_dense(reg, params, stat[j], ints[j])
+        if gs is not None:
+            yield params.stat_type, gs, None
+
+
 def iter_region_stats(reads_index, params: TestParams, fasta,
                       std_ref: Optional[KmerModel], ctrl_reads_index=None,
                       device: DeviceLike = None, dtype=None,
                       core: int = dev_lane.CORE_DEFAULT,
                       num_processes: int = 4, alt_refs=None,
-                      emit_per_read: bool = False
+                      emit_per_read: bool = False, dist=None
                       ) -> Iterator[Tuple[str, object, Optional[tuple]]]:
     """The statistics of every covered region with a tested site, in
     region order (the regions of ``reads_index.iter_cov_regs``, summed
@@ -776,9 +938,20 @@ def iter_region_stats(reads_index, params: TestParams, fasta,
     ``num_processes`` threads and run on ``device`` (None: the card) in
     ``dtype`` (float32; float64 on the CPU only).  ``core``: the
     sub-span core width.  ``emit_per_read``: also each region's per-read
-    block (not for level tests)."""
+    block (not for level tests).
+
+    ``dist`` (a ``DistContext``; None: one host): every host of the run
+    calls this with the same arguments and gets the same statistics.  A
+    per-read test's chunk runs the reads this host owns, as dense counts
+    merged with one ``psum_hosts``; the per-read blocks are this host's
+    reads'.  Level tests go ``LEVEL_CHUNK_REGIONS`` regions a host a
+    chunk, each chunk merged with one ``psum_hosts``.  With one host the
+    merges are no-ops and the statistics those of the lane functions
+    (:func:`compute_reg_stats_device_batch`,
+    :func:`compute_alt_stats_device_batch`, which run one chunk on one
+    host, and :func:`compute_group_stats_device_batch`)."""
     stat_type = params.stat_type
-    _check_ported(stat_type)
+    _check_stat_type(stat_type)
     if stat_type in (SAMP_COMP_TXT,) + LEVEL_STATS_TXTS and \
             ctrl_reads_index is None:
         raise TomboError("%s needs a control reads index" % stat_type)
@@ -789,32 +962,33 @@ def iter_region_stats(reads_index, params: TestParams, fasta,
         alt_items = sorted(alt_refs.items())
     device = resolve_device(device)
     dtype = resolve_dtype(dtype, device)
+    if dist is None:
+        dist = distributed.DistContext()
     regions = [RegionData(chrm, strand, start, start + params.region_size)
                for chrm, strand, start in reads_index.iter_cov_regs(
                    1, params.region_size, ctrl_reads_index)]
-    if stat_type in LEVEL_STATS_TXTS:
-        chunks = ([r.add_reads(reads_index)
-                   for r in regions[i:i + LEVEL_CHUNK_REGIONS]]
-                  for i in range(0, len(regions), LEVEL_CHUNK_REGIONS))
-    else:
-        chunks = _chunks_by_obs(regions, reads_index)
     with ThreadPoolExecutor(max_workers=num_processes) as pool:
-        for c_regs in chunks:
+        if stat_type in LEVEL_STATS_TXTS:
+            step = LEVEL_CHUNK_REGIONS * dist.n_hosts
+            for c0 in range(0, len(regions), step):
+                yield from _level_stats_chunk(
+                    dist, c0, regions[c0:c0 + step], pool, params,
+                    reads_index, ctrl_reads_index, device, dtype)
+            return
+        names = _stat_names(params, alt_items)
+        # the chunks are cut from the full index on every host, so the
+        # hosts' merges pair the same regions
+        for c_regs in _chunks_by_obs(regions, reads_index):
+            for reg in c_regs:
+                reg.reads = [r for r in reg.reads if dist.owns_read(
+                    distributed.read_key(r))]
             jobs = _prep_chunk(pool, c_regs, params, reads_index,
                                ctrl_reads_index, fasta, std_ref, device,
                                alt_items)
-            if stat_type in LEVEL_STATS_TXTS:
-                res = [[(n, s, None) for n, s in r] for r in
-                       compute_group_stats_device_batch(jobs, params, device,
-                                                        dtype)]
-            elif stat_type == ALT_MODEL_TXT:
-                res = compute_alt_stats_device_batch(
-                    jobs, params, alt_items, emit_per_read, device, dtype)
-            else:
-                res = compute_reg_stats_device_batch(
-                    jobs, params, core, device, dtype, emit_per_read)
-            for results in res:
-                yield from results
+            for res in _model_stats_chunk(
+                    dist, c_regs, jobs, params, names, alt_items, core,
+                    device, dtype, emit_per_read):
+                yield from res
 
 
 def test_significance(reads_index, params: TestParams, stats_fn: str,
@@ -836,9 +1010,16 @@ def test_significance(reads_index, params: TestParams, stats_fn: str,
     (reference guarantee: docs/modified_base_detection.rst:151-153).
     Levels loaded from FAST5 files are appended to their directory's
     levels sidecar; with ``levels_sidecar`` false no sidecar is read or
-    written."""
+    written.
+
+    ``dist`` (a ``DistContext`` of more than one host; every host calls
+    this with the same arguments): the statistics files, written by the
+    main host alone, equal one host's; each host writes the per-read
+    blocks of its own reads to ``<per-read file>.host<i>``; sidecars are
+    read and never written."""
     stat_type = params.stat_type
-    _check_ported(stat_type, dist)
+    _check_stat_type(stat_type)
+    multi = dist is not None and dist.n_hosts > 1
     is_level = stat_type in LEVEL_STATS_TXTS
     alt_items = sorted(alt_refs.items()) if alt_refs else None
     names = _stat_names(params, alt_items)
@@ -848,28 +1029,32 @@ def test_significance(reads_index, params: TestParams, stats_fn: str,
         for name in names:
             fn = (stats_fn if len(names) == 1 else
                   _alt_stats_fn(stats_fn, name))
-            if is_level:
-                stats_files[name] = LevelStats(
-                    fn, stat_type, params.region_size,
-                    params.min_test_reads, params.num_most_signif)
-            else:
-                stats_files[name] = ModelStats(
-                    fn, stat_type, params.region_size,
-                    params.cov_damp_counts, params.min_test_reads,
-                    params.num_most_signif)
-            stats_files[name].set_resolved_params(resolved)
+            if not multi or dist.is_main:
+                if is_level:
+                    stats_files[name] = LevelStats(
+                        fn, stat_type, params.region_size,
+                        params.min_test_reads, params.num_most_signif)
+                else:
+                    stats_files[name] = ModelStats(
+                        fn, stat_type, params.region_size,
+                        params.cov_damp_counts, params.min_test_reads,
+                        params.num_most_signif)
+                stats_files[name].set_resolved_params(resolved)
             if per_read_bn is not None and not is_level:
-                pr_files[name] = PerReadStats(
-                    per_read_bn if len(names) == 1 else
-                    _alt_stats_fn(per_read_bn, name), stat_type,
-                    params.region_size)
+                pr_fn = (per_read_bn if len(names) == 1 else
+                         _alt_stats_fn(per_read_bn, name))
+                if multi:
+                    pr_fn += ".host%d" % dist.host_id
+                pr_files[name] = PerReadStats(pr_fn, stat_type,
+                                              params.region_size)
                 pr_files[name].set_resolved_params(resolved)
-        with levels_cache.building(levels_sidecar):
+        with levels_cache.building(levels_sidecar, write=not multi):
             for name, stats, payload in iter_region_stats(
                     reads_index, params, fasta, std_ref, ctrl_reads_index,
                     device, dtype, core, num_processes, alt_refs,
-                    bool(pr_files)):
-                stats_files[name]._write_stat_block(stats)
+                    bool(pr_files), dist):
+                if name in stats_files:
+                    stats_files[name]._write_stat_block(stats)
                 if payload is not None and name in pr_files:
                     pr_files[name]._write_per_read_block(*payload[1:])
                 if verbose:

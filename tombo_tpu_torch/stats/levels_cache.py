@@ -19,7 +19,9 @@ region per run).
   one a writer) and during a detection pass's cache misses, inside a
   ``building()`` block (the data is in memory then).  ``building(False)``
   neither reads nor writes a sidecar during its block (the command
-  line's ``--skip-levels-cache``).
+  line's ``--skip-levels-cache``); ``building(write=False)`` reads and
+  never writes (a multi-host detection run, whose hosts may share the
+  directory).
 """
 from __future__ import annotations
 
@@ -252,14 +254,16 @@ def record(fn: str, corr_group: str, read_id: str, mtime_ns: int,
 class building:
     """Context manager around a detection pass: cache misses append to
     the sidecars, finalized (fsync + registry reset) on exit.  With
-    ``use_sidecar`` false no sidecar is read or written in the block."""
+    ``use_sidecar`` false no sidecar is read or written in the block;
+    with ``write`` false sidecars are read and nothing is appended."""
 
-    def __init__(self, use_sidecar: bool = True):
+    def __init__(self, use_sidecar: bool = True, write: bool = True):
         self.use_sidecar = use_sidecar
+        self.write = write
 
     def __enter__(self):
         global _building_active, _skip_active
-        _building_active = self.use_sidecar
+        _building_active = self.use_sidecar and self.write
         _skip_active = not self.use_sidecar
         return self
 
