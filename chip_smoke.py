@@ -65,6 +65,19 @@ run no device code, and the CPU tests hold them against the JAX package
 (tests/test_torch_text_output.py, test_torch_filters.py,
 test_torch_preprocess.py).
 
+The plots phase, after model estimation, computes the plot commands'
+data on the card from the device means earlier phases left there and
+holds each against the same function on CPU copies of the means (no
+renderer runs: the card machine has no matplotlib): the ROC and
+precision-recall rates of the C-raised alternative sample's de novo
+statistics (labels by ground truth and by CpG motif; tp, fp and
+precision arrays equal, AUC and mean AP within 1e-12), the rates of
+5,000,000 pairs timed beside the host motif matching, the Ward-ordered
+traces at the 1 kb de novo run's most significant regions (sample and
+control, slide_span 0 and 3), the k-mer level lists and the
+max-difference regions.  One ``plots`` JSON line gives each part's wall
+seconds and equality flags, with the card's name and power limit.
+
 The runner phase last drives the command line's path: the 1 kb and
 mixed reads, given basecalls with 8% errors, go through
 ``pipeline/runner.py::resquiggle_all_reads`` over an in-memory read
@@ -169,6 +182,11 @@ RUNNER_CPU_READS, RUNNER_START_TOL = 32, 10
 # gloo on 127.0.0.1 (NCCL refuses two ranks on one card), each killed
 # past this many seconds
 MULTIHOST_HOSTS, MULTIHOST_TIMEOUT = 2, 300
+# the plots phase's clustering: most significant regions of 21 bases
+# (the command's default width); more than its default 10, since most
+# of the 1 kb path's most significant sites lie where fewer than three
+# reads cover a region whole (2 of 10 clustered on the H100, 700 W)
+PLOT_CLUSTER_REGIONS = 50
 DEVICE = "cuda"
 
 
@@ -1215,7 +1233,8 @@ def estimation_phase(dev, br, outs, outs_r, batches, rna, fasta_1kb,
     coverage allows, the density model of an alternative sample
     re-squiggled here, and the RNA canonical 5-mer model with the RNA
     re-centring; each cross-checked on CPU copies of the same means.
-    Returns K5's summary at the re-centring shape."""
+    Returns K5's summary at the re-centring shape and the alternative
+    sample's index."""
     from tombo_tpu_torch import config, kernels
     from tombo_tpu_torch.errors import TomboError
     from tombo_tpu_torch.io.model_io import KmerModel
@@ -1449,7 +1468,198 @@ def estimation_phase(dev, br, outs, outs_r, batches, rna, fasta_1kb,
     check["kde_f64_max_rel"] = worst
     check["cpu_s"] = time.perf_counter() - t0
     print("estimation CPU cross-check: %s" % json.dumps(check))
-    return k5_est
+    return k5_est, idx_alt
+
+
+def stat_blocks(stats):
+    """The JAX-protocol block iterable of in-memory RegionStats: (chrm,
+    strand, start, end, records with ``pos`` and ``stat``, the fraction
+    of the standard base), sites without a fraction left out as a
+    statistics file leaves them out."""
+    from tombo_tpu_torch import config
+    out = []
+    for st in stats:
+        keep = ~np.isnan(st.reg_frac_standard_base)
+        rec = np.empty(int(keep.sum()), [("pos", "u4"), ("stat", "f8")])
+        rec["pos"] = st.reg_poss[keep]
+        rec["stat"] = st.reg_frac_standard_base[keep]
+        out.append((st.chrm, st.strand, st.start,
+                    st.start + config.DEFAULT_REGION_SIZE, rec))
+    return out
+
+
+def most_signif_regions(stats, num_bases, num_regions):
+    """``get_most_signif_regions``' regions of in-memory RegionStats:
+    ``num_bases`` around the sites of least damped fraction (the
+    statistics file's order), each site's window used once."""
+    from tombo_tpu_torch import config
+    from tombo_tpu_torch.stats.kernels import calc_damp_fraction
+    sites = []
+    for st in stats:
+        damp = calc_damp_fraction(config.COV_DAMP_COUNTS,
+                                  st.reg_frac_standard_base, st.valid_cov)
+        sites += [(float(d), st.chrm, st.strand, int(p))
+                  for d, p in zip(damp, st.reg_poss) if not np.isnan(d)]
+    sites.sort()
+    used, out = set(), []
+    for i, (d, chrm, strand, pos) in enumerate(sites):
+        if (chrm, strand, pos) in used:
+            continue
+        start = max(0, pos - num_bases // 2)
+        used.update((chrm, strand, p) for p in range(start,
+                                                     start + num_bases))
+        out.append((chrm, start, start + num_bases, strand, "%03d" % i,
+                    "Est. Frac. Alternate: %.2g" % (1 - d)))
+        if len(out) >= num_regions:
+            break
+    return out
+
+
+def plots_phase(dev, smi, outs, idx_alt, fasta_1kb, model):
+    """The data of the plot commands on the card, from the device means
+    earlier phases left there, each held against the same function on
+    CPU copies of the means; no renderer runs (the card machine has no
+    matplotlib).  ROC: de novo on the C-raised alternative sample, its
+    (statistic, label) pairs by ground truth (C sites modified, A and T
+    sites not) and by CpG motif, through ``prep_accuracy_rates``; then
+    the rates of 5,000,000 pairs (the --total-statistics-limit default).
+    Clustering: the ``PLOT_CLUSTER_REGIONS`` most significant regions
+    of 1 kb de novo, the sample's (batches 2-3) and control's (batch 1)
+    traces at slide_span 0 and 3.  k-mer levels and the max-difference regions of the 1 kb
+    sample against its control.  Returns the ``plots`` line."""
+    from tombo_tpu_torch import config
+    from tombo_tpu_torch.plot import accuracy, signal
+    from tombo_tpu_torch.seq import TomboMotif
+    from tombo_tpu_torch.stats import detect
+    cpu = torch.device("cpu")
+    idx_1kb, _, _ = detection_index([r for o in outs for r in o], False,
+                                    dev)
+    idx_ctrl, _, _ = detection_index(outs[0], False, dev)
+    idx_samp, _, _ = detection_index(outs[1] + outs[2], False, dev)
+    for ix in (idx_1kb, idx_alt):
+        register_cpu_copies(ix, dev)
+    th = config.DE_NOVO_THRESH["DNA"]
+    params = detect.TestParams(
+        stat_type="de_novo", single_read_thresh=th[1], lower_thresh=th[0],
+        min_test_reads=1, fm_offset=config.FM_OFFSET_DEFAULT,
+        region_size=config.DEFAULT_REGION_SIZE)
+
+    def de_novo(ix):
+        return [st for _, st, _ in detect.iter_region_stats(
+            ix, params, fasta_1kb, model, None, device=dev)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    line = {"card": smi}
+
+    # -- ROC of the C-raised sample
+    blocks, det_s = timed(lambda: stat_blocks(de_novo(idx_alt)))
+    seq = fasta_1kb.get_seq(fasta_1kb.iter_chrms()[0])
+    chrm = fasta_1kb.iter_chrms()[0]
+    base = np.frombuffer(seq.encode(), np.uint8)
+    locs = {name: {(chrm, "+"): np.flatnonzero(np.isin(base, fwd)),
+                   (chrm, "-"): np.flatnonzero(np.isin(base, rev))}
+            for name, fwd, rev in (("mod", [ord("C")], [ord("G")]),
+                                   ("unmod", [ord("A"), ord("T")],
+                                    [ord("A"), ord("T")]))}
+    t0 = time.perf_counter()
+    pairs = accuracy.compute_ground_truth_stats(
+        blocks, (locs["mod"], locs["unmod"], "C (ground truth)"))
+    pairs.update(accuracy.compute_motif_stats(
+        blocks, [(TomboMotif("CG", 1), "CpG")], fasta_1kb))
+    match_s = time.perf_counter() - t0
+    curves, roc_s = timed(lambda: accuracy.prep_accuracy_rates(
+        pairs, verbose=False, device=dev))
+    cpu_curves = accuracy.prep_accuracy_rates(pairs, verbose=False,
+                                              device=cpu)
+    roc_same = list(curves) == list(cpu_curves) and all(
+        all(np.array_equal(a, b) for a, b in zip(curves[k][:3],
+                                                 cpu_curves[k][:3]))
+        for k in curves)
+    mean_ap = {k: (accuracy.compute_mean_avg_precision(c[0], c[2]),
+                   accuracy.compute_mean_avg_precision(
+                       cpu_curves[k][0], cpu_curves[k][2]))
+               for k, c in curves.items()}
+    auc_diff = max(abs(curves[k][3] - cpu_curves[k][3]) for k in curves)
+    ap_diff = max(abs(a - b) for a, b in mean_ap.values())
+    line["roc"] = {
+        "pairs": {k: len(v) for k, v in pairs.items()},
+        "auc": {k: float(c[3]) for k, c in curves.items()},
+        "mean_ap": {k: float(v[0]) for k, v in mean_ap.items()},
+        "de_novo_s": det_s, "host_motif_matching_s": match_s,
+        "rates_s": roc_s, "rates_equal": roc_same,
+        "auc_max_abs_diff": auc_diff, "mean_ap_max_abs_diff": ap_diff}
+    if not roc_same or auc_diff > 1e-12 or ap_diff > 1e-12:
+        fail("plots: ROC rates card vs CPU differ: %s" % line["roc"])
+    g = torch.Generator(device=dev).manual_seed(5)
+    n_big = 5000000
+    big = (torch.rand(n_big, generator=g, device=dev,
+                      dtype=torch.float64).mul(100).round(),
+           torch.rand(n_big, generator=g, device=dev) < 0.3)
+    accuracy.prep_accuracy_rates({"m": big}, verbose=False, device=dev)
+    big_s = []
+    for _ in range(3):
+        big_curves, s_ = timed(lambda: accuracy.prep_accuracy_rates(
+            {"m": big}, verbose=False, device=dev))
+        big_s.append(s_)
+    big_cpu, big_cpu_s = timed(lambda: accuracy.prep_accuracy_rates(
+        {"m": (big[0].cpu(), big[1].cpu())}, verbose=False, device=cpu))
+    big_same = all(np.array_equal(a, b) for a, b in zip(
+        big_curves["m"], big_cpu["m"]))
+    line["roc_5e6"] = {"pairs": n_big, "rates_s": big_s,
+                       "rates_median_s": statistics.median(big_s),
+                       "cpu_rates_s": big_cpu_s, "equal_cpu": big_same}
+    if not big_same:
+        fail("plots: 5,000,000-pair rates card vs CPU differ")
+
+    # -- clustering at the 1 kb de novo run's most significant regions
+    regions, reg_s = timed(lambda: most_signif_regions(
+        de_novo(idx_1kb), 21, PLOT_CLUSTER_REGIONS))
+    line["cluster"] = {"regions": len(regions), "de_novo_and_pick_s": reg_s}
+    for span in (0, 3):
+        got, c_s = timed(lambda: signal.cluster_traces(
+            regions, idx_samp, idx_ctrl, span, device=dev))
+        want = signal.cluster_traces(regions, idx_samp, idx_ctrl, span,
+                                     device=cpu)
+        same = list(got) == list(want) and all(
+            np.array_equal(got[k], want[k]) for k in want)
+        line["cluster"]["slide_span_%d" % span] = {
+            "clustered": len(got), "traces": [int(m.shape[0])
+                                              for m in got.values()],
+            "s": c_s, "equal_cpu": same}
+        if not same or not got:
+            fail("plots: clustered traces card vs CPU differ (slide_span "
+                 "%d)" % span)
+
+    # -- k-mer levels and the max-difference regions
+    kmer = {}
+    for label, kw in (("levels", {}), ("read_mean", dict(
+            read_mean=True, num_kmer_threshold=2))):
+        got, k_s = timed(lambda: signal.kmer_levels(
+            idx_1kb, 2, 100, device=dev, fasta=fasta_1kb, **kw))
+        want = signal.kmer_levels(idx_1kb, 2, 100, device=cpu,
+                                  fasta=fasta_1kb, **kw)
+        kmer[label] = {"kmers": len(got), "levels": sum(
+            len(v) for v in got.values()), "s": k_s,
+            "equal_cpu": got == want}
+        if got != want or len(got) != 16:
+            fail("plots: k-mer levels card vs CPU differ (%s)" % label)
+    line["kmer"] = kmer
+    got, md_s = timed(lambda: signal.max_difference_regions(
+        idx_samp, idx_ctrl, 10, 21, device=dev))
+    want = signal.max_difference_regions(idx_samp, idx_ctrl, 10, 21,
+                                         device=cpu)
+    same = [(r.chrm, r.strand, r.start, r.end) for r in got] == \
+        [(r.chrm, r.strand, r.start, r.end) for r in want]
+    line["max_difference"] = {"regions": len(got), "s": md_s,
+                              "equal_cpu": same}
+    if not same or len(got) != 10:
+        fail("plots: max-difference regions card vs CPU differ")
+    return line
 
 
 def k1_bound_ms(args, bw, io_bytes=False):
@@ -2955,10 +3165,18 @@ def main():
     # ---- phase 13d: model estimation from the paths' device means
     with phase("model estimation"):
         t_est = time.perf_counter()
-        k5_est = estimation_phase(dev, br, outs, outs_r, batches, rna,
-                                  fasta_1kb, fasta_r, model, model_r)
+        k5_est, idx_alt = estimation_phase(dev, br, outs, outs_r, batches,
+                                           rna, fasta_1kb, fasta_r, model,
+                                           model_r)
         print("model estimation phase: %.1f s" % (time.perf_counter() -
                                                   t_est))
+
+    # ---- phase 13e: the plot commands' data from the device means
+    with phase("plots"):
+        t_pl = time.perf_counter()
+        line = plots_phase(dev, smi, outs, idx_alt, fasta_1kb, model)
+        line["phase_s"] = time.perf_counter() - t_pl
+        print("plots " + json.dumps(line))
 
     # ---- phase 14: the read-sharded lane (K3) over the cards' mesh
     with phase("mesh lane"):

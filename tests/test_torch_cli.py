@@ -325,24 +325,83 @@ def test_help_version_and_advanced_arguments():
     out = _port_cli(["--help"])
     assert out.returncode == 0
     for cmd in ("resquiggle", "preprocess", "filter",
-                "detect_modifications", "text_output", "build_model"):
+                "detect_modifications", "text_output", "build_model",
+                "plot"):
         assert cmd in out.stdout
-    assert "plot" not in out.stdout
     out = _port_cli(["--version"])
     assert out.returncode == 0 and out.stdout.strip() == \
         "tombo-tpu-torch 0.1.0"
     out = _port_cli(["resquiggle", "x", "y", "--print-advanced-arguments"])
     assert out.returncode == 0
     assert "--signal-align-parameters" in out.stdout
+    out = _port_cli(["build_model", "event_resquiggle", "--help"])
+    assert out.returncode == 0 and "--pore-model-filename" in out.stdout
     with pytest.raises(SystemExit):
-        t_cli.main(["build_model", "event_resquiggle", "x", "y"])
+        t_cli.main(["plot", "no_such_plot"])
+
+
+def _subparsers(parser):
+    import argparse
+    for act in parser._actions:
+        if isinstance(act, argparse._SubParsersAction):
+            return act.choices
+    return {}
+
+
+def _options(parser):
+    """{option or positional: (default, nargs, type, choices, required,
+    action)} of an argparse parser."""
+    return {(act.option_strings[0] if act.option_strings else act.dest): (
+        act.default, act.nargs, act.type, act.choices, act.required,
+        type(act).__name__) for act in parser._actions
+        if act.dest != "help"}
+
+
+def _jax_parser():
+    import argparse
+    from tombo_tpu.plot import add_plot_parsers
+    parser = argparse.ArgumentParser()
+    sub = parser.add_subparsers(dest="command")
+    j_cli._add_build_model_parsers(sub)
+    add_plot_parsers(sub)
+    return parser
+
+
+PLOT_COMMANDS = [
+    "max_coverage", "genome_locations", "motif_centered", "max_difference",
+    "most_significant", "per_read", "roc", "sample_compare_roc",
+    "per_read_roc", "sample_compare_per_read_roc", "kmer",
+    "cluster_most_significant", "motif_with_stats"]
+# the plots whose data the port computes as tensor operations
+DEVICE_PLOTS = {"max_difference", "roc", "sample_compare_roc",
+                "per_read_roc", "sample_compare_per_read_roc", "kmer",
+                "cluster_most_significant"}
+
+
+@pytest.mark.parametrize("group,cmd", [("build_model", "event_resquiggle")] +
+                         [("plot", c) for c in PLOT_COMMANDS])
+def test_parsers_match_jax(group, cmd):
+    """The port's ``plot`` and ``build_model event_resquiggle`` parsers
+    have the JAX parsers' options and defaults, and ``--device`` where
+    the data run as tensor operations."""
+    want = _options(_subparsers(_subparsers(_jax_parser())[group])[cmd])
+    got = _options(_subparsers(_subparsers(t_cli.build_parser())[group])[cmd])
+    extra = {"--device"} if cmd in DEVICE_PLOTS else set()
+    assert set(got) == set(want) | extra
+    assert {k: v for k, v in got.items() if k not in extra} == want
+    if extra:
+        assert got["--device"][0] == "cuda"
+    assert set(_subparsers(_subparsers(t_cli.build_parser())["plot"])) == \
+        set(PLOT_COMMANDS)
 
 
 @pytest.mark.parametrize("argv", [
     ["resquiggle", "d", "r.fa"],
     ["detect_modifications", "de_novo", "d", "--reference", "r.fa",
      "--statistics-file-basename", "o"],
-    ["build_model", "estimate_scale", "d"]])
+    ["build_model", "estimate_scale", "d"],
+    ["plot", "kmer", "d"],
+    ["plot", "roc", "--statistics-filenames", "s.tombo.stats"]])
 def test_no_card_exits_1_with_the_device_error(argv, capsys):
     assert t_cli.main(argv) == 1
     assert "no CUDA device is available" in capsys.readouterr().err

@@ -26,7 +26,9 @@ the same code on the CPU, and so do ``alt_llhr`` and the level tests
 alone.  The model re-centring fit (DNA and RNA) on the card matches its
 float32 run on the CPU, and so does the re-squiggle runner over a memory
 source of mapped error-prone reads.  Two processes on the card merge
-their detection over gloo into the one-process statistics."""
+their detection over gloo into the one-process statistics.  The plot
+data (k-mer levels, max-difference regions, clustered traces, accuracy
+rates) from the card's device means equal the CPU's bit for bit."""
 import numpy as np
 import pytest
 import torch
@@ -439,8 +441,8 @@ def test_fit_score_same_in_any_batch_size(card):
     assert diff == [], "reads %s score differently" % diff
 
 
-def _card_detection_index(card):
-    """Eight 1,000-base reads re-squiggled on the card; their device
+def _card_detection_index(card, n_reads=8, ref_len=6000):
+    """``n_reads`` 1,000-base reads re-squiggled on the card; their device
     means registered again as CPU copies.  Returns (index, reference,
     model)."""
     from tombo_tpu_torch.io.index import ReadsIndex
@@ -448,11 +450,11 @@ def _card_detection_index(card):
     from tombo_tpu_torch.types import ReadData
     rng = np.random.default_rng(9)
     model = KmerModel.load_default("DNA")
-    fasta = testing.random_reference(np.random.default_rng(10), 6000)
+    fasta = testing.random_reference(np.random.default_rng(10), ref_len)
     sst = SeqSampleType("DNA", False)
     params = config.load_resquiggle_parameters("DNA")
     maps = []
-    for i in range(8):
+    for i in range(n_reads):
         read = testing.simulate_read(rng, fasta, model, read_len=1000,
                                      read_id="d_%03d" % i)
         mr = rsq.map_read(SequenceData(read.seq, read.read_id, 12.0),
@@ -724,3 +726,49 @@ def test_memory_runner_on_card_matches_cpu(card):
                   for k, v in g_idx.reads_index.items() for r in v) == \
         sorted((k, r.read_id, r.start, r.end)
                for k, v in c_idx.reads_index.items() for r in v)
+
+
+def test_plot_data_on_card_matches_cpu(card):
+    """48 1 kb reads re-squiggled on the card (16 a position): the plot
+    data from the card's device means equal the same
+    functions on CPU copies of the means: k-mer levels (both forms), the
+    max-difference regions, the clustered traces at slide_span 0 and 3
+    (split into sample and control halves), and the accuracy rates of
+    300,000 pairs with ties, bitwise."""
+    from tombo_tpu_torch.io.index import ReadsIndex
+    from tombo_tpu_torch.plot import accuracy, signal
+    from tombo_tpu_torch.stats import device_levels
+    index, fasta, model = _card_detection_index(card, 48, 3000)
+    samp, ctrl = ReadsIndex(), ReadsIndex()
+    for i, ((chrm, strand), r) in enumerate(
+            (cs, r) for cs, rs in index for r in rs):
+        (samp if i % 2 else ctrl).add_read_data(chrm, strand, r)
+    regions = [("chr_test", s, s + 21, st, "%03d" % i, "r%d" % i)
+               for i, (s, st) in enumerate(
+                   [(p, st) for p in range(1000, 2000, 200)
+                    for st in "+-"])]
+    out = {}
+    for d in (card, torch.device("cpu")):
+        out[d.type] = (
+            signal.kmer_levels(index, 3, 8, device=d, fasta=fasta),
+            signal.kmer_levels(index, 2, 8, read_mean=True,
+                               num_kmer_threshold=2, device=d,
+                               fasta=fasta),
+            [(r.chrm, r.strand, r.start, r.end) for r in
+             signal.max_difference_regions(samp, ctrl, 6, 21, device=d)],
+            [signal.cluster_traces(regions, samp, ctrl, span, device=d)
+             for span in (0, 3)])
+    g, c = out["cuda"], out["cpu"]
+    assert g[0] == c[0] and g[1] == c[1] and g[0]
+    assert g[2] == c[2] and len(g[2]) == 6
+    for a, b in zip(g[3], c[3]):
+        assert list(a) == list(b) and a
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+    rng = np.random.default_rng(4)
+    pairs = (np.round(rng.normal(0, 1, 300000), 2), rng.random(300000) < 0.4)
+    on_card, on_cpu = (accuracy.prep_accuracy_rates(
+        {"m": pairs}, verbose=False, device=d)["m"] for d in ("cuda", "cpu"))
+    for a, b in zip(on_card, on_cpu):
+        np.testing.assert_array_equal(a, b)
+    device_levels.clear()

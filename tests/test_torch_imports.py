@@ -39,7 +39,9 @@ PORT_MODULES = [
     "tombo_tpu_torch.pipeline.runner", "tombo_tpu_torch.cli",
     "tombo_tpu_torch.cli.main", "tombo_tpu_torch.__main__",
     "tombo_tpu_torch.output", "tombo_tpu_torch.output.text",
-    "tombo_tpu_torch.preprocess",
+    "tombo_tpu_torch.preprocess", "tombo_tpu_torch.plot",
+    "tombo_tpu_torch.plot.accuracy", "tombo_tpu_torch.plot.signal",
+    "tombo_tpu_torch.plot.cli", "tombo_tpu_torch.pipeline.event_resquiggle",
 ]
 
 
@@ -105,6 +107,88 @@ def test_port_source_imports_h5py_only_inside_functions():
     nested = [os.path.join(ROOT, "tombo_tpu_torch", *p) for p in (
         ("output", "text.py"), ("filters.py",), ("preprocess.py",))]
     assert all("    import h5py\n" in open(p).read() for p in nested)
+
+
+def test_plot_and_event_resquiggle_import_no_matplotlib_or_h5py():
+    """The plot package and the event re-squiggle import neither
+    matplotlib nor h5py: each is imported inside the functions that draw
+    or open a file, never at a module's top level."""
+    code = textwrap.dedent("""
+        import importlib, sys
+        for m in ("tombo_tpu_torch.plot", "tombo_tpu_torch.plot.signal",
+                  "tombo_tpu_torch.plot.accuracy",
+                  "tombo_tpu_torch.pipeline.event_resquiggle",
+                  "tombo_tpu_torch.cli.main"):
+            importlib.import_module(m)
+        print("matplotlib" in sys.modules, "h5py" in sys.modules)
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False"]
+    top = re.compile(r"^(from|import)\s+matplotlib\b")
+    hits = []
+    for root, _, fns in os.walk(os.path.join(ROOT, "tombo_tpu_torch")):
+        for fn in fns:
+            if fn.endswith(".py"):
+                path = os.path.join(root, fn)
+                hits += [(path, ln) for ln in open(path) if top.match(ln)]
+    assert not hits
+
+
+def test_plot_data_runs_without_matplotlib_or_h5py():
+    """The plot data functions with matplotlib and h5py unimportable, on
+    device-resident means (CPU tensors): k-mer levels, the max-difference
+    regions, clustered traces and the accuracy rates."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["matplotlib"] = None
+        sys.modules["h5py"] = None
+        import numpy as np, torch
+        from tombo_tpu_torch import testing
+        from tombo_tpu_torch.io.index import ReadsIndex
+        from tombo_tpu_torch.io.model_io import KmerModel
+        from tombo_tpu_torch.plot import accuracy, signal
+        from tombo_tpu_torch.stats import device_levels
+        from tombo_tpu_torch.types import ReadData
+        rng = np.random.default_rng(0)
+        model = KmerModel.load_default("DNA")
+        fasta = testing.random_reference(rng, 3000)
+        idx = {"s": ReadsIndex(), "c": ReadsIndex()}
+        means = torch.tensor(rng.normal(0, 1, (12, 400)))
+        entries = []
+        for i in range(12):
+            name, strand = "sc"[i % 2], "+-"[(i // 2) % 2]
+            start = 100 + 13 * i
+            idx[name].add_read_data("chr_test", strand, ReadData(
+                start, start + 400, False, 0, strand, "", "g", False,
+                read_id="r%d" % i))
+            entries.append(("r%d" % i, i, 400))
+        device_levels.register_batch(means, entries)
+        cpu = torch.device("cpu")
+        km = signal.kmer_levels(idx["s"], 2, 4, device=cpu, fasta=fasta)
+        regs = signal.max_difference_regions(idx["s"], idx["c"], 3, 21,
+                                             device=cpu)
+        cl = signal.cluster_traces(
+            [("chr_test", 300, 321, "+", "000", "a"),
+             ("chr_test", 300, 321, "-", "001", "b")],
+            idx["s"], idx["c"], 2, device=cpu)
+        curves = accuracy.prep_accuracy_rates(
+            {"m": (rng.normal(0, 1, 1000), rng.random(1000) < 0.5)},
+            verbose=False, device=cpu)
+        print(len(km), sum(len(v) for v in km.values()), len(regs),
+              sorted(cl), [v.shape for v in cl.values()],
+              curves["m"][0].shape[0], "matplotlib" in sys.modules and
+              sys.modules["matplotlib"] is not None)
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [
+        "16", str(4 * 399), "3", "['a',", "'b']",
+        "[(6,", "21),", "(6,", "21)]", "1000", "False"], out.stdout
 
 
 def test_detection_runs_without_h5py():

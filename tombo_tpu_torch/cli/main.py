@@ -9,12 +9,14 @@ port has: ``resquiggle``, ``preprocess annotate_raw_with_fastqs``,
 ``detect_modifications`` (``de_novo``, ``alternative_model``,
 ``model_sample_compare``, ``level_sample_compare``,
 ``aggregate_per_read_stats``), ``text_output`` (``browser_files``,
-``signif_sequence_context``) and ``build_model`` (``estimate_reference``,
+``signif_sequence_context``), ``build_model`` (``estimate_reference``,
 ``estimate_alt_reference``, ``estimate_motif_alt_reference``,
-``estimate_scale``).  The commands that run batched work take
-``--device`` (default ``cuda``): without a card such a command fails
-unless ``--device cpu`` is given; ``preprocess``, ``filter`` and
-``text_output`` are host only.  ``resquiggle`` and the detection tests
+``estimate_scale``, ``event_resquiggle``) and ``plot`` (thirteen
+plots, ``plot/cli.py``).  The commands that run batched or tensor work
+take ``--device`` (default ``cuda``): without a card such a command
+fails unless ``--device cpu`` is given; ``preprocess``, ``filter``,
+``text_output``, ``build_model event_resquiggle`` and the signal plots
+are host only.  ``resquiggle`` and the detection tests
 run over several hosts with ``--num-hosts``, ``--host-id`` and
 ``--coordinator-address`` (gloo).  A run error or a missing card ends
 the command with exit code 1 and its message.
@@ -799,6 +801,98 @@ def _add_build_model_parsers(subparsers):
     _add_common(p)
     p.set_defaults(func=_est_motif_alt)
 
+    def _event_rsq(args):
+        """The legacy event-table re-squiggle (host only: FAST5 files on
+        numpy); an alignment file or an external aligner's executable
+        replaces the in-process aligner."""
+        from ..io.fasta import Fasta
+        from ..pipeline.event_resquiggle import event_resquiggle_all_reads
+        fasta = Fasta.read(args.reference)
+        mapper_exe = mapper_type = None
+        for exe, mtype in ((args.minimap2_executable, "minimap2"),
+                           (args.bwa_mem_executable, "bwa_mem"),
+                           (args.graphmap_executable, "graphmap")):
+            if exe is not None:
+                mapper_exe, mapper_type = exe, mtype
+                break
+        aligner = (None if args.alignment_file is not None or
+                   mapper_exe is not None else _open_genomic_aligner(args))
+        n_ok, n_fail, fails = event_resquiggle_all_reads(
+            args.fast5_basedir, aligner, args.basecall_group,
+            args.basecall_subgroups[0], args.corrected_group,
+            overwrite=args.overwrite,
+            num_threads=args.resquiggle_processes or args.processes,
+            norm_type=args.normalization_type,
+            pore_model_fn=args.pore_model_filename,
+            sam_fn=args.alignment_file, fasta=fasta,
+            genome_fn=args.reference, mapper_exe=mapper_exe,
+            mapper_type=mapper_type, minimap2_index=args.minimap2_index,
+            alignment_batch_size=args.alignment_batch_size,
+            align_processes=args.align_processes,
+            align_threads_per_process=args.align_threads_per_process,
+            timeout=args.timeout, num_cpts_limit=args.cpts_limit)
+        if not args.quiet:
+            print("Event re-squiggle complete: %d succeeded, %d failed"
+                  % (n_ok, n_fail))
+            for mode, cnt in sorted(fails.items(), key=lambda kv: -kv[1]):
+                print("  %5d : %s" % (cnt, mode))
+        return 0
+    p = sub.add_parser("event_resquiggle",
+                       help="Re-annotate raw signal using the basecaller "
+                            "event table (legacy algorithm).")
+    p.add_argument("fast5_basedir")
+    p.add_argument("reference")
+    p.add_argument("--basecall-group", default="Basecall_1D_000")
+    p.add_argument("--overwrite", action="store_true")
+    p.add_argument("--allow-exact-aligner", action="store_true",
+                   help="Permit the built-in exact aligner when mappy and "
+                        "the native aligner are unavailable (synthetic or "
+                        "error-free reads only).")
+    p.add_argument("--alignment-file",
+                   help="SAM (or .m5) file from an external aligner "
+                        "(graphmap, bwa-mem, minimap2); replaces "
+                        "in-process mapping.")
+    p.add_argument("--normalization-type", default="median",
+                   choices=("median", "pA", "pA_raw", "none"),
+                   help='"none": raw DAC values; "pA_raw": pA via channel '
+                        'offset/range/digitisation; "pA": k-mer-model '
+                        "fitted pA correction (requires "
+                        "--pore-model-filename). Default: %(default)s")
+    p.add_argument("--pore-model-filename",
+                   help="TSV pore model (kmer, level_mean, level_stdv "
+                        "columns) for pA normalization.")
+    # external aligners (reference: tombo/_option_parsers.py:268-301;
+    # the first given of minimap2, bwa-mem, graphmap is used)
+    p.add_argument("--minimap2-executable",
+                   help="Path to minimap2 executable; reads are mapped by "
+                        "batched subprocess calls.")
+    p.add_argument("--minimap2-index",
+                   help="Pre-built minimap2 genome index (.mmi).")
+    p.add_argument("--bwa-mem-executable",
+                   help="Path to bwa-mem executable.")
+    p.add_argument("--graphmap-executable",
+                   help="Path to graphmap executable.")
+    p.add_argument("--alignment-batch-size", type=int, default=1000,
+                   help="Reads per aligner invocation. Default: "
+                        "%(default)s")
+    p.add_argument("--align-processes", type=int, default=1,
+                   help="Concurrent aligner invocations. Default: "
+                        "%(default)s")
+    p.add_argument("--align-threads-per-process", type=int, default=1,
+                   help="Threads per aligner invocation (-t). Default: "
+                        "%(default)s")
+    p.add_argument("--resquiggle-processes", type=int,
+                   help="Worker threads for the re-segmentation stage "
+                        "(defaults to --processes).")
+    p.add_argument("--timeout", type=int,
+                   help="Timeout in seconds for re-segmenting a single "
+                        "read. Default: no timeout.")
+    p.add_argument("--cpts-limit", type=int,
+                   help="Maximum changepoints within a single indel "
+                        "group. Default: no limit.")
+    _add_common(p, device=False)
+    p.set_defaults(func=_event_rsq)
+
     def _est_scale(args):
         """The mean of raw-signal MADs over up to ``--num-reads`` files,
         shuffled with seed 0 (the JAX command's estimate)."""
@@ -847,6 +941,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_detect_parsers(subparsers)
     _add_text_output_parsers(subparsers)
     _add_build_model_parsers(subparsers)
+    from ..plot import add_plot_parsers
+    add_plot_parsers(subparsers)
     return parser
 
 

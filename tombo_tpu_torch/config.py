@@ -207,6 +207,13 @@ NUM_READS_TO_ADJUST_MODEL = 5000
 # central base of a nanopolish-style text model
 NANOPOLISH_CENTRAL_POS = 2
 
+# robust-median normalization's shift: the mean of these percentiles of
+# the raw signal (tombo_tpu/config.py:195)
+ROBUST_QUANTS = (46.5, 53.5)
+# points of a plotted ROC or precision-recall curve
+# (tombo_tpu/config.py:203)
+ROC_PLOT_POINTS = 1000
+
 
 def get_dynamic_prog_params(match_evalue: float) -> Tuple[float, float]:
     """(z_shift, stay_pen) from the expected match e-value."""

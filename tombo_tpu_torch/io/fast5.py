@@ -272,6 +272,19 @@ def read_corrected_levels(fn: str, corr_group: str,
     return means, seq, read_id
 
 
+def read_corrected_events(fast5_fn: str, corr_grp: str):
+    """(Events table, read_start_rel_to_raw, Alignment attributes, RNA
+    flag) of a re-squiggled read's corrected group."""
+    import h5py
+    with h5py.File(fast5_fn, "r") as fast5_data:
+        grp = fast5_data["/Analyses/" + corr_grp]
+        events = grp["Events"][:]
+        rsrtr = int(grp["Events"].attrs["read_start_rel_to_raw"])
+        align_attrs = dict(grp["Alignment"].attrs.items())
+        rna = bool(grp.attrs.get("rna", False))
+    return events, rsrtr, align_attrs, rna
+
+
 def read_raw_and_events(fn: str, corr_group: str
                         ) -> Tuple[np.ndarray, np.ndarray, str]:
     """(stored raw signal, event starts, base sequence) of one read's

@@ -332,3 +332,19 @@ def raw_traceback(reg_fwd_scores, min_obs_per_base):
             curr_b_data, curr_start, next_b_data, next_start, next_end,
             new_segs[base_pos + 1] - 1, min_obs_per_base)
     return new_segs
+
+
+def compute_slopes(r_event_means: np.ndarray, r_model_means: np.ndarray,
+                   max_slope: float = 1000.0) -> np.ndarray:
+    """All-pairs slopes of the Theil-Sen estimator, (i < j) pairs in
+    ``itertools.combinations`` order; pairs of equal event means get
+    ``max_slope`` (reference: tombo/_c_helper.pyx:362
+    ``c_compute_slopes``)."""
+    n = r_event_means.shape[0]
+    iu = np.triu_indices(n, k=1)
+    de = r_event_means[iu[0]] - r_event_means[iu[1]]
+    dm = r_model_means[iu[0]] - r_model_means[iu[1]]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        slopes = dm / de
+    slopes[de == 0] = max_slope
+    return slopes

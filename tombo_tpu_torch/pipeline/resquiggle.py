@@ -2,7 +2,8 @@
 (subset copy of ``tombo_tpu/pipeline/resquiggle.py``; reference:
 tombo/resquiggle.py): event counts, read mapping, the RNA signal
 adjustments (3'->5' flip, adapter trim, stall intervals), per-read
-normalization and scale values, traceback trimming and raw coordinates,
+normalization (every normalization type) and scale values, the
+sequence-fitted shift and scale, traceback trimming and raw coordinates,
 the short-read static assignment, and the deletion-fix window planner and
 numpy fix for host-lane reads."""
 from __future__ import annotations
@@ -171,12 +172,20 @@ def resolve_skipped_bases_with_raw(dp_res: DpResults, norm_signal,
 
 def normalize_raw_signal(all_raw_signal, read_start_rel_to_raw=0,
                          read_obs_len=None, norm_type="median",
-                         outlier_thresh=None,
+                         outlier_thresh=None, channel_info=None,
                          scale_values: Optional[ScaleValues] = None,
-                         const_scale=None):
+                         const_scale=None, event_means=None,
+                         model_means=None, model_inv_vars=None):
     """Normalize raw signal (reference: tombo/tombo_stats.py:482
-    ``normalize_raw_signal``; the ``median`` and ``median_const_scale``
-    types).  Returns (norm_signal, ScaleValues)."""
+    ``normalize_raw_signal``).  Returns (norm_signal, ScaleValues).
+
+    ``none`` keeps the DAC values; ``pA_raw`` converts them to pA through
+    the channel's offset, range and digitisation; ``pA`` then fits a
+    method-of-moments correction of the basecaller's event means
+    (``event_means``) to the pore model's levels (``model_means``,
+    ``model_inv_vars``); ``median`` and ``median_const_scale`` shift by
+    the median; ``robust_median`` by the mean of the ``ROBUST_QUANTS``
+    percentiles."""
     if read_obs_len is None:
         read_obs_len = all_raw_signal.shape[0] - read_start_rel_to_raw
     raw_signal = np.asarray(
@@ -184,6 +193,21 @@ def normalize_raw_signal(all_raw_signal, read_start_rel_to_raw=0,
                        read_start_rel_to_raw + read_obs_len], np.float64)
     if scale_values is not None:
         shift, scale = scale_values.shift, scale_values.scale
+    elif norm_type == "none":
+        shift, scale = 0.0, 1.0
+    elif norm_type in ("pA_raw", "pA"):
+        if channel_info is None:
+            raise TomboError("pA normalization requires channel info")
+        shift = -1.0 * channel_info.offset
+        scale = channel_info.digitisation / channel_info.range
+        if norm_type == "pA":
+            if event_means is None or model_means is None:
+                raise TomboError(
+                    "pA normalization requires basecaller event means "
+                    "and a pore model")
+            shift, scale, _, _ = calc_kmer_fitted_shift_scale(
+                shift, scale, event_means, model_means, model_inv_vars,
+                method="mom")
     elif norm_type == "median":
         shift = float(np.median(raw_signal))
         scale = float(np.median(np.abs(raw_signal - shift)))
@@ -192,6 +216,10 @@ def normalize_raw_signal(all_raw_signal, read_start_rel_to_raw=0,
             raise TomboError("median_const_scale needs a constant scale")
         shift = float(np.median(raw_signal))
         scale = float(const_scale)
+    elif norm_type == "robust_median":
+        shift = float(np.mean(np.percentile(raw_signal,
+                                            config.ROBUST_QUANTS)))
+        scale = float(np.median(np.abs(raw_signal - shift)))
     else:
         raise TomboError("Invalid normalization type: " + norm_type)
     norm_signal = (raw_signal - shift) / scale
@@ -208,6 +236,51 @@ def normalize_raw_signal(all_raw_signal, read_start_rel_to_raw=0,
         norm_signal = np.clip(norm_signal, lower_lim, upper_lim)
     return norm_signal, ScaleValues(shift, scale, lower_lim, upper_lim,
                                     outlier_thresh)
+
+
+def calc_kmer_fitted_shift_scale(prev_shift, prev_scale, r_event_means,
+                                 r_model_means, r_model_inv_vars=None,
+                                 method="theil_sen",
+                                 rng: Optional[np.random.Generator] = None):
+    """Sequence-fitted correction of a shift and scale (reference:
+    tombo/tombo_stats.py:370 ``calc_kmer_fitted_shift_scale``): the
+    Theil-Sen line of the model levels on the event means (at most
+    ``MAX_POINTS_FOR_THEIL_SEN`` points, drawn from ``rng``, default
+    ``np.random.default_rng(0)``) or the inverse-variance weighted
+    method of moments (``mom``).  Returns (shift, scale, shift
+    correction, scale correction)."""
+    if method == "theil_sen":
+        n = r_model_means.shape[0]
+        if n > config.MAX_POINTS_FOR_THEIL_SEN:
+            if rng is None:
+                rng = np.random.default_rng(0)
+            samp = rng.choice(n, config.MAX_POINTS_FOR_THEIL_SEN,
+                              replace=False)
+            r_model_means = r_model_means[samp]
+            r_event_means = r_event_means[samp]
+        slope = float(np.median(ref_impl.compute_slopes(
+            r_event_means, r_model_means)))
+        inter = float(np.median(r_model_means - slope * r_event_means))
+        if slope == 0:
+            raise TomboError(
+                "Read failed sequence-based signal re-scaling parameter "
+                "estimation.")
+        scale_corr_factor = 1.0 / slope
+        shift_corr_factor = -inter / slope
+    elif method == "mom":
+        mmv = r_model_means * r_model_inv_vars
+        mmv_sum = mmv.sum()
+        coef = np.array([[r_model_inv_vars.sum(), mmv_sum],
+                         [mmv_sum, (mmv * r_model_means).sum()]])
+        rev = r_event_means * r_model_inv_vars
+        dep = np.array([rev.sum(), (rev * r_model_means).sum()])
+        shift_corr_factor, scale_corr_factor = np.linalg.solve(coef, dep)
+    else:
+        raise TomboError(
+            "Invalid k-mer fitted normalization method: " + method)
+    shift = prev_shift + shift_corr_factor * prev_scale
+    scale = prev_scale * scale_corr_factor
+    return shift, scale, shift_corr_factor, scale_corr_factor
 
 
 def get_scale_values_from_events(all_raw_signal, valid_cpts, outlier_thresh,

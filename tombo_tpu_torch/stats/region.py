@@ -56,13 +56,44 @@ class ReadLevels:
     dev: Optional[tuple] = None
     seq: Optional[str] = None
 
+    def tensor(self, device: torch.device) -> torch.Tensor:
+        """The means as a float64 tensor on ``device``: the device-resident
+        ones gathered where they lie, a file's uploaded."""
+        if self.dev is not None:
+            flat, off = self.dev
+            n = self.r_data.end - self.r_data.start
+            return flat[off:off + n].to(device, torch.float64)
+        return torch.from_numpy(np.array(self.means, np.float64)).to(
+            device)
 
-def load_read_levels(r_data: ReadData, with_seq: bool = False
-                     ) -> ReadLevels:
-    """One read's norm_mean (and base sequence) through the LRU, then the
-    levels sidecar, then the FAST5 corrected group (reference:
-    tombo/tombo_helper.py:1593-1659).  The file's mtime and size are in
-    the key, so a re-squiggled file never serves stale levels."""
+
+def _fasta_seq(chrm: str, r: ReadData, fasta) -> str:
+    """The read-centric sequence of a read from the reference: the bases
+    of [start, end), reverse complemented on '-' (what re-squiggle
+    writes to the FAST5 ``base`` column)."""
+    if fasta is None:
+        raise TomboError("a device-resident read's sequence needs the "
+                         "reference")
+    seq = fasta.get_seq(chrm, r.start, r.end)
+    return rev_comp(seq) if r.strand == "-" else seq
+
+
+def load_read_levels(r_data: ReadData, with_seq: bool = False,
+                     device: Optional[torch.device] = None, fasta=None,
+                     chrm: Optional[str] = None) -> ReadLevels:
+    """One read's norm_mean (and base sequence): with ``device``, the
+    device-resident means of a re-squiggle in this process first (a
+    handle, ``dev``; the sequence from ``fasta`` at ``chrm``), then
+    through the LRU, the levels sidecar and the FAST5 corrected group
+    (reference: tombo/tombo_helper.py:1593-1659).  The file's mtime and
+    size are in the key, so a re-squiggled file never serves stale
+    levels."""
+    if device is not None:
+        h = device_levels.lookup(r_data.read_id,
+                                 r_data.end - r_data.start, device)
+        if h is not None:
+            return ReadLevels(r_data, None, r_data.read_id, dev=h, seq=(
+                _fasta_seq(chrm, r_data, fasta) if with_seq else None))
     try:
         st = os.stat(r_data.fn)
         key = (r_data.fn, r_data.corr_group, st.st_mtime_ns, st.st_size)
@@ -116,12 +147,22 @@ class RegionData:
         return RegionData(self.chrm, self.strand, start, end,
                           list(self.reads))
 
-    def add_reads(self, reads_index) -> "RegionData":
-        """Select the index's reads that overlap this interval (reference:
+    def add_reads(self, reads_index, require_full_span: bool = False
+                  ) -> "RegionData":
+        """Select the index's reads that overlap this interval, or with
+        ``require_full_span`` those that cover all of it; none where the
+        index has no read of the (chromosome, strand) (reference:
         tombo/tombo_helper.py:1860-1927)."""
-        self.reads = [r for r in reads_index.get_cs_reads(self.chrm,
-                                                          self.strand)
-                      if not (r.end <= self.start or r.start >= self.end)]
+        if (self.chrm, self.strand) not in reads_index:
+            self.reads = []
+            return self
+        cs_reads = reads_index.get_cs_reads(self.chrm, self.strand)
+        if require_full_span:
+            self.reads = [r for r in cs_reads
+                          if r.start <= self.start and r.end >= self.end]
+        else:
+            self.reads = [r for r in cs_reads
+                          if not (r.end <= self.start or r.start >= self.end)]
         return self
 
     def _device_hits(self, device: Optional[torch.device]) -> dict:
@@ -188,14 +229,7 @@ class RegionData:
                 if host.get(id(r)) is not None]
 
     def _fasta_seq(self, r: ReadData, fasta) -> str:
-        """The read-centric sequence of a read from the reference: the
-        bases of [start, end), reverse complemented on '-' (what
-        re-squiggle writes to the FAST5 ``base`` column)."""
-        if fasta is None:
-            raise TomboError("a device-resident read's sequence needs the "
-                             "reference")
-        seq = fasta.get_seq(self.chrm, r.start, r.end)
-        return rev_comp(seq) if r.strand == "-" else seq
+        return _fasta_seq(self.chrm, r, fasta)
 
     def get_base_levels(self, device: Optional[torch.device] = None
                         ) -> np.ndarray:

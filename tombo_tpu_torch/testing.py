@@ -1,13 +1,17 @@
-"""Synthetic reads for tests and the card smoke run (subset copy of
-``tombo_tpu/testing.py``; the same seeds give the same reads), and pore
-stalls to insert into them."""
+"""Synthetic reads for tests and the card smoke run (copy of
+``tombo_tpu/testing.py``; the same seeds give the same reads and files),
+pore stalls to insert into them, and the writers of single-read FAST5
+files with basecalls and basecaller event tables (``h5py`` is imported
+inside them)."""
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Tuple
+import os
+from dataclasses import dataclass, replace
+from typing import List, Optional, Tuple
 
 import numpy as np
 
+from . import config
 from .io.fasta import Fasta
 from .io.model_io import KmerModel
 from .seq import rev_comp
@@ -81,6 +85,32 @@ def simulate_read(
         read_start_rel_to_raw=pre_len)
 
 
+def write_synthetic_fast5(path: str, read: SyntheticRead,
+                          with_basecalls: bool = True,
+                          bc_grp: str = config.DEFAULT_BASECALL_GROUP,
+                          bc_subgrp: str = config.DEFAULT_BASECALL_SUBGROUP):
+    """A single-read FAST5 in the layout re-squiggle reads: the raw
+    signal, the channel (offset 0, range 1400, digitisation 8192) and,
+    with ``with_basecalls``, the basecalls' Fastq slot."""
+    import h5py
+    with h5py.File(path, "w") as f:
+        rg = f.create_group("Raw/Reads/Read_%d" % 1)
+        rg.attrs["read_id"] = read.read_id
+        rg.create_dataset("Signal", data=read.raw_signal.astype(np.int16))
+        cid = f.create_group("UniqueGlobalKey/channel_id")
+        cid.attrs["offset"] = 0.0
+        cid.attrs["range"] = 1400.0
+        cid.attrs["digitisation"] = 8192.0
+        cid.attrs["channel_number"] = 1
+        cid.attrs["sampling_rate"] = 4000
+        f.create_group("Analyses")
+        if with_basecalls:
+            bc = f.create_group("Analyses/" + bc_grp + "/" + bc_subgrp)
+            qual = "#" * len(read.seq)
+            fastq = "@%s\n%s\n+\n%s\n" % (read.read_id, read.seq, qual)
+            bc.create_dataset("Fastq", data=np.bytes_(fastq.encode()))
+
+
 def mutate_seq(rng: np.random.Generator, seq: str,
                err: float = 0.05) -> str:
     """Nanopore-like basecall errors at total rate ``err``: half
@@ -107,3 +137,84 @@ def insert_stall(rng: np.random.Generator, raw: np.ndarray, pos: int,
     at the level of ``raw[pos]`` plus Gaussian noise (DAC units)."""
     stall = np.round(raw[pos] + rng.normal(0, noise_sd, n_obs))
     return np.concatenate([raw[:pos], stall.astype(raw.dtype), raw[pos:]])
+
+
+def make_synthetic_dataset(tmpdir: str, n_reads: int = 10, seed: int = 42,
+                           ref_len: int = 20000, read_len: int = 800,
+                           model: Optional[KmerModel] = None,
+                           noisy_frac: float = 0.0,
+                           noisy_err: float = 0.05
+                           ) -> Tuple[Fasta, List[SyntheticRead], str]:
+    """A reference (written to ``tmpdir/reference.fasta``) and a
+    directory of FAST5 files of simulated reads.  Returns (fasta, reads,
+    fast5 directory).  A ``noisy_frac`` share of the reads get basecalls
+    with errors at rate ``noisy_err``; their raw signal stays the clean
+    simulation."""
+    rng = np.random.default_rng(seed)
+    if model is None:
+        model = KmerModel.load_default(config.DNA_SAMP_TYPE)
+    fasta = random_reference(rng, ref_len)
+    fast5_dir = os.path.join(tmpdir, "fast5s")
+    os.makedirs(fast5_dir, exist_ok=True)
+    reads = []
+    for i in range(n_reads):
+        read = simulate_read(rng, fasta, model, read_len=read_len,
+                             read_id="synth_%04d" % i)
+        if noisy_frac > 0 and rng.random() < noisy_frac:
+            read = replace(read, seq=mutate_seq(rng, read.seq, noisy_err))
+        write_synthetic_fast5(
+            os.path.join(fast5_dir, read.read_id + ".fast5"), read)
+        reads.append(read)
+    fasta.write(os.path.join(tmpdir, "reference.fasta"))
+    return fasta, reads, fast5_dir
+
+
+def write_basecaller_events(path: str, read: SyntheticRead,
+                            bc_grp: str = config.DEFAULT_BASECALL_GROUP,
+                            bc_subgrp: str =
+                            config.DEFAULT_BASECALL_SUBGROUP,
+                            jitter: int = 0,
+                            rng: Optional[np.random.Generator] = None,
+                            model: Optional[KmerModel] = None):
+    """Add a basecaller-style per-base ``Events`` table to a synthetic
+    FAST5, which the event re-squiggle reads.  ``jitter`` moves each
+    inner boundary by up to that many samples (drawn from ``rng``).
+    With ``model``, each event's mean in pA (the channel of
+    :func:`write_synthetic_fast5`) and its ``model_state`` k-mer, which
+    pA normalization needs."""
+    import h5py
+    segs = read.true_segs.copy()
+    if jitter and rng is not None:
+        inner = segs[1:-1] + rng.integers(-jitter, jitter + 1,
+                                          segs.shape[0] - 2)
+        segs[1:-1] = np.maximum.accumulate(
+            np.clip(inner, segs[0] + 1, segs[-1] - 1))
+        for i in range(1, segs.shape[0]):
+            if segs[i] <= segs[i - 1]:
+                segs[i] = segs[i - 1] + 1
+    starts = segs[:-1]
+    lengths = np.diff(segs)
+    n = len(lengths)
+    bases = [b.encode() for b in read.seq]
+    if model is not None:
+        raw = read.raw_signal.astype(np.float64)
+        means = np.array([raw[s:e].mean()
+                          for s, e in zip(segs[:-1], segs[1:])]) * \
+            (1400.0 / 8192.0)
+        k, cp = model.kmer_width, model.central_pos
+        pad = "A" * cp + read.seq + "A" * (k - cp - 1)
+        states = [pad[i:i + k].encode() for i in range(n)]
+        rec = np.array(
+            list(zip(starts, lengths, means, bases, states)),
+            dtype=[("start", "u8"), ("length", "u8"), ("mean", "f8"),
+                   ("base", "S1"), ("model_state", "S%d" % k)])
+    else:
+        rec = np.array(
+            list(zip(starts, lengths, np.zeros(n), bases)),
+            dtype=[("start", "u8"), ("length", "u8"), ("mean", "f8"),
+                   ("base", "S1")])
+    with h5py.File(path, "r+") as f:
+        grp = f.require_group("Analyses/" + bc_grp + "/" + bc_subgrp)
+        if "Events" in grp:
+            del grp["Events"]
+        grp.create_dataset("Events", data=rec)
