@@ -28,6 +28,28 @@ event-based scale; bandwidth 500, start band 1000/3000, save bandwidth
                 read-sharded launcher (K3), every read bitwise the 1-device
                 lane's.
 
+The one-read phase, after the three re-squiggle paths, drives the
+one-read API (``pipeline/resquiggle.py::resquiggle_read_with_retries``,
+start discovery through K4, the adaptive DP through K1 or the chunked
+pair, the fit through K5, each at a batch of one) over 64 reads of the
+1 kb path's first batch, 8 of the mixed path (the longest, the shortest
+that takes the host library's static band, and reads between) and 16 of
+the RNA path's first batch (two with a stall).  Each read is held
+against the batched lane's card result, 16 against the same function on
+the CPU at float64, and the DNA reads of at most 1,000 bases against the
+native single-core baseline (``native.py``), with
+tests/test_batch_parity.py's bars: every read succeeds or fails in both,
+and the same start and table length.  Against the batched lane at most
+ONE_READ_BATCHED_OUTSIDE of the reads may lie outside the bars (the JAX
+package's own one-read path falls outside them against the float32
+batched lane on a few reads in a hundred), each within the looser
+ONE_READ_LOOSE_BARS; the other two comparisons allow none.  It prints the
+one-read reads/s of each path and the baseline's, the kernels at their
+batch-of-one shapes, ``compute_base_mean_stds_batch`` on the card
+against the CPU, and the static band's seconds in the mixed and RNA
+breakdowns.  The host library builds with g++ beside the kernels in
+phase "build".
+
 Detection runs on the card from the device means re-squiggle registered:
 de novo (1 kb, mixed, RNA), sample-compare (1 kb), the alternative-model
 test (five DNA models and RNA 5mC), per-read statistics (each block
@@ -122,6 +144,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -187,6 +210,34 @@ MULTIHOST_HOSTS, MULTIHOST_TIMEOUT = 2, 300
 # of the 1 kb path's most significant sites lie where fewer than three
 # reads cover a region whole (2 of 10 clustered on the H100, 700 W)
 PLOT_CLUSTER_REGIONS = 50
+# the one-read phase: reads of the 1 kb path's first batch, of the mixed
+# path (the longest, the shortest that takes the static band and reads
+# between) and of the RNA path's first batch (stall reads among them);
+# per path, these reads run again on the CPU at float64 (of the mixed
+# ones the static-band read and one of a few kb: the longest one's plain
+# DP takes minutes); DNA reads of
+# at most this many bases are held against the native baseline (above
+# it the baseline's Theil-Sen subsample differs by design); the K1 row at
+# B 1 is the fused bw-300 call of at most ONE_READ_K1_ROWS rows
+ONE_READ_1KB, ONE_READ_MIXED, ONE_READ_RNA = 64, 8, 16
+ONE_READ_CPU = (range(10), (0, 3), range(4))
+ONE_READ_BASELINE_BASES, ONE_READ_K1_ROWS = 1000, 1100
+ONE_READ_BW, ONE_READ_START_BW = 300, 750
+# the reads the one-read phase's comparison with the batched lane may find
+# outside tests/test_batch_parity.py's bars: a tenth of them, rounded up.
+# On the CPU the JAX package's own one-read path (the port's at float64,
+# bit for bit) falls outside them against the float32 batched lane on 3
+# of 64 1 kb reads, where the rescaling passes re-select changepoints
+# whose ties a rounding breaks; on the H100 (700 W) the port's fell
+# outside on 5 of 64 1 kb reads, 1 of 8 mixed and 0 of 16 RNA.  The
+# comparisons with the CPU at float64 and with the native baseline allow
+# none (both read 0 there).  A read outside the bars must still meet
+# ONE_READ_LOOSE_BARS (the worst measured: segs 0.983, shift 1.7e-3,
+# scale 8.1e-4, score 2.1e-2), and a different start or table length
+# always fails.
+ONE_READ_BATCHED_OUTSIDE = 0.1
+ONE_READ_LOOSE_BARS = {"segs": 0.97, "shift": 5e-3, "scale": 5e-3,
+                       "score": 3e-2}
 DEVICE = "cuda"
 
 
@@ -1225,6 +1276,371 @@ def timed_command(label, fn, layers):
     return out, summary
 
 
+def result_bars(g, c):
+    """tests/test_batch_parity.py's bars between two results of one read:
+    (within, the measured differences): start equal, same table length,
+    boundaries equal on > 99%, shift and scale within 2e-3 of ``c``'s
+    scale, score within 1e-2."""
+    if (g.segs.shape != c.segs.shape or
+            g.read_start_rel_to_raw != c.read_start_rel_to_raw):
+        return False, {"start": [g.read_start_rel_to_raw,
+                                 c.read_start_rel_to_raw],
+                       "bases": [g.segs.shape[0], c.segs.shape[0]]}
+    sc = c.scale_values.scale
+    d = {"segs": float(np.mean(g.segs == c.segs)),
+         "shift": abs(g.scale_values.shift - c.scale_values.shift) / sc,
+         "scale": abs(g.scale_values.scale - sc) / sc,
+         "score": abs(g.sig_match_score - c.sig_match_score)}
+    return (d["segs"] > 0.99 and d["shift"] < 2e-3 and d["scale"] < 2e-3
+            and d["score"] < 1e-2), d
+
+
+def hold_results(label, got, want, names, allowed=0):
+    """Each read's result against another run's: the same reads succeed,
+    and those within :func:`result_bars`.  Prints every read that
+    differs (both errors, or the differences) and the worst differences
+    within the bars.  Fails when a read succeeds in one run only, when
+    its start or table length differs, when more than ``allowed`` reads
+    lie outside the bars, or when one of those misses
+    ONE_READ_LOOSE_BARS."""
+    worst = {"segs": 1.0, "shift": 0.0, "scale": 0.0, "score": 0.0}
+    outside = 0
+    for name, (g, ge), (c, ce) in zip(names, got, want):
+        if (ge is None) != (ce is None):
+            fail("%s %s: error %r, other run's error %r" % (
+                label, name, ge, ce))
+        if g is None:
+            continue
+        ok, d = result_bars(g, c)
+        if "start" in d:
+            fail("%s %s: start or table length differs %s" % (
+                label, name, json.dumps(d)))
+        if not ok:
+            print("  %s %s: outside the bars %s" % (label, name,
+                                                     json.dumps(d)))
+            lb = ONE_READ_LOOSE_BARS
+            if not (d["segs"] >= lb["segs"] and d["shift"] < lb["shift"]
+                    and d["scale"] < lb["scale"]
+                    and d["score"] < lb["score"]):
+                fail("%s %s: outside the looser bars %s" % (
+                    label, name, json.dumps(lb)))
+            outside += 1
+            continue
+        worst = {"segs": min(worst["segs"], d["segs"]),
+                 "shift": max(worst["shift"], d["shift"]),
+                 "scale": max(worst["scale"], d["scale"]),
+                 "score": max(worst["score"], d["score"])}
+    print("%s: %d of %d reads outside the bars (%d allowed); worst within "
+          "them: %s" % (label, outside, len(got), allowed,
+                        json.dumps(worst)))
+    if outside > allowed:
+        fail("%s: %d of %d reads outside the bars" % (label, outside,
+                                                       len(got)))
+    return outside
+
+
+def one_read_calls(model, params, save, sst, maps, device, dtype=None):
+    """Each read through ``resquiggle_read_with_retries``: (result, error)
+    per read and the wall seconds of the whole run."""
+    from tombo_tpu_torch import config
+    from tombo_tpu_torch.errors import TomboError
+    from tombo_tpu_torch.pipeline import resquiggle as rsq
+    out = []
+    t0 = time.perf_counter()
+    for mr in maps:
+        try:
+            out.append((rsq.resquiggle_read_with_retries(
+                mr, model, params, save,
+                outlier_thresh=config.OUTLIER_THRESH, seq_samp_type=sst,
+                device=device, dtype=dtype), None))
+        except TomboError as e:
+            out.append((None, str(e)))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def one_read_picks(model, maps, results):
+    """The mixed path's reads for the one-read phase: the longest, the
+    shortest that takes the static band (fewer events than start
+    discovery needs, ``find_adaptive_base_assignment``) and the reads at
+    evenly spaced ranks of length between them, ``ONE_READ_MIXED`` in
+    all."""
+    from tombo_tpu_torch import config
+    from tombo_tpu_torch.pipeline import resquiggle as rsq
+    p = config.load_resquiggle_parameters("DNA")
+    n_bases = np.array([len(m.genome_seq) for m in maps])
+    n_ev = np.array([rsq.compute_num_events(
+        m.raw_signal.shape[0], n - model.kmer_width + 1,
+        p.mean_obs_per_event) - 1 for m, n in zip(maps, n_bases)])
+    order = np.argsort(n_bases, kind="stable")
+    static = [i for i in order if n_ev[i] < p.start_bw + p.start_n_bases]
+    if not static:
+        fail("one_read: no mixed read takes the static band")
+    rest = [i for i in order if i != static[0] and i != order[-1] and
+            results[i][0] is not None]
+    mid = [rest[int(k)] for k in np.linspace(0, len(rest) - 1,
+                                            ONE_READ_MIXED - 2)]
+    pick = [int(static[0])] + [int(i) for i in mid] + [int(order[-1])]
+    return pick
+
+
+def b1_rows(rec, launches, n_calls):
+    """The one-read phase's kernels at a batch of one, timed on the inputs
+    the phase gave them: K1 (the longest fused bw-300 call of at most
+    ONE_READ_K1_ROWS rows, a 1 kb read's), K4 (the
+    start DP's K1 launch at start_bw), the chunked pair (the longest
+    read's call, if it ran chunked) and K5 (the count at the fit's
+    largest shape).  Each row: CUDA-event ms, launches a one-read call,
+    the bound as ``k1_bound_ms``/``bound_ms`` compute it, the plain
+    version's ms and the library call's."""
+    from tombo_tpu_torch.ops import banded_dp, rescale
+    k1, k2, k5 = (banded_dp.adaptive_banded_dp_tb,
+                  banded_dp.adaptive_banded_dp_tb_chunked, rescale.count_le)
+    rows = {}
+    per_call = lambda n: n / n_calls
+    fused = [k for k in rec["k1"].calls
+             if k[1] == ONE_READ_BW and k[0] <= ONE_READ_K1_ROWS]
+    start = [k for k in rec["k1"].calls if k[1] == ONE_READ_START_BW]
+    for name, key, launch_name in (("banded_dp", max(fused), "banded_dp"),
+                                   ("start_dp", max(start), "start_dp")):
+        _, args, _ = rec["k1"].calls[key]
+        ko, po = k1(*args), banded_dp.adaptive_banded_dp_tb_plain(*args)
+        torch.cuda.synchronize()
+        same_flags, frac, ferr = dp_compare(ko, po, args[4], args[10])
+        check_dp_bars("%s at B 1" % name, same_flags, frac, ferr)
+        bound, by = k1_bound_ms(args, args[9].bandwidth)
+        rows[name] = {
+            "B": 1, "L": args[10], "bw": args[9].bandwidth,
+            "launches_per_read": per_call(launches[launch_name]),
+            "max_abs_err": ferr, "segs_equal_frac": frac,
+            "ms": cuda_ms(lambda: k1(*args), 20),
+            "plain_ms": cuda_ms(
+                lambda: banded_dp.adaptive_banded_dp_tb_plain(*args), 2),
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+    if rec["k2"].calls:
+        _, args, kw = max(rec["k2"].calls.values(),
+                          key=lambda v: v[1][10])
+        co, ko = k2(*args, **kw), k1(*args)
+        torch.cuda.synchronize()
+        assert_bitwise("one-read chunked pair at B 1", co, ko)
+        # K1's plain version (the pair is bitwise K1) on CPU copies of
+        # the same inputs: at B 1 a plain row costs ~2 ms on the card and
+        # less on the host; the chunked plain, which recomputes every
+        # chunk, took 41.3 s there at L 30,000 (H100 80GB HBM3 host,
+        # PERF.md)
+        cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        t0 = time.perf_counter()
+        po = banded_dp.adaptive_banded_dp_tb_plain(*cpu_args)
+        plain_cpu_ms = 1e3 * (time.perf_counter() - t0)
+        same_flags, frac, ferr = dp_compare(
+            co, [t.to(co[0].device) for t in po], args[4], args[10])
+        check_dp_bars("one-read chunked pair at B 1", same_flags, frac, ferr)
+        fwd_ms, tb_ms = pair_split_ms(lambda: k2(*args, **kw), 5)
+        bound, by = k1_bound_ms(args, args[9].bandwidth)
+        for name, ms in (("banded_dp_chunked_fwd", fwd_ms),
+                         ("banded_dp_chunked_tb", tb_ms)):
+            rows[name] = {
+                "B": 1, "L": args[10], "bw": args[9].bandwidth,
+                "Lc": kw["chunk_rows"], "bitwise_k1": True,
+                "launches_per_read": per_call(launches[name]),
+                "max_abs_err": ferr, "segs_equal_frac": frac, "ms": ms,
+                "plain_ms": "not measured on the card (the plain row "
+                            "loop there takes about a minute)",
+                "plain_cpu_ms": plain_cpu_ms, "plain": "K1's, on the CPU",
+                "bound_ms": bound, "bound_by": by, "library_ms": None}
+    keys, piv = max(rec["k5"].calls.values(), key=lambda v: v[0])[1]
+    cerr = int((k5(keys, piv) - rescale.count_le_plain(keys, piv)).abs()
+               .max())
+    if cerr != 0:
+        fail("count_le at B 1 differs from the plain version by %d" % cerr)
+    B5, M5 = keys.shape
+    P5 = piv.shape[1]
+    ev, mod, n_pts = max(rec["ts"].calls.values(), key=lambda v: v[0])[1][:3]
+    k_rank = int(rescale._pair_ranks(n_pts)[2][0]) + 1
+    t_b = (B5 * M5 * 4 + 3 * B5 * P5 * 4) / HBM_BYTES_PER_S
+    t_o = 2 * B5 * M5 * P5 / F32_OPS_PER_S
+    rows["count_le"] = {
+        "B": B5, "M": M5, "P": P5, "points": int(n_pts[0]),
+        "launches_per_read": per_call(launches["count_le"]),
+        "max_abs_err": cerr, "ms": cuda_ms(lambda: k5(keys, piv), 20),
+        "plain_ms": cuda_ms(lambda: rescale.count_le_plain(keys, piv), 5),
+        "bound_ms": 1e3 * max(t_b, t_o),
+        "bound_by": "bytes" if t_b >= t_o else "operations",
+        "library_ms": cuda_ms(lambda: torch.kthvalue(keys, k_rank, dim=1),
+                              5)}
+    return rows
+
+
+def one_read_phase(dev, smi, paths, stages):
+    """The one-read API (``resquiggle_read_with_retries``) on the card:
+    ONE_READ_1KB reads of the 1 kb path's first batch, ONE_READ_MIXED of
+    the mixed path (:func:`one_read_picks`) and ONE_READ_RNA of the RNA
+    path (stall reads among them), each held against the batched lane's
+    card result for the same read; ONE_READ_CPU of them again on the CPU
+    at float64; the DNA reads of at most 1,000 bases against the native
+    single-core baseline; K1, K4 and K5 launched; then the kernels at
+    their B 1 shapes (:func:`b1_rows`), ``compute_base_mean_stds_batch``
+    on the card against the CPU, and the static band's seconds in the
+    mixed and RNA breakdowns.  ``paths``: (label, model, params, sst,
+    maps, batch results) per path.  Returns (launches, B 1 rows)."""
+    from tombo_tpu_torch import config, kernels, native
+    from tombo_tpu_torch.errors import TomboError
+    from tombo_tpu_torch.ops import banded_dp, rescale
+    from tombo_tpu_torch.ops import normalize as nrm
+    from tombo_tpu_torch.pipeline import resquiggle as rsq
+    from tombo_tpu_torch.types import ScaleValues
+    rec = {"k1": Recorder(banded_dp.adaptive_banded_dp_tb, dp_key),
+           "k2": Recorder(banded_dp.adaptive_banded_dp_tb_chunked, dp_key),
+           "k5": Recorder(rescale.count_le,
+                          lambda keys, piv: (piv.shape[1], keys.shape[1])),
+           "ts": Recorder(rescale.theil_sen_device,
+                          lambda ev, *a, **kw: (ev.shape[1], ev.shape[1]))}
+    static = {"calls": 0}
+    static_fn = native.static_base_assignment
+
+    def static_rec(*a, **kw):
+        static["calls"] += 1
+        return static_fn(*a, **kw)
+    runs = []
+    with patched([(banded_dp, "adaptive_banded_dp_tb", rec["k1"]),
+                  (banded_dp, "adaptive_banded_dp_tb_chunked", rec["k2"]),
+                  (rescale, "count_le", rec["k5"]),
+                  (rescale, "theil_sen_device", rec["ts"]),
+                  (native, "static_base_assignment", static_rec)]):
+        for name in kernels.LAUNCHES:
+            kernels.LAUNCHES[name] = 0
+        for label, model, params, sst, maps, batch_res in paths:
+            save = config.load_resquiggle_parameters(
+                sst.name, use_save_bandwidth=True)
+            got, wall = one_read_calls(model, params, save, sst, maps,
+                                       DEVICE)
+            n_ok = sum(1 for r, _ in got if r is not None)
+            lens = [len(m.genome_seq) - model.kmer_width + 1 for m in maps]
+            print("one-read %s: %d/%d reads ok in %.2f s = %.1f reads/s on "
+                  "the card (%s); bases %d to %d%s" % (
+                      label, n_ok, len(got), wall, n_ok / wall, smi,
+                      min(lens), max(lens),
+                      " (%s)" % lens if len(lens) <= ONE_READ_MIXED else ""))
+            runs.append((label, model, params, sst, maps, batch_res, got))
+        launches = dict(kernels.LAUNCHES)
+    n_calls = sum(len(r[4]) for r in runs)
+    print("one-read launches (%d reads): %s; static band calls %d" % (
+        n_calls, json.dumps(launches), static["calls"]))
+    for name in ("banded_dp", "start_dp", "count_le"):
+        if launches[name] <= 0:
+            fail("one_read: kernel %s was not launched" % name)
+    if static["calls"] <= 0:
+        fail("one_read: no read took the static band")
+    from tombo_tpu_torch.pipeline.batch import _pow2_bucket
+    model_m, maps_m = runs[1][1], runs[1][4]
+    long_L = max(len(m.genome_seq) for m in maps_m) - model_m.kmer_width + 1
+    if banded_dp.plan_dp_layout(_pow2_bucket(long_L, 256),
+                                ONE_READ_BW)[0] == "chunked" and not (
+            launches["banded_dp_chunked_fwd"] and
+            launches["banded_dp_chunked_tb"]):
+        fail("one_read: the longest mixed read did not run chunked")
+
+    for label, model, params, sst, maps, batch_res, got in runs:
+        names = [m.align_info.read_id for m in maps]
+        hold_results("one-read %s vs the batched lane" % label, got,
+                     batch_res, names, allowed=math.ceil(
+                         ONE_READ_BATCHED_OUTSIDE * len(got)))
+    # the CPU at float64 from CPU copies (ONE_READ_CPU)
+    cpu_in, cpu_got, cpu_names = [], [], []
+    for (label, model, params, sst, maps, _, got), idx in zip(
+            runs, ONE_READ_CPU):
+        save = config.load_resquiggle_parameters(sst.name,
+                                                 use_save_bandwidth=True)
+        sub = [maps[i] for i in idx]
+        out, wall = one_read_calls(model, params, save, sst, sub, "cpu",
+                                   torch.float64)
+        print("one-read %s: %d reads (bases %s) on the CPU at float64 in "
+              "%.1f s" % (label, len(sub), [
+                  len(m.genome_seq) - model.kmer_width + 1 for m in sub],
+                  wall))
+        cpu_in += out
+        cpu_got += [got[i] for i in idx]
+        cpu_names += [m.align_info.read_id for m in sub]
+    hold_results("one-read card vs CPU float64", cpu_got, cpu_in, cpu_names)
+
+    # the native baseline on the DNA reads of at most 1,000 bases that
+    # have the events start discovery needs (the baseline has no static
+    # band: it fails those reads)
+    smt = config.SIG_MATCH_THRESH["DNA"]
+    base_got, base_want, base_names = [], [], []
+    t_base, n_static = 0.0, 0
+    for label, model, params, sst, maps, _, got in runs[:2]:
+        save = config.load_resquiggle_parameters("DNA",
+                                                 use_save_bandwidth=True)
+        for mr, g in zip(maps, got):
+            rm, rs = model.get_exp_levels_from_seq(mr.genome_seq)
+            if rm.shape[0] > ONE_READ_BASELINE_BASES:
+                continue
+            if rsq.compute_num_events(
+                    mr.raw_signal.shape[0], rm.shape[0],
+                    params.mean_obs_per_event) - 1 < \
+                    params.start_bw + params.start_n_bases:
+                n_static += 1
+                continue
+            t0 = time.perf_counter()
+            try:
+                segs, rsrtr, sc, score = \
+                    native.resquiggle_read_baseline_with_retries(
+                        mr.raw_signal, rm, rs, params, save,
+                        config.OUTLIER_THRESH, smt)
+                want = (mr.replace(
+                    segs=segs, read_start_rel_to_raw=rsrtr,
+                    scale_values=ScaleValues(sc[0], sc[1], sc[2], sc[3],
+                                             config.OUTLIER_THRESH),
+                    sig_match_score=score), None)
+            except TomboError as e:
+                want = (None, str(e))
+            t_base += time.perf_counter() - t0
+            base_got.append(g)
+            base_want.append(want)
+            base_names.append(mr.align_info.read_id)
+    print("native baseline: %d DNA reads in %.3f s = %.1f reads/s on one "
+          "CPU core (%d static-band reads left out)" % (
+              len(base_got), t_base, len(base_got) / t_base, n_static))
+    hold_results("one-read card vs native baseline", base_got, base_want,
+                 base_names)
+
+    rows = b1_rows(rec, launches, n_calls)
+    print("one-read kernels at B 1 (%s): %s" % (smi, json.dumps(rows)))
+
+    # compute_base_mean_stds_batch on the 1 kb batch's normalized signal
+    ok = [r for r, _ in paths[0][5] if r is not None]
+    S = max(r.raw_signal.shape[0] for r in ok)
+    L = max(r.segs.shape[0] for r in ok)
+    norm = np.zeros((len(ok), S), np.float32)
+    segs = np.zeros((len(ok), L), np.int64)
+    for i, r in enumerate(ok):
+        norm[i, :r.raw_signal.shape[0]] = r.raw_signal
+        segs[i, :r.segs.shape[0]] = r.segs
+    n_segs = np.array([r.segs.shape[0] - 1 for r in ok])
+    args = [torch.tensor(a) for a in (norm, segs, n_segs)]
+    cpu_ms = nrm.compute_base_mean_stds_batch(*args)
+    card_ms = nrm.compute_base_mean_stds_batch(*[a.to(dev) for a in args])
+    err = max(float((c.cpu() - g).abs().max())
+              for c, g in zip(card_ms, cpu_ms))
+    bitwise = all(torch.equal(c.cpu(), g) for c, g in zip(card_ms, cpu_ms))
+    print("compute_base_mean_stds_batch (B %d, S %d, L %d): card vs CPU "
+          "max |diff| %g, bitwise %s, card %.3f ms" % (
+              len(ok), S, L - 1, err, bitwise, cuda_ms(
+                  lambda: nrm.compute_base_mean_stds_batch(
+                      *[a.to(dev) for a in args]), 5)))
+    if not err <= 1e-5:
+        fail("compute_base_mean_stds_batch: card vs CPU differ by %g" % err)
+    for label, st in stages:
+        print("static band (host), %s batch of %d reads: %.4f s of %.3f s "
+              "(%d reads, %d bases; native static band; %s)" % (
+                  label, st["reads"], st["stages_s"]["static band (host)"],
+                  st["wall_s"], st["static_band"]["reads"],
+                  st["static_band"]["bases"], smi))
+    return launches, rows
+
+
 def estimation_phase(dev, br, outs, outs_r, batches, rna, fasta_1kb,
                      fasta_r, model, model_r):
     """Model estimation (build_model) from the device means the paths
@@ -1765,30 +2181,8 @@ def cpu_crosscheck(label, model, params, sst, reads, card_results):
     cpu_out = cpu.resquiggle_batch(reads)
     print("%s: %d reads on the CPU in %.1f s" % (
         label, len(reads), time.perf_counter() - t0))
-    worst = {"segs": 1.0, "shift": 0.0, "scale": 0.0, "score": 0.0}
-    for i, ((g, ge), (c, ce)) in enumerate(zip(card_results, cpu_out)):
-        if (ge is None) != (ce is None):
-            fail("%s read %d: card error %r vs CPU error %r" % (label, i, ge,
-                                                                ce))
-        if g is None:
-            continue
-        if g.segs.shape != c.segs.shape or \
-                g.read_start_rel_to_raw != c.read_start_rel_to_raw:
-            fail("%s read %d: segment table or start differs" % (label, i))
-        sc = c.scale_values.scale
-        d = {"segs": float(np.mean(g.segs == c.segs)),
-             "shift": abs(g.scale_values.shift - c.scale_values.shift) / sc,
-             "scale": abs(g.scale_values.scale - sc) / sc,
-             "score": abs(g.sig_match_score - c.sig_match_score)}
-        worst = {"segs": min(worst["segs"], d["segs"]),
-                 "shift": max(worst["shift"], d["shift"]),
-                 "scale": max(worst["scale"], d["scale"]),
-                 "score": max(worst["score"], d["score"])}
-        if not (d["segs"] > 0.99 and d["shift"] < 2e-3 and
-                d["scale"] < 2e-3 and d["score"] < 1e-2):
-            fail("%s read %d: card vs CPU outside tolerance %s" % (label, i,
-                                                                  d))
-    print("%s: card vs CPU, worst: %s" % (label, json.dumps(worst)))
+    hold_results("%s: card vs CPU" % label, card_results, cpu_out,
+                 [m.align_info.read_id for m in reads], allowed=0)
 
 
 def detection_phase(dev, outs, outs_m, outs_r, fasta_1kb, fasta_m,
@@ -2553,7 +2947,7 @@ def main():
         fail("no CUDA device")
     if sys.argv[1:] not in ([], ["--plain-rows"]):
         fail("usage: chip_smoke.py [--plain-rows]")
-    from tombo_tpu_torch import config, kernels
+    from tombo_tpu_torch import config, kernels, native
     from tombo_tpu_torch.ops import banded_dp, rescale
     from tombo_tpu_torch.pipeline import batch as batch_mod
     from tombo_tpu_torch.pipeline import resquiggle as rsq
@@ -2577,9 +2971,25 @@ def main():
 
     # ---- phase 1: build every kernel from the checkout's sources
     with phase("build"):
+        # the host library (g++) builds beside the kernels (nvcc)
+        host = {}
+
+        def build_host():
+            t0 = time.perf_counter()
+            try:
+                native.get_native_lib()
+            except Exception as e:        # reported after the join
+                host["error"] = e
+            host["s"] = time.perf_counter() - t0
+        th = threading.Thread(target=build_host)
+        th.start()
         kernels.build()
-        print("kernel build (%s)" % ", ".join(
-            "%s %.1f s" % kv for kv in kernels.BUILD_SECONDS.items()))
+        th.join()
+        if "error" in host:
+            fail("host library build: %s" % host["error"])
+        print("kernel build (%s); host library %.1f s" % (", ".join(
+            "%s %.1f s" % kv for kv in kernels.BUILD_SECONDS.items()),
+            host["s"]))
         for name, log in kernels.BUILD_LOG.items():
             for line in ptxas_summary(log):
                 print("  ptxas %s: %s" % (name, line))
@@ -2793,8 +3203,8 @@ def main():
             for (L, bw), (n, reads) in sorted(rec.count.items()):
                 print("  DP L %d bw %d: %s, %d calls, %d reads" % (
                     L, bw, layout, n, reads))
-        print("stages (mixed): %s" % json.dumps(
-            stage_breakdown(br, mixed[0])))
+        stages_m = stage_breakdown(br, mixed[0])
+        print("stages (mixed): %s" % json.dumps(stages_m))
         print("device (mixed): %s" % json.dumps(
             device_profile(br, mixed[1])))
 
@@ -3131,8 +3541,25 @@ def main():
 
     # ---- phase 13: where the time goes on the RNA path
     with phase("RNA breakdown"):
-        print("stages (RNA): %s" % json.dumps(stage_breakdown(br_r, rna[1])))
+        stages_r = stage_breakdown(br_r, rna[1])
+        print("stages (RNA): %s" % json.dumps(stages_r))
         print("device (RNA): %s" % json.dumps(device_profile(br_r, rna[0])))
+
+    # ---- phase 13a: the one-read API on reads of the three paths
+    with phase("one_read"):
+        t_or = time.perf_counter()
+        mixed_all = [m for b in mixed for m in b]
+        mixed_res = [r for o in outs_m for r in o]
+        pick = one_read_picks(model, mixed_all, mixed_res)
+        launches_or, rows_or = one_read_phase(dev, smi, [
+            ("1 kb", model, params, sst, batches[0][:ONE_READ_1KB],
+             outs[0][:ONE_READ_1KB]),
+            ("mixed", model, params, sst, [mixed_all[i] for i in pick],
+             [mixed_res[i] for i in pick]),
+            ("RNA", model_r, params_r, sst_r, rna[0][:ONE_READ_RNA],
+             outs_r[0][:ONE_READ_RNA])],
+            [("mixed", stages_m), ("RNA", stages_r)])
+        print("one_read phase: %.1f s" % (time.perf_counter() - t_or))
 
     # ---- phase 13b: detection on the card from the paths' device means
     with phase("detection"):
@@ -3295,10 +3722,28 @@ def main():
         "launches_mixed": launches_m["banded_dp"],
         "launches_rna": launches_r["banded_dp"],
         "launches_runner": launches_rn["banded_dp"],
+        "launches_one_read": launches_or["banded_dp"],
         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"], "library_ms": None,
+        "shape_one_read": rows_or["banded_dp"],
         "shapes": k1_shapes + k1_rna})
+    sd = k1_shapes[1]
+    entries.append({
+        "name": "start_dp", "route": "cuda",
+        "source": "tombo_tpu_torch/ops/banded_dp.py",
+        "kernel_sources": ["tombo_tpu_torch/csrc/banded_dp.cu"],
+        "replaces": "tombo_tpu/pipeline/batch.py:819",
+        "launches": launches_1kb["start_dp"],
+        "launches_mixed": launches_m["start_dp"],
+        "launches_rna": launches_r["start_dp"],
+        "launches_runner": launches_rn["start_dp"],
+        "launches_one_read": launches_or["start_dp"],
+        "max_abs_err": sd["max_abs_err"], "ms": sd["ms"],
+        "plain_ms": sd["plain_ms"], "bound_ms": sd["bound_ms"],
+        "bound_by": sd["bound_by"], "library_ms": None,
+        "shape": {k: sd[k] for k in ("B", "L", "bw")},
+        "shape_one_read": rows_or["start_dp"]})
     ch_shape = {"B": B, "L": L, "bw": bw, "Lc": Lc, "Lc_k": lc_k,
                 "cluster_blocks": banded_dp.CLUSTER_BLOCKS}
     entries.append({
@@ -3307,6 +3752,8 @@ def main():
         "replaces": "tombo_tpu/ops/pallas_dp.py:798",
         "launches": launches_m["banded_dp_chunked_fwd"],
         "launches_runner": launches_rn["banded_dp_chunked_fwd"],
+        "launches_one_read": launches_or["banded_dp_chunked_fwd"],
+        "shape_one_read": rows_or.get("banded_dp_chunked_fwd"),
         "max_abs_err": ferr, "ms": fwd_ms,
         "plain_ms": plain_fwd_ms, "bound_ms": k2_bound, "bound_by": k2_by,
         "library_ms": None, "shape": ch_shape,
@@ -3318,6 +3765,8 @@ def main():
         "replaces": "tombo_tpu/ops/pallas_dp.py:842",
         "launches": launches_m["banded_dp_chunked_tb"],
         "launches_runner": launches_rn["banded_dp_chunked_tb"],
+        "launches_one_read": launches_or["banded_dp_chunked_tb"],
+        "shape_one_read": rows_or.get("banded_dp_chunked_tb"),
         "max_abs_err": seg_err, "ms": tb_ms,
         "plain_ms": plain_pair_ms - plain_fwd_ms, "bound_ms": tb_bound,
         "bound_by": tb_by,
@@ -3331,6 +3780,8 @@ def main():
     k5_entry["launches_mixed"] = launches_m["count_le"]
     k5_entry["launches_rna"] = launches_r["count_le"]
     k5_entry["launches_runner"] = launches_rn["count_le"]
+    k5_entry["launches_one_read"] = launches_or["count_le"]
+    k5_entry["shape_one_read"] = rows_or["count_le"]
     k5_entry["shape_rna"] = k5_rna
     k5_entry["launches_estimation"] = k5_est.pop("launches")
     k5_entry["shape_recentring"] = k5_est

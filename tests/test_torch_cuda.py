@@ -28,7 +28,12 @@ float32 run on the CPU, and so does the re-squiggle runner over a memory
 source of mapped error-prone reads.  Two processes on the card merge
 their detection over gloo into the one-process statistics.  The plot
 data (k-mer levels, max-difference regions, clustered traces, accuracy
-rates) from the card's device means equal the CPU's bit for bit."""
+rates) from the card's device means equal the CPU's bit for bit.  The
+one-read API (``resquiggle_read_with_retries``) on the card matches its
+float64 run on the CPU and the batched lane's card result within the
+batch-parity bars, launching the start DP (K4, through K1), the adaptive
+DP (K1; the chunked pair for a read past the fused cap) and the count
+kernel (K5)."""
 import numpy as np
 import pytest
 import torch
@@ -772,3 +777,84 @@ def test_plot_data_on_card_matches_cpu(card):
     for a, b in zip(on_card, on_cpu):
         np.testing.assert_array_equal(a, b)
     device_levels.clear()
+
+
+def _one_read_maps(read_lens, seed, samp_type="DNA", stalls=None):
+    rng = np.random.default_rng(seed)
+    rna = samp_type == "RNA"
+    model = KmerModel.load_default(samp_type)
+    fasta = testing.random_reference(np.random.default_rng(seed + 1),
+                                     max(30000, 2 * max(read_lens)))
+    sst = SeqSampleType(samp_type, rna)
+    params = config.load_resquiggle_parameters(samp_type)
+    sim = (dict(mean_dwell=12.0, rev_sig=True, adapter_len=(600, 900))
+           if rna else {})
+    maps = []
+    for i, n in enumerate(read_lens):
+        read = testing.simulate_read(rng, fasta, model, read_len=n,
+                                     read_id="o_%03d" % i, **sim)
+        raw = read.raw_signal
+        if stalls and stalls[i]:
+            raw = testing.insert_stall(
+                rng, raw, raw.shape[0] - int(read.true_segs[n // 2]),
+                stalls[i])
+        mr = rsq.map_read(SequenceData(read.seq, read.read_id, 12.0),
+                          ExactAligner(fasta), model, sst)
+        maps.append(rsq.adjust_map_res(
+            mr.replace(raw_signal=raw.astype(np.float64)), sst, params))
+    return model, params, sst, maps
+
+
+def _assert_bars(g, c):
+    """tests/test_batch_parity.py's bars, the start equal."""
+    assert g.segs.shape == c.segs.shape
+    assert g.read_start_rel_to_raw == c.read_start_rel_to_raw
+    assert np.mean(g.segs == c.segs) > 0.99
+    sc = c.scale_values.scale
+    assert abs(g.scale_values.shift - c.scale_values.shift) / sc < 2e-3
+    assert abs(g.scale_values.scale - sc) / sc < 2e-3
+    assert abs(g.sig_match_score - c.sig_match_score) < 1e-2
+
+
+@pytest.mark.parametrize("samp_type,read_lens,stalls", [
+    ("DNA", [1000, 1000, 1500, 400], None),
+    ("RNA", [1700, 1700], [0, 3000])])
+def test_one_read_on_card_matches_cpu_and_batch(card, samp_type, read_lens,
+                                                stalls):
+    model, params, sst, maps = _one_read_maps(read_lens, 13, samp_type,
+                                              stalls)
+    save = config.load_resquiggle_parameters(samp_type,
+                                             use_save_bandwidth=True)
+    before = dict(kernels.LAUNCHES)
+    g_out = []
+    for mr in maps:
+        g_out.append(rsq.resquiggle_read_with_retries(
+            mr, model, params, save, outlier_thresh=config.OUTLIER_THRESH,
+            seq_samp_type=sst))
+    launches = {n: kernels.LAUNCHES[n] - before[n] for n in before}
+    assert launches["banded_dp"] > 0 and launches["count_le"] > 0
+    b_out = BatchedResquiggler(model, params, sst, config.OUTLIER_THRESH,
+                               device="cuda").resquiggle_batch(maps)
+    for mr, g, (b, be) in zip(maps, g_out, b_out):
+        c = rsq.resquiggle_read_with_retries(
+            mr, model, params, save, outlier_thresh=config.OUTLIER_THRESH,
+            seq_samp_type=sst, device="cpu", dtype=torch.float64)
+        _assert_bars(g, c)
+        assert be is None, be
+        _assert_bars(g, b)
+
+
+def test_one_read_long_read_runs_chunked_on_card(card):
+    """A read past the fused cap (its rows rounded up as the batched path
+    rounds them) takes the chunked pair (K2, K2') at a batch of one."""
+    model, params, sst, maps = _one_read_maps([30000], 17)
+    before = dict(kernels.LAUNCHES)
+    g = rsq.resquiggle_read(maps[0], model, params,
+                            outlier_thresh=config.OUTLIER_THRESH,
+                            seq_samp_type=sst)
+    launches = {n: kernels.LAUNCHES[n] - before[n] for n in before}
+    assert launches["banded_dp_chunked_fwd"] == 1
+    assert launches["banded_dp_chunked_tb"] == 1
+    assert launches["banded_dp"] >= 1          # the start DP
+    assert g.segs.shape[0] == len(g.genome_seq) + 1
+    assert np.all(np.diff(g.segs) > 0)

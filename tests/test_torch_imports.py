@@ -551,3 +551,54 @@ def test_model_file_is_the_jax_package_copy():
     b = open(os.path.join(ROOT, "tombo_tpu_torch", "models",
                           "tombo.DNA.model.npz"), "rb").read()
     assert a == b
+
+
+def test_native_sources_are_the_jax_package_copies():
+    """The port's host library is built from byte copies of the JAX
+    package's sources, so its results equal the JAX library's."""
+    for fn in ("tombo_native.cpp", "resquiggle_baseline.cpp", "aligner.cpp"):
+        a = open(os.path.join(ROOT, "csrc", fn), "rb").read()
+        b = open(os.path.join(ROOT, "tombo_tpu_torch", "csrc", fn),
+                 "rb").read()
+        assert a == b, fn
+
+
+def test_one_read_runs_without_jax_or_jax_package():
+    """The one-read API with jax, tombo_tpu and scipy unimportable: a
+    simulated 1 kb read through resquiggle_read_with_retries on the CPU,
+    on the port's own host library under build/tombo_tpu_torch/."""
+    code = textwrap.dedent("""
+        import sys
+        for m in ("jax", "jaxlib", "tombo_tpu", "scipy"):
+            sys.modules[m] = None
+        import numpy as np
+        from tombo_tpu_torch import config, native, testing
+        from tombo_tpu_torch.io.model_io import KmerModel
+        from tombo_tpu_torch.pipeline import resquiggle as rsq
+        from tombo_tpu_torch.pipeline.aligner import ExactAligner
+        from tombo_tpu_torch.types import SeqSampleType, SequenceData
+        rng = np.random.default_rng(3)
+        model = KmerModel.load_default("DNA")
+        fasta = testing.random_reference(np.random.default_rng(4), 8000)
+        sst = SeqSampleType("DNA", False)
+        params = config.load_resquiggle_parameters("DNA")
+        save = config.load_resquiggle_parameters("DNA",
+                                                 use_save_bandwidth=True)
+        read = testing.simulate_read(rng, fasta, model, read_len=1000)
+        mr = rsq.map_read(SequenceData(read.seq, "r", 12.0),
+                          ExactAligner(fasta), model, sst)
+        mr = rsq.adjust_map_res(mr.replace(raw_signal=read.raw_signal),
+                                sst, params)
+        res = rsq.resquiggle_read_with_retries(
+            mr, model, params, save, outlier_thresh=config.OUTLIER_THRESH,
+            seq_samp_type=sst, device="cpu", dtype="float64")
+        print(res.segs.shape[0], bool(np.all(np.diff(res.segs) > 0)),
+              native._NATIVE_LIB._name)
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n, ok, lib = out.stdout.split()
+    assert (n, ok) == ("1001", "True")
+    assert lib.startswith(os.path.join(ROOT, "build", "tombo_tpu_torch"))

@@ -15,6 +15,33 @@ layout follows the JAX package (``ops/``, ``pipeline/``, ``parallel/``,
 ``io/``) so each function has an obvious counterpart there.  Entry points
 take ``device=None``, which means the CUDA card; without a card they
 raise unless ``device="cpu"`` is passed (see :mod:`tombo_tpu_torch.device`).
+
+Run the re-squiggle algorithm on one read (start discovery, the adaptive
+DP and the Theil-Sen fit on the card, each at a batch of one; the host
+steps in numpy and the port's host library, ``native.py``)::
+
+    from tombo_tpu_torch import config
+    from tombo_tpu_torch.io.model_io import KmerModel
+    from tombo_tpu_torch.pipeline import resquiggle
+    from tombo_tpu_torch.pipeline.aligner import open_aligner
+    from tombo_tpu_torch.types import SeqSampleType, SequenceData
+
+    aligner = open_aligner('genome.fasta')
+    std_ref = KmerModel.load_default(config.DNA_SAMP_TYPE)
+    params = config.load_resquiggle_parameters(config.DNA_SAMP_TYPE)
+    sst = SeqSampleType(config.DNA_SAMP_TYPE, False)
+    map_res = resquiggle.map_read(
+        SequenceData(seq, read_id, mean_q_score), aligner, std_ref, sst)
+    map_res = map_res.replace(raw_signal=all_raw_signal)
+    map_res = resquiggle.adjust_map_res(map_res, sst, params)
+    rsqgl_res = resquiggle.resquiggle_read(
+        map_res, std_ref, params, outlier_thresh=config.OUTLIER_THRESH,
+        seq_samp_type=sst, device=None)
+
+``device="cpu", dtype="float64"`` gives the JAX package's
+``resquiggle_read`` bit for bit; ``resquiggle_read_with_retries`` adds
+the scaling passes and the save-bandwidth retry.  For whole directories
+prefer the batched lane (``pipeline/batch.py``, ``pipeline/runner.py``).
 """
 
 __version__ = "0.1.0"

@@ -244,21 +244,24 @@ def _kernel_inputs(event_means, n_events, ref_means, ref_sds, seq_lens,
     return args, (em, rm, rs, nev, sl, ps, pv, pe, sr)
 
 
-def _check_launch(err: int, name: str):
+def _check_launch(err: int, name: str, *also: str):
+    """Raise on a failed launch, else count it under ``name`` and each
+    name of ``also`` (a kernel launched on another's behalf)."""
     if err != 0:
         raise RuntimeError("%s kernel launch failed (error %d)" % (name,
                                                                    err))
-    kernels.count_launch(name)
+    for n in (name,) + also:
+        kernels.count_launch(n)
 
 
 def adaptive_banded_dp_tb(event_means, n_events, ref_means, ref_sds,
                           seq_lens, prefix_starts, prefix_valid_start,
                           prefix_end, start_rows, params: DpParams,
                           n_rows: int, prefix_rows: int,
-                          band_bound_thresh: int):
+                          band_bound_thresh: int, *, also_count=()):
     """Start-masked + adaptive banded DP and traceback for a read batch,
     fused (K1): device scratch of ``n_rows x move_stride(bw)`` bytes per
-    read."""
+    read.  A launch also counts under each name of ``also_count``."""
     ins = (event_means, n_events, ref_means, ref_sds, seq_lens,
            prefix_starts, prefix_valid_start, prefix_end, start_rows,
            params, n_rows)
@@ -278,7 +281,7 @@ def adaptive_banded_dp_tb(event_means, n_events, ref_means, ref_sds,
     with torch.cuda.device(dev):
         _check_launch(_kernel_fn("banded_dp", "tombo_banded_dp")(
             *args, p(moves), mst, p(segs), p(band_err), p(bound_err),
-            p(ffwd), kernels.stream_handle(dev)), "banded_dp")
+            p(ffwd), kernels.stream_handle(dev)), "banded_dp", *also_count)
     return segs, band_err.bool(), bound_err.bool(), ffwd
 
 
@@ -417,7 +420,9 @@ def start_dp_segs(em_rows, rm, rs, sp: StartDpParams):
     static band moving one event per base is the prefix phase with
     ``starts = arange`` on every row and no masking (the
     parameterization of ``tombo_tpu/pipeline/batch.py``
-    ``_start_dp_pallas``; equal to :func:`dp.start_band_dp`)."""
+    ``_start_dp_pallas``; equal to :func:`dp.start_band_dp`).  On a card
+    this is K4: one launch of K1, counted under ``start_dp`` too, where
+    it launches."""
     B, dev = em_rows.shape[0], em_rows.device
     nb, ne = sp.num_bases, sp.num_events
     dpp = DpParams(z_shift=sp.z_shift, skip_pen=sp.skip_pen,
@@ -429,5 +434,5 @@ def start_dp_segs(em_rows, rm, rs, sp: StartDpParams):
         em_rows, full(nb + ne), rm, rs, full(nb), pstarts.expand(B, nb),
         full(0), torch.full((B, nb), _INT32_MAX, dtype=torch.int32,
                             device=dev),
-        full(nb), dpp, nb, nb, -1)
+        full(nb), dpp, nb, nb, -1, also_count=("start_dp",))
     return segs

@@ -79,3 +79,27 @@ def compute_base_means_batch(norm: torch.Tensor, segs: torch.Tensor,
     # means in float64, rounded once
     return torch.where(valid, seg_sum / torch.where(lens > 0, lens, 1.0),
                        0.0).to(norm.dtype)
+
+
+def compute_base_mean_stds_batch(norm: torch.Tensor, segs: torch.Tensor,
+                                 n_segs: torch.Tensor):
+    """Per-segment means and population SDs by prefix-sum differences
+    (counterpart of ``tombo_tpu/ops/normalize.py``
+    ``compute_base_mean_stds_batch``; reference: tombo/_c_helper.pyx:38
+    ``c_new_mean_stds``).  ``segs`` (B, E+1) holds boundaries in [0, S];
+    segments past ``n_segs`` or of length 0 give 0 and 0.  float64 sums
+    sequentially, bitwise ``np.cumsum``; float32 sums and divides in
+    float64 and rounds each result once."""
+    S = norm.shape[1]
+    cs = prefix_sums(norm)
+    cs2 = prefix_sums(norm * norm)
+    segs = segs.long().clamp(0, S)
+    lens = (segs[:, 1:] - segs[:, :-1]).to(cs.dtype)
+    safe_lens = torch.where(lens > 0, lens, 1.0)
+    take = lambda c: c.gather(1, segs[:, 1:]) - c.gather(1, segs[:, :-1])
+    means = take(cs) / safe_lens
+    var = torch.clamp(take(cs2) / safe_lens - means * means, min=0.0)
+    idx = torch.arange(segs.shape[1] - 1, device=norm.device)[None, :]
+    valid = (idx < n_segs[:, None]) & (lens > 0)
+    return (torch.where(valid, means, 0.0).to(norm.dtype),
+            torch.where(valid, torch.sqrt(var), 0.0).to(norm.dtype))

@@ -1,7 +1,7 @@
 """numpy host kernels for the rare host-lane reads, RNA adapter trimming
-and stall detection (subset copy of ``tombo_tpu/ops/ref_impl.py``;
-reference: tombo/_c_helper.pyx, tombo/_c_dynamic_programming.pyx).
-Float64 throughout."""
+and stall detection, and the oracles of the one-read path (subset copy of
+``tombo_tpu/ops/ref_impl.py``; reference: tombo/_c_helper.pyx,
+tombo/_c_dynamic_programming.pyx).  Float64 throughout."""
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
@@ -9,6 +9,13 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..errors import TomboError
+
+
+def mean_std(values: np.ndarray) -> Tuple[float, float]:
+    """Mean and population standard deviation (reference:
+    tombo/_c_helper.pyx:22 ``c_mean_std``)."""
+    values = np.asarray(values, dtype=np.float64)
+    return float(values.mean()), float(values.std())
 
 
 def new_means(norm_signal: np.ndarray, segs: np.ndarray) -> np.ndarray:
@@ -31,6 +38,14 @@ def new_mean_stds(norm_signal: np.ndarray, segs: np.ndarray
     means = (cs[segs[1:]] - cs[segs[:-1]]) / lens
     ex2 = (cs2[segs[1:]] - cs2[segs[:-1]]) / lens
     return means, np.sqrt(np.maximum(ex2 - means ** 2, 0.0))
+
+
+def apply_outlier_thresh(raw_signal: np.ndarray, lower_lim: float,
+                         upper_lim: float) -> np.ndarray:
+    """Clip the signal into [lower_lim, upper_lim] (reference:
+    tombo/_c_helper.pyx:73 ``c_apply_outlier_thresh``)."""
+    return np.clip(np.asarray(raw_signal, dtype=np.float64), lower_lim,
+                   upper_lim)
 
 
 # --------------------------------------------------- event detection
@@ -118,6 +133,23 @@ def valid_cpts_w_cap_t_test(raw_signal: np.ndarray, min_base_obs: int,
                         min_base_obs, running_stat_width, num_cpts)
 
 
+def valid_cpts(raw_signal: np.ndarray, min_base_obs: int,
+               running_stat_width: int) -> np.ndarray:
+    """Uncapped changepoint detection (reference: tombo/_c_helper.pyx:122
+    ``c_valid_cpts``); this variant blacklists one more position on the
+    right (``+ min_base_obs + 1``)."""
+    scores = cpt_scores_diff(raw_signal, running_stat_width)
+    order = np.argsort(scores, kind="stable")[::-1]
+    accepted = [order[0]]
+    blacklist = np.zeros(scores.shape[0] + 2 * min_base_obs + 2, dtype=bool)
+    for cand in order[1:]:
+        if blacklist[cand + min_base_obs]:
+            continue
+        accepted.append(cand)
+        blacklist[cand + 1:cand + 2 * min_base_obs + 1] = True
+    return np.array(accepted, dtype=np.int64) + running_stat_width
+
+
 def compute_running_pctl_diffs(arr: np.ndarray, window_size: int,
                                lower_pctl: float, upper_pctl: float
                                ) -> np.ndarray:
@@ -136,6 +168,18 @@ def compute_running_pctl_diffs(arr: np.ndarray, window_size: int,
 
 
 # ---------------------------------------------------------- banded DP
+def base_z_scores(b_sig: np.ndarray, ref_mean: float, ref_sd: float,
+                  do_winsorize_z: bool = False,
+                  max_half_z_score: float = 10.0) -> np.ndarray:
+    """Lower-tail half z-scores of observations against one (mean, sd),
+    optionally winsorized (reference: tombo/_c_dynamic_programming.pyx:17
+    ``c_base_z_scores``)."""
+    z = -np.abs((np.asarray(b_sig, np.float64) - ref_mean) / ref_sd)
+    if do_winsorize_z:
+        z = np.maximum(z, -max_half_z_score)
+    return z
+
+
 def process_band_row(prev_fwd, shifted_z, first_val, first_move, stay_pen,
                      skip_pen, band_starts_diff):
     """One band row as a max-plus prefix scan (stay > diag > skip)."""
@@ -187,6 +231,66 @@ def banded_forward_pass(shifted_z_scores, event_starts, skip_pen, stay_pen):
             fwd_pass[seq_pos], shifted_z_scores[seq_pos], first_val,
             first_move, stay_pen, skip_pen, diff)
     return fwd_pass, fwd_pass_tb
+
+
+def adaptive_banded_forward_pass(
+        fwd_pass: np.ndarray, fwd_pass_tb: np.ndarray,
+        event_starts: np.ndarray, event_means: np.ndarray,
+        r_ref_means: np.ndarray, r_ref_sds: np.ndarray, z_shift: float,
+        skip_pen: float, stay_pen: float, start_seq_pos: int,
+        mask_fill_z_score: float, do_winsorize_z: bool,
+        max_half_z_score: float, return_z_scores: bool = False
+        ) -> Optional[np.ndarray]:
+    """Adaptive-band DP from row ``start_seq_pos``: each row's band starts
+    at the previous row's argmax less half the band (never before the
+    previous start), its shifted winsorized z-scores fill it (the mask
+    fill past the last event), then the band recurrence (reference:
+    tombo/_c_dynamic_programming.pyx:314
+    ``c_adaptive_banded_forward_pass``).  Fills ``fwd_pass``,
+    ``fwd_pass_tb`` and ``event_starts`` in place; returns the rows'
+    z-scores with ``return_z_scores``."""
+    n_bases = fwd_pass.shape[0] - 1
+    bandwidth = fwd_pass.shape[1]
+    half_bandwidth = bandwidth // 2
+    n_events = event_means.shape[0]
+    all_z = (np.empty((n_bases - start_seq_pos, bandwidth))
+             if return_z_scores else None)
+    for seq_pos in range(start_seq_pos, n_bases):
+        prev_band_start = event_starts[seq_pos - 1]
+        curr_band_start = (prev_band_start +
+                           int(np.argmax(fwd_pass[seq_pos])) -
+                           half_bandwidth + 1)
+        if curr_band_start < prev_band_start:
+            curr_band_start = prev_band_start
+        if curr_band_start >= n_events:
+            if seq_pos < n_bases - 2:
+                raise TomboError(
+                    "Adaptive signal to sequence alignment extended beyond "
+                    "raw signal")
+            curr_band_start = n_events - 1
+        event_starts[seq_pos] = curr_band_start
+
+        n_valid = min(bandwidth, n_events - curr_band_start)
+        z = -np.abs((event_means[curr_band_start:curr_band_start + n_valid]
+                     - r_ref_means[seq_pos]) / r_ref_sds[seq_pos])
+        if do_winsorize_z:
+            z = np.maximum(z, -max_half_z_score)
+        shifted_z = np.full(bandwidth, mask_fill_z_score, dtype=np.float64)
+        shifted_z[:n_valid] = z_shift + z
+        if return_z_scores:
+            all_z[seq_pos - start_seq_pos] = shifted_z
+
+        diff = curr_band_start - prev_band_start
+        if diff == 0:
+            first_val = fwd_pass[seq_pos, 0] - skip_pen
+            first_move = 1
+        else:
+            first_val = fwd_pass[seq_pos, diff - 1] + shifted_z[0]
+            first_move = 2
+        fwd_pass[seq_pos + 1], fwd_pass_tb[seq_pos + 1] = process_band_row(
+            fwd_pass[seq_pos], shifted_z, first_val, first_move, stay_pen,
+            skip_pen, diff)
+    return all_z
 
 
 def banded_traceback(fwd_pass_tb, event_starts, band_pos,

@@ -1,26 +1,81 @@
-"""Host (numpy) pieces of re-squiggle that the batched path calls
-(subset copy of ``tombo_tpu/pipeline/resquiggle.py``; reference:
-tombo/resquiggle.py): event counts, read mapping, the RNA signal
-adjustments (3'->5' flip, adapter trim, stall intervals), per-read
-normalization (every normalization type) and scale values, the
-sequence-fitted shift and scale, traceback trimming and raw coordinates,
-the short-read static assignment, and the deletion-fix window planner and
-numpy fix for host-lane reads."""
+"""Re-squiggle of one read, and the host (numpy) steps the batched path
+calls (counterpart of ``tombo_tpu/pipeline/resquiggle.py``; reference:
+tombo/resquiggle.py).
+
+The one-read API follows the JAX package's call flow::
+
+    map_read -> adjust_map_res -> resquiggle_read(_with_retries)
+        -> segment_signal (normalize + changepoints, on the host)
+        -> find_adaptive_base_assignment: start discovery through the
+           start DP (K4, ``ops/banded_dp.py::start_dp_segs``), then the
+           masked-start adaptive DP and its traceback (K1, or the chunked
+           pair K2/K2' for a long read), each at a batch of one; short
+           reads take the static band of the host library
+        -> resolve_skipped_bases_with_raw (the host library's window DP)
+        -> Theil-Sen sequence-fitted rescaling: the count kernel (K5,
+           ``ops/rescale.py::theil_sen_device``) at float32, the numpy
+           fit at float64
+
+``device=None`` means the card; on the CPU every kernel wrapper runs its
+plain version.  The DP inputs are float32 on the card; the CPU may run
+float64, the parity mode, where the results equal the JAX package's bit
+for bit.  Normalization, changepoint scores, the deletion fix and the raw
+coordinates stay float64 numpy, as in the JAX package.
+
+The host steps that the JAX package routes through its native library
+(greedy changepoint selection, the short-read static band, the
+deletion-window DP) go through the port's copy of it (``native.py``);
+their numpy bodies stay here as the plain versions.  Also here: event
+counts, read mapping, the RNA signal adjustments (3'->5' flip, adapter
+trim, stall intervals), per-read normalization (every normalization type)
+and scale values, the sequence-fitted shift and scale, and the
+deletion-fix window planner.  The JAX package's debug dump of the DP
+(an environment switch) is not ported: K1 keeps no forward matrix."""
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
+import torch
 
-from .. import config
-from ..config import (DEL_FIX_WINDOW, EXTRA_SIG_FACTOR, MAX_DEL_FIX_WINDOW,
-                      MAX_RAW_CPTS, MIN_EVENT_TO_SEQ_RATIO, ResquiggleParams)
+from .. import config, native
+from ..config import (DEL_FIX_WINDOW, EXTRA_SIG_FACTOR, MASK_BASES,
+                      MASK_FILL_Z_SCORE, MAX_DEL_FIX_WINDOW, MAX_RAW_CPTS,
+                      MIN_EVENT_TO_SEQ_RATIO, ResquiggleParams,
+                      SIG_MATCH_THRESH)
+from ..device import DeviceLike, resolve_device, resolve_dtype
 from ..errors import TomboError
-from ..ops import ref_impl
-from ..ops.ref_impl import valid_cpts_w_cap, valid_cpts_w_cap_t_test  # noqa
+from ..ops import banded_dp, ref_impl, rescale
+from ..ops.dp import DpParams, StartDpParams
 from ..seq import rev_comp
 from ..types import (AlignInfo, DpResults, GenomeLocation, ResquiggleResults,
                      ScaleValues, SeqSampleType, SequenceData)
+
+
+def _greedy_cpts(scores, min_base_obs, running_stat_width, num_cpts):
+    cpts, status = native.greedy_cpts_batch(
+        scores[None], np.array([scores.shape[0]]), np.array([num_cpts]),
+        shift=running_stat_width, min_base_obs=min_base_obs)
+    if status[0] != 0:
+        raise TomboError("Fewer changepoints found than requested")
+    return cpts[0]
+
+
+def valid_cpts_w_cap(signal, min_base_obs, running_stat_width, num_cpts):
+    """DNA event detection, sorted: difference scores and the host
+    library's greedy selection (plain version
+    ``ref_impl.valid_cpts_w_cap``)."""
+    return _greedy_cpts(ref_impl.cpt_scores_diff(signal, running_stat_width),
+                        min_base_obs, running_stat_width, num_cpts)
+
+
+def valid_cpts_w_cap_t_test(signal, min_base_obs, running_stat_width,
+                            num_cpts):
+    """RNA event detection, sorted: t-test scores and the host library's
+    greedy selection (plain version ``ref_impl.valid_cpts_w_cap_t_test``)."""
+    return _greedy_cpts(
+        ref_impl.cpt_scores_t_test(signal, running_stat_width),
+        min_base_obs, running_stat_width, num_cpts)
 
 
 def compute_num_events(signal_len, seq_len, mean_obs_per_event,
@@ -38,7 +93,17 @@ def get_read_seg_score(r_means, r_ref_means, r_ref_sds) -> float:
 def find_static_base_assignment(event_means, r_ref_means, r_ref_sds,
                                 rsqgl_params: ResquiggleParams):
     """Short-read static-band assignment (reference:
-    tombo/resquiggle.py:547-600)."""
+    tombo/resquiggle.py:547-600) in one call of the host library, bit for
+    bit :func:`_find_static_base_assignment_plain`."""
+    return native.static_base_assignment(
+        event_means, r_ref_means, r_ref_sds, rsqgl_params.z_shift,
+        rsqgl_params.skip_pen, rsqgl_params.stay_pen,
+        rsqgl_params.max_half_z_score)
+
+
+def _find_static_base_assignment_plain(event_means, r_ref_means, r_ref_sds,
+                                       rsqgl_params: ResquiggleParams):
+    """The static band as a numpy row loop."""
     seq_len = r_ref_means.shape[0]
     events_len = event_means.shape[0]
     mask_len = min(seq_len, events_len) // 4
@@ -138,36 +203,79 @@ def plan_del_fix_windows(
     return all_del_windows
 
 
-def resolve_skipped_bases_with_raw(dp_res: DpResults, norm_signal,
-                                   rsqgl_params: ResquiggleParams):
-    """Raw-signal DP in windows around skipped bases, numpy (reference:
-    tombo/resquiggle.py:402 ``resolve_skipped_bases_with_raw``)."""
-    windows = plan_del_fix_windows(dp_res, rsqgl_params)
+def build_del_fix_inputs(dp_res: DpResults, norm_signal, windows):
+    """The window DP's inputs of planned windows: (signal slice, expected
+    levels, SDs, evenly spaced pseudo starts) per window."""
+    return [
+        (norm_signal[dp_res.segs[start]:dp_res.segs[end]],
+         dp_res.ref_means[start:end], dp_res.ref_sds[start:end],
+         np.linspace(0, dp_res.segs[end] - dp_res.segs[start],
+                     end - start + 1, dtype=np.int64))
+        for start, end in windows]
+
+
+def apply_del_fix(dp_res: DpResults, norm_signal, windows, segs_list,
+                  status):
+    """Scatter each window's boundaries back into the segment table and
+    run the reference's validity checks (reference:
+    tombo/resquiggle.py:470-500)."""
+    resolved_segs = dp_res.segs.copy()
+    for (start, end), reg_segs, st in zip(windows, segs_list, status):
+        if st != 0:
+            raise TomboError("Raw-signal traceback failed to find boundary")
+        resolved_segs[start + 1:end] = reg_segs + dp_res.segs[start]
+    if np.diff(resolved_segs).min() < 1:
+        raise TomboError("New segments include zero length events")
+    if resolved_segs[0] < 0:
+        raise TomboError("New segments start with negative index")
+    if resolved_segs[-1] > norm_signal.shape[0]:
+        raise TomboError("New segments end past raw signal values")
+    return resolved_segs
+
+
+def resolve_skipped_bases_with_raw(
+        dp_res: DpResults, norm_signal, rsqgl_params: ResquiggleParams,
+        max_raw_cpts=MAX_RAW_CPTS, del_fix_window=DEL_FIX_WINDOW,
+        max_del_fix_window=MAX_DEL_FIX_WINDOW,
+        extra_sig_factor=EXTRA_SIG_FACTOR):
+    """Raw-signal DP in windows around skipped bases (reference:
+    tombo/resquiggle.py:402 ``resolve_skipped_bases_with_raw``): every
+    window in one call of the host library's window DP, bit for bit
+    :func:`_resolve_skipped_bases_with_raw_plain`."""
+    windows = plan_del_fix_windows(
+        dp_res, rsqgl_params, max_raw_cpts, del_fix_window,
+        max_del_fix_window, extra_sig_factor)
+    if not windows:
+        return dp_res.segs.copy()
+    segs_list, status = native.raw_windows_dp_batch(
+        build_del_fix_inputs(dp_res, norm_signal, windows),
+        rsqgl_params.raw_min_obs_per_base, rsqgl_params.max_half_z_score)
+    return apply_del_fix(dp_res, norm_signal, windows, segs_list, status)
+
+
+def _resolve_skipped_bases_with_raw_plain(
+        dp_res: DpResults, norm_signal, rsqgl_params: ResquiggleParams,
+        max_raw_cpts=MAX_RAW_CPTS, del_fix_window=DEL_FIX_WINDOW,
+        max_del_fix_window=MAX_DEL_FIX_WINDOW,
+        extra_sig_factor=EXTRA_SIG_FACTOR):
+    """The deletion fix with the window DP as numpy loops."""
+    windows = plan_del_fix_windows(
+        dp_res, rsqgl_params, max_raw_cpts, del_fix_window,
+        max_del_fix_window, extra_sig_factor)
     if not windows:
         return dp_res.segs.copy()
     min_obs = rsqgl_params.raw_min_obs_per_base
-    resolved = dp_res.segs.copy()
-    for start, end in windows:
+    segs_list = []
+    for (start, end), (sig, means, sds, pseudo_starts) in zip(
+            windows, build_del_fix_inputs(dp_res, norm_signal, windows)):
         n_events = end - start
-        sig_start, sig_end = dp_res.segs[start], dp_res.segs[end]
-        pseudo_starts = np.linspace(0, sig_end - sig_start, n_events + 1,
-                                    dtype=np.int64)
         reg_zs = ref_impl.reg_z_scores(
-            norm_signal[sig_start:sig_end], dp_res.ref_means[start:end],
-            dp_res.ref_sds[start:end], pseudo_starts, 0, n_events, n_events,
-            min_obs, max_half_z_score=rsqgl_params.max_half_z_score)
-        reg_segs = ref_impl.raw_traceback(
-            ref_impl.raw_forward_pass(reg_zs, min_obs), min_obs)
-        if reg_segs.shape[0] != end - start - 1:
-            raise TomboError("Invalid segmentation results.")
-        resolved[start + 1:end] = reg_segs + dp_res.segs[start]
-    if np.diff(resolved).min() < 1:
-        raise TomboError("New segments include zero length events")
-    if resolved[0] < 0:
-        raise TomboError("New segments start with negative index")
-    if resolved[-1] > norm_signal.shape[0]:
-        raise TomboError("New segments end past raw signal values")
-    return resolved
+            sig, means, sds, pseudo_starts, 0, n_events, n_events, min_obs,
+            max_half_z_score=rsqgl_params.max_half_z_score)
+        segs_list.append(ref_impl.raw_traceback(
+            ref_impl.raw_forward_pass(reg_zs, min_obs), min_obs))
+    return apply_del_fix(dp_res, norm_signal, windows, segs_list,
+                         [0] * len(windows))
 
 
 def normalize_raw_signal(all_raw_signal, read_start_rel_to_raw=0,
@@ -250,14 +358,8 @@ def calc_kmer_fitted_shift_scale(prev_shift, prev_scale, r_event_means,
     method of moments (``mom``).  Returns (shift, scale, shift
     correction, scale correction)."""
     if method == "theil_sen":
-        n = r_model_means.shape[0]
-        if n > config.MAX_POINTS_FOR_THEIL_SEN:
-            if rng is None:
-                rng = np.random.default_rng(0)
-            samp = rng.choice(n, config.MAX_POINTS_FOR_THEIL_SEN,
-                              replace=False)
-            r_model_means = r_model_means[samp]
-            r_event_means = r_event_means[samp]
+        r_event_means, r_model_means = _theil_sen_points(
+            r_event_means, r_model_means, rng)
         slope = float(np.median(ref_impl.compute_slopes(
             r_event_means, r_model_means)))
         inter = float(np.median(r_model_means - slope * r_event_means))
@@ -375,6 +477,422 @@ def remove_stall_cpts(stall_ints, valid_cpts):
     for start, end in stall_ints:
         keep &= ~((valid_cpts > start) & (valid_cpts < end))
     return valid_cpts[keep]
+
+
+# --------------------------------------------------------- one-read API
+def segment_signal(map_res: ResquiggleResults, num_events: int,
+                   rsqgl_params: ResquiggleParams, outlier_thresh=None,
+                   const_scale=None):
+    """Normalize and segment the raw signal (reference:
+    tombo/resquiggle.py:1057-1120 ``segment_signal``): DNA normalizes
+    (median/MAD, a constant scale or given scale values) and then selects
+    changepoints on the normalized signal; RNA selects changepoints on
+    the raw signal by t-test scores, drops those inside stalls and scales
+    by the first events' means (the reference's default
+    ``USE_RNA_EVENT_SCALE``).  Returns (valid_cpts, norm_signal,
+    scale_values)."""
+    raw = np.asarray(map_res.raw_signal, np.float64)
+    w, min_obs = rsqgl_params.running_stat_width, rsqgl_params.min_obs_per_base
+    if rsqgl_params.use_t_test_seg:
+        valid_cpts = valid_cpts_w_cap_t_test(raw, min_obs, w, num_events)
+        if map_res.stall_ints is not None:
+            valid_cpts = remove_stall_cpts(map_res.stall_ints, valid_cpts)
+        if map_res.scale_values is not None:
+            return (valid_cpts,) + normalize_raw_signal(
+                raw, scale_values=map_res.scale_values)
+        if const_scale is not None:
+            return (valid_cpts,) + normalize_raw_signal(
+                raw, norm_type="median_const_scale",
+                outlier_thresh=outlier_thresh, const_scale=const_scale)
+        scale_values = get_scale_values_from_events(
+            raw, valid_cpts, outlier_thresh,
+            num_events=config.RNA_SCALE_NUM_EVENTS,
+            max_frac_events=config.RNA_SCALE_MAX_FRAC_EVENTS)
+        return (valid_cpts,) + normalize_raw_signal(
+            raw, scale_values=scale_values)
+    if map_res.scale_values is not None:
+        norm_signal, scale_values = normalize_raw_signal(
+            raw, scale_values=map_res.scale_values)
+    elif const_scale is not None:
+        norm_signal, scale_values = normalize_raw_signal(
+            raw, norm_type="median_const_scale",
+            outlier_thresh=outlier_thresh, const_scale=const_scale)
+    else:
+        norm_signal, scale_values = normalize_raw_signal(
+            raw, norm_type="median", outlier_thresh=outlier_thresh)
+    valid_cpts = valid_cpts_w_cap(norm_signal, min_obs, w, num_events)
+    if map_res.stall_ints is not None:
+        valid_cpts = remove_stall_cpts(map_res.stall_ints, valid_cpts)
+    return valid_cpts, norm_signal, scale_values
+
+
+def score_valid_bases(read_tb, event_means, r_ref_means, r_ref_sds
+                      ) -> float:
+    """Matching score over the bases the traceback gave events
+    (reference: tombo/tombo_stats.py:2341-2362)."""
+    valid_bases = np.where(np.diff(read_tb) != 0)[0]
+    if valid_bases.shape[0] == 0:
+        raise TomboError("Invalid path through read start")
+    base_means = np.array([
+        event_means[s:e].mean()
+        for s, e in zip(read_tb[:-1], read_tb[1:]) if s != e])
+    return get_read_seg_score(base_means, r_ref_means[valid_bases],
+                              r_ref_sds[valid_bases])
+
+
+def build_masked_start_plan(n_events: int, mapped_start_offset: int,
+                            rsqgl_params: ResquiggleParams,
+                            events_per_base: float,
+                            mask_bases: int = MASK_BASES):
+    """The start-masked static band of the adaptive DP's first rows
+    (the planning half of reference: tombo/resquiggle.py:607-677
+    ``_get_masked_start_fwd_pass``), as the batched path's
+    ``pipeline/batch.py::_build_masked_plans_batch`` plans it for a batch
+    of one, in K1's input layout: (band starts (1, P_max), valid start
+    (1,), row ends (1, P_max), rows P (1,), P_max, a multiple of 64).
+    Events below the valid start or at or past a row's end score the
+    mask fill; the columns from P on repeat the last band start and end
+    at the last event."""
+    if n_events - mapped_start_offset < rsqgl_params.bandwidth:
+        raise TomboError(
+            "Read sequence to signal matching starts too far into events "
+            "for full adaptive assignment")
+    from types import SimpleNamespace
+    from .batch import _build_masked_plans_batch
+    return _build_masked_plans_batch(
+        [SimpleNamespace(n_ev=n_events, events_start_clip=0,
+                         mapped_start_offset=mapped_start_offset,
+                         events_per_base=events_per_base)],
+        rsqgl_params, mask_bases)
+
+
+def _device_rows(dev, dt, *arrays):
+    """Each array as one (1, n) tensor of ``dt`` on ``dev``."""
+    return [torch.as_tensor(np.ascontiguousarray(a, np.float64)[None]).to(
+        device=dev, dtype=dt) for a in arrays]
+
+
+def find_seq_start_in_events(event_means, r_ref_means, r_ref_sds,
+                             rsqgl_params: ResquiggleParams, num_bases: int,
+                             num_events: int,
+                             seq_samp_type: Optional[SeqSampleType] = None,
+                             device: DeviceLike = None, dtype=None):
+    """Where the expected levels start in the observed events (reference:
+    tombo/resquiggle.py:685-752): the start DP over the first
+    ``num_bases`` bases and ``num_bases + num_events`` events, a static
+    band moving one event a base, through K4
+    (``ops/banded_dp.py::start_dp_segs``) at a batch of one.  With
+    ``seq_samp_type`` the start's matching score is checked against the
+    sample type's threshold.  Returns (start event, events per base)."""
+    if event_means.shape[0] < num_events + num_bases:
+        raise TomboError("Read too short for start/end discovery")
+    if r_ref_means.shape[0] < num_bases:
+        raise TomboError("Genomic mapping too short for start/end "
+                         "discovery")
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype, dev)
+    p = rsqgl_params
+    sp = StartDpParams(z_shift=p.z_shift, skip_pen=p.skip_pen,
+                       stay_pen=p.stay_pen,
+                       max_half_z_score=p.max_half_z_score or -1.0,
+                       num_bases=num_bases, num_events=num_events)
+    em, rm, rs = _device_rows(dev, dt, event_means[:num_bases + num_events],
+                              r_ref_means[:num_bases],
+                              r_ref_sds[:num_bases])
+    start_tb = banded_dp.start_dp_segs(em, rm, rs, sp)[0].cpu().numpy(
+        ).astype(np.int64)
+    if (seq_samp_type is not None and
+            score_valid_bases(start_tb, event_means, r_ref_means, r_ref_sds)
+            > SIG_MATCH_THRESH[seq_samp_type.name]):
+        raise TomboError(
+            "Poor raw to expected signal matching in beginning of read.")
+    events_per_base = (start_tb[-1] - start_tb[0]) / len(start_tb)
+    return int(start_tb[0]), events_per_base
+
+
+def _trim_traceback(read_tb, events_len):
+    """Clip the traceback's positions before the first event and past the
+    last (reference: tombo/resquiggle.py:754-764)."""
+    i = 0
+    while read_tb[i] < 0:
+        read_tb[i] = 0
+        i += 1
+    j = 1
+    while read_tb[-j] > events_len:
+        read_tb[-j] = events_len
+        j += 1
+    return read_tb
+
+
+def _adaptive_dp_read(event_means, r_ref_means, r_ref_sds, plan,
+                      rsqgl_params: ResquiggleParams, dev, dt):
+    """The masked-start adaptive DP and its traceback for one read: K1, or
+    the chunked pair K2/K2' where :func:`banded_dp.plan_dp_layout` picks
+    it for the read's rows rounded up as the batched path rounds them.
+    ``plan`` is :func:`build_masked_start_plan`'s.  Returns (traceback
+    (L + 1,) int64, band error, bound error)."""
+    p = rsqgl_params
+    bw = p.bandwidth
+    pstarts, pvalid, pend, P, P_max = plan
+    n_ev, L = event_means.shape[0], r_ref_means.shape[0]
+    em = np.zeros(n_ev + bw)
+    em[:n_ev] = event_means
+    em_t, rm_t, rs_t = _device_rows(dev, dt, em, r_ref_means, r_ref_sds)
+    i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64)).to(dev)
+    args = (em_t, i64([n_ev]), rm_t, rs_t, i64([L]), i64(pstarts),
+            i64(pvalid), i64(pend), i64(P))
+    dpp = DpParams(z_shift=p.z_shift, skip_pen=p.skip_pen,
+                   stay_pen=p.stay_pen, mask_fill_z_score=MASK_FILL_Z_SCORE,
+                   max_half_z_score=p.max_half_z_score or -1.0, bandwidth=bw)
+    from .batch import _pow2_bucket
+    layout = banded_dp.plan_dp_layout(_pow2_bucket(L, 256), bw)
+    if layout[0] == "fused":
+        out = banded_dp.adaptive_banded_dp_tb(
+            *args, dpp, L, P_max, p.band_bound_thresh)
+    else:
+        out = banded_dp.adaptive_banded_dp_tb_chunked(
+            *args, dpp, L, P_max, p.band_bound_thresh, chunk_rows=layout[1])
+    segs, band_err, bound_err = (t.cpu().numpy() for t in out[:3])
+    return segs[0].astype(np.int64), bool(band_err[0]), bool(bound_err[0])
+
+
+def find_adaptive_base_assignment(
+        valid_cpts, event_means, rsqgl_params: ResquiggleParams, std_ref,
+        genome_seq, start_clip_bases=None,
+        seq_samp_type=SeqSampleType(config.DNA_SAMP_TYPE, False),
+        read_id=None, device: DeviceLike = None, dtype=None) -> DpResults:
+    """Adaptive-band assignment of the events to the sequence (reference:
+    tombo/resquiggle.py:866-1050): start discovery (K4; the save start
+    band, without the score check, when the first fails), then the
+    masked-start adaptive DP and traceback (K1 or K2/K2') on the events
+    from the clipped start; reads too short for either take the host
+    library's static band.  ``read_id`` is kept for the JAX package's
+    signature (its debug dump is not ported)."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype, dev)
+    p = rsqgl_params
+
+    def get_short_read_results(r_ref_means, r_ref_sds, genome_seq):
+        seq_events = find_static_base_assignment(
+            event_means, r_ref_means, r_ref_sds, p)
+        seq_segs, rsrtr = get_rel_raw_coords(valid_cpts, seq_events)
+        return DpResults(rsrtr, seq_segs, r_ref_means, r_ref_sds, genome_seq)
+
+    if start_clip_bases is not None:
+        raise TomboError(
+            "start-clip-based read start discovery is not enabled "
+            "(reference hardcodes USE_START_CLIP_BASES=False)")
+
+    dnstrm_bases = std_ref.kmer_width - std_ref.central_pos - 1
+    r_ref_means, r_ref_sds = std_ref.get_exp_levels_from_seq(genome_seq)
+    genome_seq = genome_seq[std_ref.central_pos:-dnstrm_bases]
+    seq_len = len(genome_seq)
+    if seq_len != r_ref_means.shape[0]:
+        raise TomboError("Discordant reference and sequence lengths.")
+
+    if (event_means.shape[0] < p.start_bw + p.start_n_bases or
+            seq_len < p.start_n_bases):
+        return get_short_read_results(r_ref_means, r_ref_sds, genome_seq)
+    try:
+        mapped_start, events_per_base = find_seq_start_in_events(
+            event_means, r_ref_means, r_ref_sds, p, p.start_n_bases,
+            p.start_bw, seq_samp_type, device=dev, dtype=dt)
+    except TomboError:
+        if event_means.shape[0] < p.start_save_bw + p.start_n_bases:
+            return get_short_read_results(r_ref_means, r_ref_sds,
+                                          genome_seq)
+        mapped_start, events_per_base = find_seq_start_in_events(
+            event_means, r_ref_means, r_ref_sds, p, p.start_n_bases,
+            p.start_save_bw, device=dev, dtype=dt)
+
+    if events_per_base == 0:
+        raise TomboError(
+            "Very poor signal quality. Read likely includes open pore.")
+
+    half_bandwidth = p.bandwidth // 2
+    if mapped_start < half_bandwidth:
+        events_start_clip = 0
+        mapped_start_offset = mapped_start
+    else:
+        events_start_clip = mapped_start - half_bandwidth
+        mapped_start_offset = half_bandwidth
+
+    if (int((half_bandwidth + 1) / events_per_base) >= r_ref_means.shape[0]
+            or event_means.shape[0] - mapped_start_offset -
+            events_start_clip < p.bandwidth):
+        return get_short_read_results(r_ref_means, r_ref_sds, genome_seq)
+
+    clipped_event_means = event_means[events_start_clip:]
+    plan = build_masked_start_plan(clipped_event_means.shape[0],
+                                   mapped_start_offset, p, events_per_base)
+    read_tb, band_err, bound_err = _adaptive_dp_read(
+        clipped_event_means, r_ref_means, r_ref_sds, plan, p, dev, dt)
+    if band_err:
+        raise TomboError("Adaptive signal to sequence alignment extended "
+                         "beyond raw signal")
+    if bound_err:
+        raise TomboError(
+            "Read event to sequence alignment extends beyond bandwidth")
+    read_tb = _trim_traceback(
+        read_tb, events_len=event_means.shape[0] - events_start_clip)
+    seq_segs, rsrtr = get_rel_raw_coords(valid_cpts[events_start_clip:],
+                                         read_tb)
+    return DpResults(rsrtr, seq_segs, r_ref_means, r_ref_sds, genome_seq)
+
+
+def _theil_sen_points(r_event_means, r_model_means,
+                      rng: Optional[np.random.Generator] = None):
+    """The points of the Theil-Sen line: all of them, or above
+    ``MAX_POINTS_FOR_THEIL_SEN`` a draw without replacement from ``rng``
+    (default ``np.random.default_rng(0)``)."""
+    n = r_model_means.shape[0]
+    if n > config.MAX_POINTS_FOR_THEIL_SEN:
+        if rng is None:
+            rng = np.random.default_rng(0)
+        samp = rng.choice(n, config.MAX_POINTS_FOR_THEIL_SEN, replace=False)
+        return r_event_means[samp], r_model_means[samp]
+    return r_event_means, r_model_means
+
+
+def _fitted_corrections_device(r_event_means, r_model_means, dev, dt):
+    """(shift correction, scale correction) of the Theil-Sen line through
+    ``ops/rescale.py::theil_sen_device`` (K5 at float32) at a batch of
+    one, computed as the batched path's fit computes them.  The points
+    are padded to 256, 512 or 1,000 columns, so few pair-index tables
+    are ever built."""
+    ev, mod = _theil_sen_points(r_event_means, r_model_means)
+    n = ev.shape[0]
+    from .batch import _pow2_bucket
+    width = max(n, min(_pow2_bucket(n, 256),
+                       config.MAX_POINTS_FOR_THEIL_SEN))
+    pad = lambda a: np.pad(a, (0, width - n))
+    ev_t, mod_t = _device_rows(dev, dt, pad(ev), pad(mod))
+    slope, inter = rescale.theil_sen_device(
+        ev_t, mod_t, torch.tensor([n], device=dev),
+        tri=rescale.tri_indices(width, dev))
+    if float(slope[0]) == 0:
+        raise TomboError("Read failed sequence-based signal re-scaling "
+                         "parameter estimation.")
+    scale_corr = 1.0 / slope
+    shift_corr = -inter / slope
+    return float(shift_corr[0]), float(scale_corr[0])
+
+
+def resquiggle_read(
+        map_res: ResquiggleResults, std_ref,
+        rsqgl_params: ResquiggleParams, outlier_thresh=None,
+        all_raw_signal=None, max_raw_cpts=MAX_RAW_CPTS,
+        min_event_to_seq_ratio=MIN_EVENT_TO_SEQ_RATIO, const_scale=None,
+        skip_seq_scaling=False,
+        seq_samp_type=SeqSampleType(config.DNA_SAMP_TYPE, False),
+        device: DeviceLike = None, dtype=None) -> ResquiggleResults:
+    """Assign one read's raw signal to its mapped sequence (reference:
+    tombo/resquiggle.py:1122-1214).  ``map_res`` comes from
+    :func:`map_read` and :func:`adjust_map_res` with the raw signal set.
+    The DP runs on ``device`` (None: the card) in ``dtype`` (float32 by
+    default; float64 on the CPU is the parity mode), the fit through K5
+    at float32 and in numpy at float64.  Raises :class:`TomboError` on a
+    failed read."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype, dev)
+    if all_raw_signal is not None:
+        map_res = map_res.replace(raw_signal=all_raw_signal)
+    if map_res.raw_signal is None:
+        raise TomboError(
+            "Must have raw signal in order to complete re-squiggle algorithm")
+
+    num_mapped_bases = len(map_res.genome_seq) - std_ref.kmer_width + 1
+    num_events = compute_num_events(
+        map_res.raw_signal.shape[0], num_mapped_bases,
+        rsqgl_params.mean_obs_per_event, min_event_to_seq_ratio)
+    if num_events / rsqgl_params.bandwidth > num_mapped_bases:
+        raise TomboError("Too much raw signal for mapped sequence")
+
+    valid_cpts, norm_signal, new_scale_values = segment_signal(
+        map_res, num_events, rsqgl_params, outlier_thresh, const_scale)
+    event_means = ref_impl.new_means(norm_signal, valid_cpts)
+
+    dp_res = find_adaptive_base_assignment(
+        valid_cpts, event_means, rsqgl_params, std_ref, map_res.genome_seq,
+        start_clip_bases=map_res.start_clip_bases,
+        seq_samp_type=seq_samp_type,
+        read_id=(map_res.align_info.read_id
+                 if map_res.align_info is not None else None),
+        device=dev, dtype=dt)
+    norm_signal = norm_signal[
+        dp_res.read_start_rel_to_raw:
+        dp_res.read_start_rel_to_raw + dp_res.segs[-1]]
+
+    segs = resolve_skipped_bases_with_raw(
+        dp_res, norm_signal, rsqgl_params, max_raw_cpts)
+
+    if skip_seq_scaling:
+        norm_params_changed = False
+    else:
+        r_event_means = ref_impl.new_means(norm_signal, segs)
+        if dt == torch.float64:
+            (shift, scale, shift_corr_factor,
+             scale_corr_factor) = calc_kmer_fitted_shift_scale(
+                 new_scale_values.shift, new_scale_values.scale,
+                 r_event_means, dp_res.ref_means, method="theil_sen")
+        else:
+            shift_corr_factor, scale_corr_factor = \
+                _fitted_corrections_device(r_event_means, dp_res.ref_means,
+                                           dev, dt)
+            shift = (new_scale_values.shift +
+                     shift_corr_factor * new_scale_values.scale)
+            scale = new_scale_values.scale * scale_corr_factor
+        new_scale_values = new_scale_values.replace(
+            shift=shift, scale=scale, outlier_thresh=outlier_thresh)
+        norm_signal = (norm_signal - shift_corr_factor) / scale_corr_factor
+        norm_params_changed = (
+            np.abs(shift_corr_factor) > config.SHIFT_CHANGE_THRESH or
+            np.abs(scale_corr_factor - 1) > config.SCALE_CHANGE_THRESH)
+
+    sig_match_score = get_read_seg_score(
+        ref_impl.new_means(norm_signal, segs), dp_res.ref_means,
+        dp_res.ref_sds)
+    if segs.shape[0] != len(dp_res.genome_seq) + 1:
+        raise TomboError(
+            "Aligned sequence does not match number of segments produced")
+
+    return map_res.replace(
+        read_start_rel_to_raw=dp_res.read_start_rel_to_raw, segs=segs,
+        genome_seq=dp_res.genome_seq, raw_signal=norm_signal,
+        scale_values=new_scale_values, sig_match_score=sig_match_score,
+        norm_params_changed=norm_params_changed)
+
+
+def resquiggle_read_with_retries(
+        map_res, std_ref, rsqgl_params, save_params, outlier_thresh=None,
+        const_scale=None, skip_seq_scaling=False,
+        seq_samp_type=SeqSampleType(config.DNA_SAMP_TYPE, False),
+        max_scaling_iters=config.MAX_SCALING_ITERS,
+        device: DeviceLike = None, dtype=None):
+    """:func:`resquiggle_read` with up to ``max_scaling_iters`` passes
+    while the fitted scale changes, and a failed read run again at the
+    save parameters (reference: tombo/resquiggle.py:1488-1600
+    ``_resquiggle_worker``)."""
+    dev = resolve_device(device)
+
+    def run_iters(params):
+        kw = dict(const_scale=const_scale, skip_seq_scaling=skip_seq_scaling,
+                  seq_samp_type=seq_samp_type, device=dev, dtype=dtype)
+        rsqgl_res = resquiggle_read(map_res, std_ref, params,
+                                    outlier_thresh, **kw)
+        n_iters = 1
+        while (n_iters < max_scaling_iters and
+               rsqgl_res.norm_params_changed):
+            rsqgl_res = resquiggle_read(
+                map_res.replace(scale_values=rsqgl_res.scale_values),
+                std_ref, params, outlier_thresh, **kw)
+            n_iters += 1
+        return rsqgl_res
+
+    try:
+        return run_iters(rsqgl_params)
+    except TomboError:
+        return run_iters(save_params)
 
 
 def adjust_map_res(map_res: ResquiggleResults, seq_samp_type: SeqSampleType,
