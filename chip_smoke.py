@@ -50,6 +50,22 @@ against the CPU, and the static band's seconds in the mixed and RNA
 breakdowns.  The host library builds with g++ beside the kernels in
 phase "build".
 
+The debug_dp phase, after the one-read phase, runs 6 1 kb reads, the
+longest mixed read (30,000 bases, the chunked layout) and 2 RNA reads
+through ``resquiggle_read_with_retries(..., debug_dp_dir=...)``: each
+result bitwise the same read's without the dump, each file with the JAX
+package's entries, dtypes and shapes, the dumped rows against the plain
+version on CPU copies of the same float32 inputs (forward values within
+1e-3, codes on 99.5% of the in-band cells, band starts exact; the long
+read's first 2,048 rows), and the row-writing instances of K1 and K2'
+timed against the normal ones in turns.  The mesh_dryrun phase, after
+the mesh lane, runs ``parallel/mesh.py::dryrun(2)`` (two shards on the
+one card), holds ``full_sharded_step`` over the two shards bitwise
+against one unsharded call, and runs ``psum_hosts_device`` over a
+one-process NCCL group in a spawned process (one card allows no second
+rank): the group forms and one all-gather per array goes through on the
+card, whose totals at one rank are the inputs.
+
 Detection runs on the card from the device means re-squiggle registered:
 de novo (1 kb, mixed, RNA), sample-compare (1 kb), the alternative-model
 test (five DNA models and RNA 5mC), per-read statistics (each block
@@ -192,6 +208,7 @@ ALT_KMER_OBS, ALT_PCTL, ALT_BW, ALT_SHIFT = 1000, 5, 0.05, 1.0
 EST_MOTIFS = ["CG:1", "CCWGG:2", "GATC:2"]
 N_ALT_BATCHES, EST_F64_READS = 3, 32
 CHUNKED = ("banded_dp_chunked_fwd", "banded_dp_chunked_tb")
+ROWS_INSTANCES = ("banded_dp_rows", "banded_dp_chunked_tb_rows")
 CHUNKED_SLICE = 16             # reads of the captured long call held
 # the runner phase: the 1 kb and mixed paths' reads with basecalls of 8%
 # errors (tombo_tpu/testing.py:118 mutate_seq's mix) through
@@ -338,7 +355,9 @@ def ptxas_summary(log):
     for line in log.splitlines():
         m = _PTXAS_ENTRY.search(line)
         if m:
-            args = re.findall(r"Li(\d+)E", m.group(2) or "")
+            args = [v if t == "i" else ("false", "true")[int(v)]
+                    for t, v in re.findall(r"L([ib])(\d+)E",
+                                           m.group(2) or "")]
             cur = {"kernel": "%s<%s>" % (m.group(1), ",".join(args))}
             out.append(cur)
         elif cur is not None:
@@ -2658,10 +2677,11 @@ def multihost_worker(rank, n_hosts, port, fn, runs, device, out_fn):
     dev = torch.device(device)
     t0 = time.perf_counter()
     ctx = distributed.init_distributed("127.0.0.1:%d" % port, n_hosts,
-                                       rank)
+                                       rank, device=dev)
     groups, fastas = multihost_load(fn, dev, register=True)
     models = multihost_models(runs)
-    out = {"rank": rank, "setup_s": time.perf_counter() - t0, "runs": {}}
+    out = {"rank": rank, "setup_s": time.perf_counter() - t0, "runs": {},
+           "route": ctx.route}
     psum = {"s": [], "calls": []}
     real_psum = distributed.psum_hosts
 
@@ -2695,6 +2715,7 @@ def multihost_worker(rank, n_hosts, port, fn, runs, device, out_fn):
             reads = list(groups[spec["samp"]].iter_reads())
             run.update(reads=len(reads), reads_owned=sum(
                 ctx.owns_read(distributed.read_key(r)) for r in reads))
+    out["last_psum_path"] = distributed.LAST_PSUM_PATH["path"]
     torch.distributed.destroy_process_group()
     with open(out_fn, "wb") as fp:
         pickle.dump(out, fp)
@@ -2860,8 +2881,15 @@ def multihost_phase(dev, groups, fastas, runs, n_hosts=MULTIHOST_HOSTS,
             print("multi-host %s: %s" % (label, json.dumps(check)),
                   flush=True)
     print("multi-host: %d processes, %.1f s from spawn to the last result "
-          "(setup %s s)" % (n_hosts, hosts_s, ", ".join(
-              "%.1f" % h["setup_s"] for h in hosts)), flush=True)
+          "(setup %s s); merge route %s, last psum_hosts path %s" % (
+              n_hosts, hosts_s, ", ".join(
+                  "%.1f" % h["setup_s"] for h in hosts),
+              [h["route"] for h in hosts],
+              [h["last_psum_path"] for h in hosts]), flush=True)
+    # the processes share one card, which NCCL refuses: the host route
+    if any(h["route"] != "host" or h["last_psum_path"] != "host"
+           for h in hosts):
+        fail("multi-host: processes sharing one card left the host route")
     return summaries
 
 
@@ -2895,6 +2923,353 @@ def multihost_runs(level_min_reads=LEVEL_MIN_TEST_READS,
             "level", None, False)),
         ("level ks", spec("ks", None, "samp", "ctrl", None, None, False,
                           level_min_reads))]
+
+
+# the debug_dp phase: reads of the one-read phase's recipes dumped, and
+# the long read's rows held to the plain version over its first rows
+DEBUG_DP_1KB, DEBUG_DP_RNA, DEBUG_DP_LONG_ROWS = 6, 2, 2048
+DEBUG_DP_KEYS = {"fwd_pass": np.float32, "fwd_pass_tb": np.int8,
+                 "band_event_starts": np.int64, "read_tb": np.int64,
+                 "event_means": np.float32, "ref_means": np.float32,
+                 "ref_sds": np.float32, "events_start_clip": np.int64,
+                 "lower_margin": np.int64, "upper_margin": np.int64,
+                 "bandwidth": np.int64}
+
+
+def same_result(a, b):
+    """Two one-read outcomes (result, error) bitwise the same: error,
+    segs, start, scale values, score, norm_params_changed."""
+    (ra, ea), (rb, eb) = a, b
+    if ea != eb or (ra is None) != (rb is None):
+        return False
+    return ra is None or (
+        np.array_equal(ra.segs, rb.segs) and
+        ra.read_start_rel_to_raw == rb.read_start_rel_to_raw and
+        ra.scale_values == rb.scale_values and
+        ra.sig_match_score == rb.sig_match_score and
+        ra.norm_params_changed == rb.norm_params_changed)
+
+
+def rows_bars(label, got, want, seq_lens, n_rows):
+    """The dumped rows (forward values, codes, band starts; (B, >= n_rows,
+    ...)) against the plain version's over rows [0, n_rows): band starts
+    exact, codes equal on >= 99.5% of the in-band cells, forward values
+    within 1e-3, the rows past each read zero.  Returns (max |value
+    diff|, fraction of codes equal)."""
+    live = (torch.arange(n_rows)[None, :] <
+            torch.clamp(seq_lens.long().cpu(), max=n_rows)[:, None])
+    g = [t[:, :n_rows].cpu() for t in got]
+    w = [t[:, :n_rows].cpu() for t in want]
+    if not torch.equal(g[2], w[2]):
+        fail("%s: band starts differ from the plain version" % label)
+    frac = float((g[1] == w[1])[live].float().mean())
+    err = float((g[0].double() - w[0].double()).abs()[live].max())
+    if frac < 0.995:
+        fail("%s: only %.4f of move codes equal" % (label, frac))
+    if not err <= 1e-3:
+        fail("%s: forward rows differ by %g" % (label, err))
+    if any(t[~live].any() for t in g):
+        fail("%s: rows past a read are not zero" % label)
+    return err, frac
+
+
+def debug_dp_phase(dev, smi, paths):
+    """The one-read path's DP debug dump on the card: each read of
+    ``paths`` ((label, model, params, sst, maps)) through
+    ``resquiggle_read_with_retries`` with and without ``debug_dp_dir``,
+    the results bitwise equal (every pass dumps; the file holds the
+    last); each file with the JAX package's entries, dtypes and
+    shapes, its rows bitwise those the row-writing instance returned; the
+    rows held against the plain version on CPU copies of the same float32
+    inputs (:func:`rows_bars`; the chunked read over its first
+    DEBUG_DP_LONG_ROWS rows, which are causal).  The launch counts are
+    zeroed before the dumped runs and read after.  Then each row-writing
+    instance timed against its normal instance, in turns, at a 1 kb
+    read's fused call and the long read's chunked call.  Returns one
+    kernels-line row each."""
+    from tombo_tpu_torch import config, kernels
+    from tombo_tpu_torch.errors import TomboError
+    from tombo_tpu_torch.ops import banded_dp
+    from tombo_tpu_torch.ops import dp as dp_mod
+    from tombo_tpu_torch.pipeline import resquiggle as rsq
+    k1, k2 = (banded_dp.adaptive_banded_dp_tb,
+              banded_dp.adaptive_banded_dp_tb_chunked)
+    seen = []
+
+    def keep(fn, name):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            if kw.get("rows"):
+                seen.append((name, a, kw, out))
+            return out
+        return run
+
+    def one(mr, model, params, sst, **kw):
+        save = config.load_resquiggle_parameters(sst.name,
+                                                 use_save_bandwidth=True)
+        try:
+            return rsq.resquiggle_read_with_retries(
+                mr, model, params, save,
+                outlier_thresh=config.OUTLIER_THRESH, seq_samp_type=sst,
+                device=DEVICE, **kw), None
+        except TomboError as e:
+            return None, str(e)
+
+    checks, calls = [], {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in kernels.LAUNCHES:
+            kernels.LAUNCHES[name] = 0
+        outs = []
+        with patched([(banded_dp, "adaptive_banded_dp_tb", keep(k1, "k1")),
+                      (banded_dp, "adaptive_banded_dp_tb_chunked",
+                       keep(k2, "k2"))]):
+            for label, model, params, sst, maps in paths:
+                for mr in maps:
+                    n0 = len(seen)
+                    got = one(mr, model, params, sst, debug_dp_dir=tmp)
+                    # every pass dumps: the file holds the last pass's DP
+                    outs.append((label, mr, got, len(seen) - n0,
+                                 seen[-1] if len(seen) > n0 else
+                                 (None,) * 4))
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        dump_s = time.perf_counter() - t0
+        plain_s = 0.0
+        for label, mr, got, n_pass, (name, args, kw, kout) in outs:
+            model, params, sst = next((m, p, s) for lb, m, p, s, _ in paths
+                                      if lb == label)
+            rid = mr.align_info.read_id
+            fn = os.path.join(tmp, "dp_debug.%s.npz" % rid)
+            if not same_result(got, one(mr, model, params, sst)):
+                fail("debug_dp %s: the dump changed the result" % rid)
+            if got[0] is None:
+                fail("debug_dp %s: the read failed (%s)" % (rid, got[1]))
+            if n_pass == 0:         # the static band: no DP, no dump
+                if os.path.exists(fn):
+                    fail("debug_dp %s: a static-band read dumped" % rid)
+                checks.append({"read": rid, "path": label,
+                               "instance": None})
+                continue
+            with np.load(fn) as f:
+                if {k: f[k].dtype for k in f.files} != DEBUG_DP_KEYS:
+                    fail("debug_dp %s: entries %s" % (rid, {
+                        k: str(f[k].dtype) for k in f.files}))
+                L, bw = f["ref_means"].shape[0], int(f["bandwidth"])
+                if (f["fwd_pass"].shape != (L + 1, bw) or
+                        f["fwd_pass_tb"].shape != (L + 1, bw) or
+                        f["band_event_starts"].shape != (L,) or
+                        f["read_tb"].shape != (L + 1,)):
+                    fail("debug_dp %s: shapes" % rid)
+                if not (np.array_equal(f["fwd_pass"][1:],
+                                       kout[4][0].cpu().numpy()) and
+                        np.array_equal(f["fwd_pass_tb"][1:],
+                                       kout[5][0].cpu().numpy())):
+                    fail("debug_dp %s: file rows are not the kernel's" % rid)
+            cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+            t1 = time.perf_counter()
+            if name == "k1":
+                n_rows = args[10]
+                po = banded_dp.adaptive_banded_dp_tb_plain(*cpu_args,
+                                                           rows=True)[4:]
+            else:
+                n_rows = min(DEBUG_DP_LONG_ROWS, args[10])
+                x = dp_mod.dp_inputs(*cpu_args[:12])
+                _, tb, st, fw = dp_mod.adaptive_dp_rows(
+                    x, dp_mod.init_fwd_state(x, args[9].bandwidth), 0,
+                    n_rows, args[9], keep_rows=True)
+                po = banded_dp._dump_rows(fw, tb, st, x.seq_lens)
+            t_plain = time.perf_counter() - t1
+            plain_s += t_plain
+            err, frac = rows_bars("debug_dp %s (%s)" % (rid, name), kout[4:],
+                                  po, args[4], n_rows)
+            checks.append({"read": rid, "path": label, "instance": name,
+                           "passes": n_pass, "L": args[10],
+                           "bw": args[9].bandwidth,
+                           "rows_compared": n_rows, "max_abs_err": err,
+                           "codes_equal_frac": frac, "plain_cpu_s": t_plain})
+            calls.setdefault(name, (args, kw))
+    for need, inst in (("banded_dp_rows", "k1"),
+                       ("banded_dp_chunked_tb_rows", "k2")):
+        n = sum(1 for c in seen if c[0] == inst)
+        if launches[need] != n or not any(c["instance"] == inst
+                                          for c in checks):
+            fail("debug_dp: %s launched %d times for %d calls" % (
+                need, launches[need], n))
+    if launches["banded_dp_chunked_tb"] or launches["banded_dp_sharded"]:
+        fail("debug_dp: a normal K2' or K3 launch: %s" % launches)
+    print("debug_dp reads (%s): %s" % (smi, json.dumps(checks)))
+    print("debug_dp: %d reads dumped (%d passes) in %.2f s; plain rows on "
+          "CPU copies %.2f s; launches %s" % (
+              len(outs), len(seen), dump_s, plain_s, json.dumps(
+                  {k: v for k, v in launches.items() if v})))
+
+    # each row-writing instance against its normal instance, in turns
+    rows = {}
+    args, _ = calls["k1"]
+    B, L, bw = args[0].shape[0], args[10], args[9].bandwidth
+    ms = {"normal": [], "rows": []}
+    for which in ("normal", "rows", "rows", "normal"):
+        ms[which].append(cuda_ms(lambda: k1(*args, rows=which == "rows"),
+                                 10))
+    nbytes = k1_bound_ms(args, bw, io_bytes=True) + B * L * (5 * bw + 4)
+    ops = int(torch.clamp(args[4].long(), max=L).sum()) * bw * \
+        K1_OPS_PER_CELL
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    po_ms = cuda_ms(lambda: banded_dp.adaptive_banded_dp_tb_plain(
+        *args, rows=True), 1, warm=False)
+    rows["banded_dp_rows"] = {
+        "B": B, "L": L, "bw": bw, "ms": statistics.mean(ms["rows"]),
+        "normal_ms": statistics.mean(ms["normal"]), "turns_ms": ms,
+        "plain_ms": po_ms, "bound_ms": 1e3 * max(t_b, t_o),
+        "bound_by": "bytes" if t_b >= t_o else "operations",
+        "max_abs_err": max(c["max_abs_err"] for c in checks
+                           if c["instance"] == "k1"),
+        "codes_equal_frac": min(c["codes_equal_frac"] for c in checks
+                                if c["instance"] == "k1")}
+    args, kw = calls["k2"]
+    B, L, bw, Lc = (args[0].shape[0], args[10], args[9].bandwidth,
+                    kw["chunk_rows"])
+    kw = {"chunk_rows": Lc}
+    split = {"normal": [], "rows": []}
+    for which in ("normal", "rows", "rows", "normal"):
+        split[which].append(pair_split_ms(
+            lambda: k2(*args, rows=which == "rows", **kw), 3))
+    lc_k = banded_dp.tile_rows(bw, min(Lc, L))
+    sl_sum = int(torch.clamp(args[4].long(), max=L).sum())
+    nbytes = (k1_bound_ms(args, bw, io_bytes=True) +
+              B * -(-L // lc_k) * (bw * 4 + 4) + B * 4 + B * L * (5 * bw + 4))
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = sl_sum * bw * K1_OPS_PER_CELL / F32_OPS_PER_S
+    long = [c for c in checks if c["instance"] == "k2"]
+    rows["banded_dp_chunked_tb_rows"] = {
+        "B": B, "L": L, "bw": bw, "Lc": Lc, "Lc_k": lc_k,
+        "ms": statistics.mean(t for _, t in split["rows"]),
+        "normal_ms": statistics.mean(t for _, t in split["normal"]),
+        "k2_ms": statistics.mean(f for f, _ in split["normal"] +
+                                 split["rows"]),
+        "turns_ms": split,
+        # the plain pair over every row would take minutes (~2 ms a row
+        # on the card, two passes): its row loop over the rows compared,
+        # on the CPU copies
+        "plain_ms": 1e3 * long[0]["plain_cpu_s"],
+        "plain_ms_rows": long[0]["rows_compared"],
+        "plain_on": "CPU copies, forward rows only",
+        "bound_ms": 1e3 * max(t_b, t_o),
+        "bound_by": "bytes" if t_b >= t_o else "operations",
+        "max_abs_err": max(c["max_abs_err"] for c in long),
+        "codes_equal_frac": min(c["codes_equal_frac"] for c in long),
+        "rows_compared": long[0]["rows_compared"]}
+    print("debug_dp instances (%s): %s" % (smi, json.dumps(rows)))
+    return launches, rows
+
+
+def nccl_merge_worker(port, out_fn):
+    """A one-process NCCL group on the card (a spawned process; one card
+    allows no second rank): ``psum_hosts_device`` over it on an int32
+    and a float32 array.  Pickles the inputs, the totals and the group's
+    backend and size to ``out_fn``."""
+    import torch.distributed as tdist
+    from tombo_tpu_torch.parallel import distributed
+    torch.cuda.set_device(0)
+    tdist.init_process_group("nccl", init_method="tcp://127.0.0.1:%d" %
+                             port, world_size=1, rank=0)
+    rng = np.random.default_rng(5)
+    ints = rng.integers(0, 10 ** 6, 100000).astype(np.int32)
+    f32 = rng.normal(0, 1, 100000).astype(np.float32)
+    ctx = distributed.DistContext(device=torch.device("cuda", 0))
+    t0 = time.perf_counter()
+    nccl = distributed.psum_hosts_device(ctx, ints, f32)
+    torch.cuda.synchronize()
+    nccl_s = time.perf_counter() - t0
+    out = {"nccl": nccl, "inputs": (ints, f32),
+           "backend": tdist.get_backend(), "nccl_s": nccl_s,
+           "world": tdist.get_world_size()}
+    tdist.destroy_process_group()
+    with open(out_fn, "wb") as fp:
+        pickle.dump(out, fp)
+
+
+def mesh_dryrun_phase(smi):
+    """The multi-device dry runs on the card: ``parallel/mesh.py::dryrun
+    (2)`` (two shards on the one card: ``full_sharded_step``,
+    ``sharded_production_step``, ``production_lane_dryrun``,
+    ``psum_collective_dryrun``) with the launch counts zeroed before it
+    and read after; ``full_sharded_step`` over the two shards bitwise one
+    unsharded call; and ``psum_hosts_device`` over a one-process NCCL
+    group in a spawned process (:func:`nccl_merge_worker`): the group
+    forms and its all-gathers go through on the card; at one rank the
+    totals are the inputs, so this shows the route runs, not that a
+    merge of two cards is right."""
+    from tombo_tpu_torch import kernels
+    from tombo_tpu_torch.parallel import mesh as pmesh
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    out = pmesh.dryrun(2)
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for name in ("banded_dp", "start_dp", "banded_dp_sharded"):
+        if launches[name] <= 0:
+            fail("mesh_dryrun: kernel %s was not launched" % name)
+    cards = pmesh.make_mesh()
+    mesh = (cards * 2)[:2]
+    arrays, params = pmesh.dryrun_inputs(2)
+    sh = pmesh.full_sharded_step(mesh, params, 5.0, 5, 32, 4)(*arrays)
+    one = pmesh.full_sharded_step(mesh[:1], params, 5.0, 5, 32, 4)(*arrays)
+    dry = out["full_sharded_step"]
+    for got in (sh, dry):
+        if not (torch.equal(got[0], one[0]) and torch.equal(got[1], one[1])
+                and all(torch.equal(c.to(one[2][0].device), one[2][0])
+                        for c in got[2])):
+            fail("mesh_dryrun: full_sharded_step over 2 shards differs from "
+                 "one unsharded call")
+    em, segs, cov = out["production_step"]
+    summary = {
+        "shards": len(mesh), "cards": len(cards), "dryrun_s": dry_s,
+        "launches": {k: v for k, v in launches.items() if v},
+        "full_sharded_step": {"scores": list(sh[0].shape),
+                              "segs": list(sh[1].shape),
+                              "site_cov_sum": int(sh[2][0].sum()),
+                              "bitwise_unsharded": True},
+        "production_step": {"em": list(em.shape), "segs": list(segs.shape),
+                            "cov_sum": int(cov[0].sum())},
+        "lane_differences": len(out["lane_differences"]),
+        "psum_collective_total": out["psum_total"]}
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        out_fn = os.path.join(tmp, "nccl.pkl")
+        proc = multiprocessing.get_context("spawn").Process(
+            target=nccl_merge_worker, args=(port, out_fn))
+        proc.start()
+        proc.join(180)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+            fail("mesh_dryrun: the NCCL process ran past 180 s")
+        if proc.exitcode != 0 or not os.path.exists(out_fn):
+            fail("mesh_dryrun: the NCCL process failed (exit code %s)" %
+                 proc.exitcode)
+        with open(out_fn, "rb") as fp:
+            nc = pickle.load(fp)
+    (ints, f32), (ni, nf) = nc["inputs"], nc["nccl"]
+    if nc["backend"] != "nccl" or nc["world"] != 1:
+        fail("mesh_dryrun: NCCL group %s of %d" % (nc["backend"],
+                                                   nc["world"]))
+    if not (ni.dtype == np.int64 and np.array_equal(ni, ints) and
+            nf.dtype == np.float32 and nf.tobytes() == f32.tobytes()):
+        fail("mesh_dryrun: psum_hosts_device over NCCL did not return its "
+             "inputs at one rank")
+    summary["nccl_merge"] = {"world_size": 1, "group_formed": True,
+                             "totals_are_inputs_at_one_rank": True,
+                             "nccl_s": nc["nccl_s"],
+                             "elements": [int(ints.size), int(f32.size)]}
+    print("mesh_dryrun (%s): %s" % (smi, json.dumps(summary)))
+    return launches
 
 
 def host_ms(fn):
@@ -3195,8 +3570,10 @@ def main():
              (banded_dp, "adaptive_banded_dp_tb_chunked", rec_ch),
              (batch_mod, "_length_groups", groups_rec)])
         for name, n in launches_m.items():
-            if n <= 0:
-                fail("kernel %s was not launched on the mixed path" % name)
+            # the row-writing instances run only for the DP debug dump
+            if (n > 0) == (name in ROWS_INSTANCES):
+                fail("kernel %s launched %d times on the mixed path" % (
+                    name, n))
         print("mixed path length groups (reads, min, max signal) of each "
               "pass: %s" % json.dumps(groups))
         for rec, layout in ((rec_k1m, "fused"), (rec_ch, "chunked")):
@@ -3561,6 +3938,13 @@ def main():
             [("mixed", stages_m), ("RNA", stages_r)])
         print("one_read phase: %.1f s" % (time.perf_counter() - t_or))
 
+    # ---- phase 13a2: the one-read path's DP debug dump
+    with phase("debug_dp"):
+        launches_dbg, rows_dbg = debug_dp_phase(dev, smi, [
+            ("1 kb", model, params, sst, batches[0][:DEBUG_DP_1KB]),
+            ("mixed", model, params, sst, [mixed_all[pick[-1]]]),
+            ("RNA", model_r, params_r, sst_r, rna[0][:DEBUG_DP_RNA])])
+
     # ---- phase 13b: detection on the card from the paths' device means
     with phase("detection"):
         t_det = time.perf_counter()
@@ -3704,6 +4088,10 @@ def main():
             if launches_k3.get(name, 0) <= 0:
                 fail("kernel %s was not launched on the mesh lane" % name)
 
+    # ---- phase 14b: the multi-device dry runs and the NCCL merge
+    with phase("mesh_dryrun"):
+        launches_dry = mesh_dryrun_phase(smi)
+
     # ---- phase 15: the re-squiggle runner over the 1 kb and mixed reads
     with phase("runner"):
         t_rn = time.perf_counter()
@@ -3798,8 +4186,31 @@ def main():
         "max_abs_err": max(x["max_abs_err"] for x in k3_shapes),
         "ms": k3m["ms"], "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
         "bound_by": k3_by, "library_ms": None, "shards": len(mesh),
+        "launches_mesh_dryrun": launches_dry["banded_dp_sharded"],
         "cards": len(idx), "unsharded_ms": k3m["unsharded_ms"],
         "shapes": k3_shapes})
+    for name, k in (("banded_dp_rows", "banded_dp"),
+                    ("banded_dp_chunked_tb_rows", "banded_dp_chunked_tb")):
+        r = rows_dbg[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "tombo_tpu_torch/csrc/" + (
+                "banded_dp.cu" if k == "banded_dp" else
+                "banded_dp_chunked.cu"),
+            "replaces": ("tombo_tpu/pipeline/resquiggle.py:536 (the DP "
+                         "debug dump's forward pass, on the path of %s)" %
+                         ("tombo_tpu/ops/pallas_dp.py:1052" if k ==
+                          "banded_dp" else
+                          "tombo_tpu/ops/pallas_dp.py:842")),
+            "launches": launches_dbg[name],
+            "launches_main_paths": sum(
+                lc.get(name, 0) for lc in (launches_1kb, launches_m,
+                                           launches_r, launches_rn,
+                                           launches_or, launches_dry)),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "normal_instance_ms": r["normal_ms"], "shape": r})
     print("total wall %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": entries}))
     print(smi)

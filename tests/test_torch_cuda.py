@@ -33,7 +33,9 @@ one-read API (``resquiggle_read_with_retries``) on the card matches its
 float64 run on the CPU and the batched lane's card result within the
 batch-parity bars, launching the start DP (K4, through K1), the adaptive
 DP (K1; the chunked pair for a read past the fused cap) and the count
-kernel (K5)."""
+kernel (K5).  The row-writing instances of K1 and K2' (the DP debug
+dump) give the normal instances' results bitwise, and rows within the DP
+bars of the plain version; the dump changes no one-read result."""
 import numpy as np
 import pytest
 import torch
@@ -211,6 +213,50 @@ def test_chunked_kernels_equal_fused_kernel(card, bw, L, Lc, B, edge):
     q = banded_dp.adaptive_banded_dp_tb_chunked_plain(*args, p, L, P, 10,
                                                       chunk_rows=Lc)
     _assert_dp_close(c, q, args[4], L)
+
+
+def _assert_rows_close(k, q, seq_lens, L):
+    """The rows of a ``rows=True`` call against the plain version's: band
+    starts exact, move codes equal on >= 99.5% of in-band cells, forward
+    values within 1e-3 (the DP bars), rows past each read zero in both."""
+    live = (torch.arange(L, device=k[4].device)[None, :] <
+            seq_lens.clamp(max=L)[:, None])
+    assert torch.equal(k[6], q[6])
+    assert float((k[5] == q[5])[live].float().mean()) >= 0.995
+    assert float((k[4] - q[4]).abs()[live].max()) <= 1e-3
+    for t in k[4:]:
+        assert not t[~live].any()
+
+
+@pytest.mark.parametrize("bw,L,Lc,B,edge", [PAIR_SHAPES[i]
+                                            for i in (1, 2, 6, 8)])
+def test_row_writing_instances_equal_normal(card, bw, L, Lc, B, edge):
+    """K1's and K2''s row-writing instances (the DP debug dump): segs,
+    flags and final row bitwise the normal instances', the fused and
+    chunked rows bitwise each other, and within the DP bars of the plain
+    version; each counts under its own name only."""
+    args, p, P = _pair_case(bw, L, B, edge)
+    args = [a.to(card) for a in args]
+    f = banded_dp.adaptive_banded_dp_tb(*args, p, L, P, 10)
+    c = banded_dp.adaptive_banded_dp_tb_chunked(*args, p, L, P, 10,
+                                                chunk_rows=Lc)
+    before = dict(kernels.LAUNCHES)
+    fr = banded_dp.adaptive_banded_dp_tb(*args, p, L, P, 10, rows=True)
+    cr = banded_dp.adaptive_banded_dp_tb_chunked(*args, p, L, P, 10,
+                                                 chunk_rows=Lc, rows=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == dict(
+        before, banded_dp_rows=before["banded_dp_rows"] + 1,
+        banded_dp_chunked_fwd=before["banded_dp_chunked_fwd"] + 1,
+        banded_dp_chunked_tb_rows=before["banded_dp_chunked_tb_rows"] + 1)
+    for a, b in zip(fr[:4], f):
+        assert torch.equal(a, b)
+    for a, b in zip(cr[:4], c):
+        assert torch.equal(a, b)
+    for a, b in zip(fr, cr):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    q = banded_dp.adaptive_banded_dp_tb_plain(*args, p, L, P, 10, rows=True)
+    _assert_rows_close(fr, q, args[4], L)
 
 
 @pytest.mark.parametrize("bw,L,Lc,B,edge", PAIR_SHAPES)
@@ -858,3 +904,42 @@ def test_one_read_long_read_runs_chunked_on_card(card):
     assert launches["banded_dp"] >= 1          # the start DP
     assert g.segs.shape[0] == len(g.genome_seq) + 1
     assert np.all(np.diff(g.segs) > 0)
+
+
+DUMP_KEYS = {"fwd_pass": np.float32, "fwd_pass_tb": np.int8,
+             "band_event_starts": np.int64, "read_tb": np.int64,
+             "event_means": np.float32, "ref_means": np.float32,
+             "ref_sds": np.float32, "events_start_clip": np.int64,
+             "lower_margin": np.int64, "upper_margin": np.int64,
+             "bandwidth": np.int64}
+
+
+@pytest.mark.parametrize("samp_type,read_lens", [("DNA", [1000, 1200]),
+                                                 ("RNA", [1700])])
+def test_one_read_dump_on_card_changes_nothing(card, tmp_path, samp_type,
+                                               read_lens):
+    """The one-read API with ``debug_dp_dir`` on the card: the results
+    bitwise those without it, one launch of K1's row-writing instance a
+    pass and none of the normal one's for the adaptive DP, and a file a
+    read with the JAX package's entries, dtypes and shapes."""
+    model, params, sst, maps = _one_read_maps(read_lens, 19, samp_type)
+    for mr in maps:
+        kw = dict(outlier_thresh=config.OUTLIER_THRESH, seq_samp_type=sst)
+        plain = rsq.resquiggle_read(mr, model, params, **kw)
+        before = dict(kernels.LAUNCHES)
+        dumped = rsq.resquiggle_read(mr, model, params,
+                                     debug_dp_dir=str(tmp_path), **kw)
+        launches = {n: kernels.LAUNCHES[n] - before[n] for n in before}
+        assert launches["banded_dp_rows"] == 1
+        assert launches["banded_dp"] == launches["start_dp"]
+        np.testing.assert_array_equal(dumped.segs, plain.segs)
+        assert dumped.scale_values == plain.scale_values
+        assert dumped.sig_match_score == plain.sig_match_score
+        with np.load(tmp_path / ("dp_debug.%s.npz" %
+                                 mr.align_info.read_id)) as f:
+            assert {k: f[k].dtype for k in f.files} == DUMP_KEYS
+            L = f["ref_means"].shape[0]
+            assert f["fwd_pass"].shape == f["fwd_pass_tb"].shape == (
+                L + 1, int(f["bandwidth"]))
+            assert f["band_event_starts"].shape == (L,)
+            assert np.isfinite(f["fwd_pass"]).all()

@@ -3,8 +3,11 @@
 JAX package's ``shard_map`` of the Pallas DP in interpret mode, and
 bitwise against itself unsharded at float64 over 1 to 4 shards;
 ``BatchedResquiggler(mesh=...)`` over CPU shards against the JAX mesh
-lane and the port's own 1-device lane at float64, read for read; and the
-mesh helpers' checks.
+lane and the port's own 1-device lane at float64, read for read; the
+dry-run functions (``full_sharded_step`` against the JAX one on 1-3
+devices, ``sharded_production_step`` against the JAX stage functions,
+``dryrun`` and ``psum_collective_dryrun`` on CPU shards); and the mesh
+helpers' checks.
 
 Bars: float32 segs and flags exact, final_fwd within atol 1e-4 (the
 contract of tests/test_pallas_dp.py); float64 exact."""
@@ -18,6 +21,7 @@ from tombo_tpu import config as j_config
 from tombo_tpu.ops import dp as j_dp
 from tombo_tpu.ops import pallas_dp as j_pdp
 from tombo_tpu.parallel import mesh as j_mesh
+from tombo_tpu.pipeline import batch as j_batch
 from tombo_tpu.pipeline.batch import BatchedResquiggler as JBatched
 from tombo_tpu_torch import config as t_config
 from tombo_tpu_torch import convert, kernels, testing
@@ -248,3 +252,97 @@ def test_mesh_lane_f32_equals_one_device(mesh_reads, monkeypatch):
     assert calls["rescale"] > 0 and calls["windows"] > 0, calls
     assert sum(r is not None for r, _ in outs[0]) == 6
     assert t_mesh.lane_differences(outs[1], outs[0], exact=True) == []
+
+
+# ------------------------------------------------------ the dry runs
+def _f64(a):
+    return a.astype(np.float64) if a.dtype == np.float32 else a
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_full_sharded_step_matches_jax(n):
+    """The JAX dry run's inputs at float64 over n CPU shards against the
+    JAX ``full_sharded_step`` on n virtual CPU devices: segs and site
+    coverage bitwise, scores within 1e-12."""
+    arrays, t_params = t_mesh.dryrun_inputs(n)
+    arrays = [_f64(a) for a in arrays]
+    j_params = j_dp.DpParams(*t_params)
+    j_m = j_mesh.make_mesh(jax.devices()[:n])
+    j_scores, j_segs, j_cov = j_mesh.full_sharded_step(
+        j_m, j_params, 5.0, 5, 32, 4)(*j_mesh.shard_batch(j_m, *arrays))
+    before = dict(kernels.LAUNCHES)
+    mesh = t_mesh.make_mesh(["cpu"] * n)
+    scores, segs, cov = t_mesh.full_sharded_step(
+        mesh, t_params, 5.0, 5, 32, 4)(*arrays)
+    assert kernels.LAUNCHES == before
+    np.testing.assert_array_equal(segs.numpy(), np.asarray(j_segs))
+    assert len(cov) == n
+    for c in cov:
+        np.testing.assert_array_equal(c.numpy(), np.asarray(j_cov))
+    assert scores.dtype == torch.float64
+    np.testing.assert_allclose(scores.numpy(), np.asarray(j_scores),
+                               rtol=0, atol=1e-12)
+    # the same batch unsharded: bitwise
+    one = t_mesh.full_sharded_step(t_mesh.make_mesh(["cpu"]), t_params,
+                                   5.0, 5, 32, 4)(*arrays)
+    assert torch.equal(one[0], scores) and torch.equal(one[1], segs)
+    assert torch.equal(one[2][0], cov[0])
+
+
+def test_sharded_production_step_matches_jax_stages():
+    """The port's production step over 2 CPU shards at float64 against
+    the JAX stage functions (``_stage_a_dna``, then ``adaptive_banded_dp``
+    and ``banded_traceback``) on the same inputs: event means within
+    1e-12 (XLA contracts multiply-adds in the JAX normalization), segs
+    and coverage exact."""
+    em, segs, cov = t_mesh.sharded_production_step(["cpu"] * 2)
+    B, sig_len, n_rows, bw, nb = 4, 1024, 64, 32, 8
+    rng = np.random.default_rng(0)
+    raw = rng.normal(450.0, 60.0, (B, sig_len)).astype(np.float32)
+    rm_start = rng.normal(0, 1, (B, nb)).astype(np.float32)
+    sp = j_dp.StartDpParams(z_shift=5.0, skip_pen=4.2, stay_pen=4.2,
+                            max_half_z_score=20.0, num_bases=nb,
+                            num_events=bw)
+    out = j_batch._stage_a_dna(
+        _f64(raw), np.full(B, sig_len, np.int64), np.zeros(B, bool),
+        np.zeros(B), np.ones(B), np.full(B, -1e30), np.full(B, 1e30),
+        np.full(B, n_rows * 4, np.int64), _f64(rm_start),
+        np.full((B, nb), 0.35), 5.0, 5, 3, n_rows * 4 + 1, sp, False)
+    j_em = np.asarray(out[1])
+    assert em.shape == j_em.shape and em.dtype == torch.float64
+    np.testing.assert_allclose(em.numpy(), j_em, rtol=0, atol=1e-12)
+    E, L, P = j_em.shape[1], n_rows, 8
+    rm = _f64(rng.normal(0, 1, (B, L)).astype(np.float32))
+    params = j_dp.DpParams(z_shift=5.0, skip_pen=4.2, stay_pen=4.2,
+                           mask_fill_z_score=-15.0, max_half_z_score=20.0,
+                           bandwidth=bw)
+    sl = np.full(B, L, np.int32)
+    tb, starts, ffwd, _ = j_dp.adaptive_banded_dp(
+        j_em, np.full(B, E, np.int32), rm, np.full((B, L), 0.35), sl,
+        np.tile(np.arange(P, dtype=np.int32) * 2, (B, 1)),
+        np.zeros(B, np.int32), np.full((B, P), 2 ** 31 - 1, np.int64),
+        np.full(B, P, np.int32), params, L, P)
+    top = jnp.argmax(ffwd, axis=1).astype(jnp.int32)
+    j_segs, _ = j_dp.banded_traceback(tb, starts, sl, top, -1, bw, L)
+    np.testing.assert_array_equal(segs.numpy(), np.asarray(j_segs))
+    want = np.bincount(np.clip(np.asarray(j_segs), 0, E).ravel(),
+                       minlength=E + 1)
+    assert len(cov) == 2
+    for c in cov:
+        np.testing.assert_array_equal(c.numpy(), want)
+
+
+def test_dryrun_cpu():
+    before = dict(kernels.LAUNCHES)
+    out = t_mesh.dryrun(4, ["cpu"] * 4)
+    assert kernels.LAUNCHES == before
+    scores, segs, cov = out["full_sharded_step"]
+    assert segs.shape == (8, 33) and len(cov) == 4
+    assert out["production_step"][1].shape == (8, 65)
+    assert out["lane_differences"] == [] and out["psum_total"] == 10
+
+
+def test_psum_collective_dryrun_cpu():
+    from tombo_tpu_torch.parallel import distributed as t_dist
+    assert t_dist.psum_collective_dryrun(["cpu"] * 3) == 6
+    assert t_dist.psum_collective_dryrun(["cpu"]) == 1

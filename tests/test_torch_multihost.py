@@ -70,8 +70,9 @@ _WORKER = textwrap.dedent("""
     dtype = getattr(torch, dtype)
     # small chunks: every run merges several
     detect.CHUNK_REGIONS, detect.LEVEL_CHUNK_REGIONS = 2, 1
-    dist = distributed.init_distributed("127.0.0.1:%d" % port, n_hosts,
-                                        rank) if n_hosts > 1 else None
+    dist = distributed.init_distributed(
+        "127.0.0.1:%d" % port, n_hosts, rank,
+        device="cpu") if n_hosts > 1 else None
     full = ReadsIndex([fast5_dir])
     samp, ctrl = ReadsIndex(), ReadsIndex()
     for (chrm, strand), reads in full.reads_index.items():

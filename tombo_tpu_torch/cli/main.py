@@ -89,7 +89,7 @@ def _dist_from_args(args):
         return None
     from ..parallel.distributed import init_distributed
     return init_distributed(args.coordinator_address, args.num_hosts,
-                            args.host_id)
+                            args.host_id, device=args.device)
 
 
 def _open_genomic_aligner(args):

@@ -29,6 +29,15 @@
 // on the walk, so the whole block copies windows of rows into shared
 // memory ahead of the warp (cp.async, 16 bytes a copy, two windows, one
 // barrier a window) and the warp reads only shared memory.
+//
+// The row-writing instance (ROWS, the DP debug dump of the one-read path,
+// replacing what tombo_tpu/pipeline/resquiggle.py _dump_dp_debug reads
+// from the JAX package's numpy forward pass) also stores each row's bw
+// forward values, from registers, to a (B, L, bw) float32 output; the
+// move codes and band starts are the scratch rows above, which the
+// wrapper returns.  Its extra stores, L * bw * 4 bytes a read, are what
+// it adds to the normal instance; every other output is bitwise the
+// normal instance's.  The normal instance compiles without them.
 // Build with -fmad=false so no multiply-add is contracted (dp_row.cuh,
 // Precision).
 #include "dp_row_lat.cuh"
@@ -46,6 +55,7 @@ struct Out {
   uint8_t* moves; int mst;           // (B, L, mst) scratch rows
   int walk_rows;                     // rows of a walk window
   int* segs; uint8_t* band_err; uint8_t* bound_err; float* ffwd;
+  float* rows;                       // (B, L, bw) forward rows (ROWS)
 };
 
 // blocks of 256 threads an SM that the register budget keeps room for:
@@ -55,7 +65,7 @@ constexpr int min_blocks(int maxi) {
   return maxi == 2 ? 3 : maxi == 4 ? 2 : 1;
 }
 
-template <int MAXI>
+template <int MAXI, bool ROWS>
 __global__ void __launch_bounds__(NT, min_blocks(MAXI))
     banded_dp_kernel(DpIn a, Out o) {
   extern __shared__ __align__(16) float smem[];
@@ -73,12 +83,14 @@ __global__ void __launch_bounds__(NT, min_blocks(MAXI))
   // no boundary past the read's rows (segs[seq_len] is set last)
   for (int r = rows + tid; r <= L; r += nt) segs[r] = 0;
 
-  LatRows<MAXI, true> rw(a, v, slots, smem);
+  LatRows<MAXI, true, ROWS> rw(a, v, slots, smem);
+  float* fo = ROWS ? o.rows + (size_t)b * L * bw : nullptr;
   for (int q = tid; q < bw; q += nt) rw.fprev()[q] = 0.f;
   rw.begin(0, rows, ps0);
   for (int r = 0; r < rows; ++r) {
     uint8_t* row = mv + (size_t)r * mst;
-    const long long bs = rw.step(r, row);
+    const long long bs = rw.step(r, row, ROWS ? fo + (size_t)r * bw
+                                              : nullptr);
     if (tid == 0) *(int*)(row + mst - 4) = (int)bs;
   }
 
@@ -135,12 +147,13 @@ __global__ void __launch_bounds__(NT, min_blocks(MAXI))
 using Kernel = void(DpIn, Out);
 
 // the instance for bandwidth bw: MAXI >= positions per thread
+template <bool ROWS>
 Kernel* kernel_for(int bw) {
   const int ipt = dplat::pos_per_thread(bw);
-  return ipt <= 2   ? banded_dp_kernel<2>
-         : ipt <= 4 ? banded_dp_kernel<4>
-         : ipt <= 8 ? banded_dp_kernel<8>
-                    : banded_dp_kernel<16>;
+  return ipt <= 2   ? banded_dp_kernel<2, ROWS>
+         : ipt <= 4 ? banded_dp_kernel<4, ROWS>
+         : ipt <= 8 ? banded_dp_kernel<8, ROWS>
+                    : banded_dp_kernel<16, ROWS>;
 }
 
 int walk_rows(int mst) {
@@ -170,14 +183,16 @@ extern "C" int tombo_banded_dp(
     int B, int L, int bw, float z_shift, float skip_pen, float stay_pen,
     float mask_fill, float max_half_z, int bound_thresh, uint8_t* moves,
     int mst, int* segs, uint8_t* band_err, uint8_t* bound_err, float* ffwd,
-    void* stream) {
+    float* rows, void* stream) {
   if (bad_shape(bw, mst) || B < 1 || L < 1 || P < 1) return -1;
   DpIn a{em, E, n_events, rm, rs, L_in, seq_lens, pstarts, pvalid, pend,
          P, start_rows, L, bw, z_shift, skip_pen, stay_pen, mask_fill,
          max_half_z, bound_thresh};
-  Out o{moves, mst, walk_rows(mst), segs, band_err, bound_err, ffwd};
-  return launch(kernel_for(bw), B, dplat::block_threads(bw),
-                smem_bytes(bw, mst), (cudaStream_t)stream, a, o);
+  Out o{moves, mst, walk_rows(mst), segs, band_err, bound_err, ffwd, rows};
+  // rows null: the normal instance; else the row-writing one
+  return launch(rows ? kernel_for<true>(bw) : kernel_for<false>(bw), B,
+                dplat::block_threads(bw), smem_bytes(bw, mst),
+                (cudaStream_t)stream, a, o);
 }
 
 // K1's block at bandwidth bw and move-row stride mst: its threads, its
@@ -186,7 +201,7 @@ extern "C" int tombo_banded_dp(
 extern "C" int tombo_banded_dp_occupancy(int bw, int mst, int* threads,
                                          long long* smem, int* blocks) {
   if (bad_shape(bw, mst)) return -1;
-  Kernel* k = kernel_for(bw);
+  Kernel* k = kernel_for<false>(bw);
   *threads = dplat::block_threads(bw);
   *smem = (long long)smem_bytes(bw, mst);
   const cudaError_t e = cudaFuncSetAttribute(

@@ -45,6 +45,14 @@
 // 1/G of K2's rows in sequence, and its walk, one warp reading shared
 // memory row by row, takes the rest: the walk is the only part of the
 // traceback that has to run in order.
+//
+// K2' has a row-writing instance (ROWS, the DP debug dump of a long read
+// on the one-read path): the recompute also stores each row's forward
+// values (from registers), and once a chunk's tile is whole the block
+// copies its move codes and band starts to device memory, (B, L, bw)
+// float32, (B, L, bw) uint8 and (B, L) int32; 45 MB a read at L 30,000,
+// bw 300.  Segs and flags stay bitwise the normal instance's, which
+// compiles without the stores.
 // Build with -fmad=false (dp_row.cuh, Precision): the recomputed rows are
 // bitwise the forward rows only if both are compiled alike.
 #include <cooperative_groups.h>
@@ -69,6 +77,8 @@ struct TbArgs {
   const float* ckpt; const int* ckpt_start;
   const float* ffwd; const int* last_bs;
   int* segs; uint8_t* bound_err;
+  // ROWS: (B, L, bw) forward rows and move codes, (B, L) band starts
+  float* rows; uint8_t* codes; int* starts;
 };
 
 // walk state handed from one block of the cluster to the next
@@ -115,7 +125,7 @@ __global__ void __launch_bounds__(NT) chunked_fwd_kernel(DpIn a, FwdOut o) {
   }
 }
 
-template <int MAXI>
+template <int MAXI, bool ROWS>
 __global__ void __launch_bounds__(NT) chunked_tb_kernel(DpIn a, TbArgs o) {
   extern __shared__ __align__(16) float smem[];
   __shared__ Slots slots;
@@ -128,7 +138,7 @@ __global__ void __launch_bounds__(NT) chunked_tb_kernel(DpIn a, TbArgs o) {
   const int bw = a.bw, L = a.L, Lc = o.Lc;
   const int n_chunks = (L + Lc - 1) / Lc;
   const ReadView v(a, b);
-  LatRows<MAXI, true> rw(a, v, slots, smem);
+  LatRows<MAXI, true, ROWS> rw(a, v, slots, smem);
   int* tile_bs = (int*)rw.end();                       // (Lc,)
   uint8_t* tile = (uint8_t*)(tile_bs + Lc);            // (Lc, bw)
   const float* ck = o.ckpt + (size_t)b * n_chunks * bw;
@@ -162,10 +172,19 @@ __global__ void __launch_bounds__(NT) chunked_tb_kernel(DpIn a, TbArgs o) {
         rw.fprev()[q] = ck[(size_t)c * bw + q];
       rw.begin(r0, r1, cks[c]);
       for (int r = r0; r < r1; ++r) {
-        const long long bs = rw.step(r, tile + (size_t)(r - r0) * bw);
+        const long long bs = rw.step(
+            r, tile + (size_t)(r - r0) * bw,
+            ROWS ? o.rows + ((size_t)b * L + r) * bw : nullptr);
         if (tid == 0) tile_bs[r - r0] = (int)bs;
       }
       __syncthreads();         // the tile is whole
+      if (ROWS) {
+        const size_t row0 = (size_t)b * L + r0;
+        const int n = (r1 - r0) * bw;
+        for (int i = tid; i < n; i += nt) o.codes[row0 * bw + i] = tile[i];
+        for (int i = tid; i < r1 - r0; i += nt)
+          o.starts[row0 + i] = tile_bs[i];
+      }
     }
     for (int h = 0; h < G; ++h) {
       if (h == g && c >= 0 && tid < 32) {
@@ -216,9 +235,12 @@ FwdKernel* fwd_kernel(int bw) {
                          chunked_fwd_kernel<8>, chunked_fwd_kernel<16>);
 }
 
+template <bool ROWS>
 TbKernel* tb_kernel(int bw) {
-  return pick<TbKernel>(bw, chunked_tb_kernel<2>, chunked_tb_kernel<4>,
-                        chunked_tb_kernel<8>, chunked_tb_kernel<16>);
+  return pick<TbKernel>(bw, chunked_tb_kernel<2, ROWS>,
+                        chunked_tb_kernel<4, ROWS>,
+                        chunked_tb_kernel<8, ROWS>,
+                        chunked_tb_kernel<16, ROWS>);
 }
 
 size_t tb_smem(int bw, int Lc) {
@@ -274,13 +296,17 @@ extern "C" int tombo_banded_dp_chunked_tb(
     int B, int L, int bw, float z_shift, float skip_pen, float stay_pen,
     float mask_fill, float max_half_z, int bound_thresh, int Lc, int G,
     const float* ckpt, const int* ckpt_start, const float* ffwd,
-    const int* last_bs, int* segs, uint8_t* bound_err, void* stream) {
+    const int* last_bs, int* segs, uint8_t* bound_err, float* rows,
+    uint8_t* codes, int* starts, void* stream) {
   if (bad_shape(B, L, bw, P, Lc) || G < 1 || G > 8) return -1;
+  // rows null: the normal instance; else all three outputs, row-writing
+  if (rows && !(codes && starts)) return -1;
   DpIn a{em, E, n_events, rm, rs, L_in, seq_lens, pstarts, pvalid, pend,
          P, start_rows, L, bw, z_shift, skip_pen, stay_pen, mask_fill,
          max_half_z, bound_thresh};
-  TbArgs o{Lc, ckpt, ckpt_start, ffwd, last_bs, segs, bound_err};
-  TbKernel* k = tb_kernel(bw);
+  TbArgs o{Lc, ckpt, ckpt_start, ffwd, last_bs, segs, bound_err, rows,
+           codes, starts};
+  TbKernel* k = rows ? tb_kernel<true>(bw) : tb_kernel<false>(bw);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   cudaError_t e = tb_config(k, B, bw, Lc, G, (cudaStream_t)stream, cfg,
@@ -297,7 +323,7 @@ extern "C" int tombo_banded_dp_chunked_tb_occupancy(int bw, int Lc, int G,
                                                     long long* smem,
                                                     int* clusters) {
   if (bw < 1 || bw > NT * MAXI_CAP || Lc < 1 || G < 1 || G > 8) return -1;
-  TbKernel* k = tb_kernel(bw);
+  TbKernel* k = tb_kernel<false>(bw);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   cudaError_t e = tb_config(k, G, bw, Lc, G, 0, cfg, attr);

@@ -208,13 +208,16 @@ __device__ inline float warps_before_max(const float* t, int nw, int warp) {
 // The rows [r_begin, r_end) of one read, one block.  The caller fills
 // fprev() with the forward row before r_begin and calls begin(), then
 // step(r) for each row in order.  MOVES: step also writes the row's move
-// codes (0 stay, 1 skip, 2 diag) to mv[0, bw).
+// codes (0 stay, 1 skip, 2 diag) to mv[0, bw).  ROWS: step also stores the
+// row's forward values to fo[0, bw) in device memory, each thread its own
+// positions from registers (the DP debug dump's instances; the other
+// instances compile without it).
 //
 // Stage buffer b (of two) holds, from stg + b * stage_n: bw + EM_MARGIN
 // event means, then STAGE_ROWS each of ref means, ref sds, prefix starts
 // and prefix ends.  Buffers are picked by offset, not from an array, so
 // the loop's state stays in registers.
-template <int MAXI, bool MOVES>
+template <int MAXI, bool MOVES, bool ROWS = false>
 struct LatRows {
   const DpIn& a;
   const ReadView& v;
@@ -296,7 +299,7 @@ struct LatRows {
   __device__ float* fprev() const { return fp; }
 
   // row r; returns its band start
-  __device__ long long step(int r, uint8_t* mv) {
+  __device__ long long step(int r, uint8_t* mv, float* fo = nullptr) {
     const int bw = a.bw;
     const int si = r - r_begin, ri = si & (STAGE_ROWS - 1);
     const int buf = (si / STAGE_ROWS) & 1;
@@ -435,6 +438,7 @@ struct LatRows {
       f[j] = (q == 0) ? first_val : cf[j] + fmaxf(moff, um[j]);
       if (j < ipt && q < bw) {
         fc[q] = f[j];
+        if (ROWS) fo[q] = f[j];
         if (f[j] > bv) { bv = f[j]; bi = q; }
       }
     }

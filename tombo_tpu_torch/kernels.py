@@ -25,11 +25,14 @@ from typing import Dict, List
 SOURCES = ("banded_dp", "banded_dp_chunked", "count_le")
 # the kernels, each launched by one wrapper: K1, K2, K2', K5; K3, the
 # read-sharded DP, which counts one per shard it launches on a card (each
-# such launch is one of K1, or K2 then K2', and counts there too); and K4,
+# such launch is one of K1, or K2 then K2', and counts there too); K4,
 # the start DP, a sub-count of K1's: each launch K1's wrapper makes for
-# ``start_dp_segs`` counts under both, where it launches
+# ``start_dp_segs`` counts under both, where it launches; and the
+# row-writing instances of K1 and K2' (``rows=True``, the DP debug dump),
+# which count under their own names only
 KERNELS = ("banded_dp", "banded_dp_chunked_fwd", "banded_dp_chunked_tb",
-           "count_le", "banded_dp_sharded", "start_dp")
+           "count_le", "banded_dp_sharded", "start_dp", "banded_dp_rows",
+           "banded_dp_chunked_tb_rows")
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")

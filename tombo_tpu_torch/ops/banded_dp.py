@@ -12,12 +12,15 @@ sequence-chunked pair ``csrc/banded_dp_chunked.cu`` (K2 forward, K2'
 traceback) or runs :func:`adaptive_banded_dp_tb_chunked_plain`.  All take
 the same arguments (the chunked ones also ``chunk_rows``) and return
 (segs (B, L+1) int32, band_error (B,) bool, bound_error (B,) bool,
-final_fwd (B, bw)), the same values from either layout.
-:func:`adaptive_banded_dp_tb_sharded` (K3) splits a batch over the
-devices of a reads mesh and launches K1, or K2 then K2', on each device
-over its own shard; shard by shard, its plain version is theirs.  Start
-discovery uses K1 with ``starts = arange`` covering every row and no
-masking (:func:`start_dp_segs`)."""
+final_fwd (B, bw)), the same values from either layout.  With
+``rows=True`` they also return each row's forward values, move codes
+and band start (:func:`_dump_rows`; the one-read path's DP debug dump):
+on a card through the row-writing instances of K1 and K2', which are
+otherwise the normal ones.  :func:`adaptive_banded_dp_tb_sharded` (K3)
+splits a batch over the devices of a reads mesh and launches K1, or K2
+then K2', on each device over its own shard; shard by shard, its plain
+version is theirs.  Start discovery uses K1 with ``starts = arange``
+covering every row and no masking (:func:`start_dp_segs`)."""
 from __future__ import annotations
 
 import ctypes
@@ -115,39 +118,62 @@ def plan_dp_layout(n_rows: int, bandwidth: int):
     return ("chunked", min(n_rows, CHUNK_ROWS))
 
 
+def _dump_rows(rows, codes, starts, seq_lens):
+    """The rows a ``rows=True`` call returns beside the usual outputs:
+    (forward rows (B, L, bw), move codes (B, L, bw) int8 (0 stay, 1 skip,
+    2 diag), band starts (B, L) int32), from the row-major (L, B, ...)
+    rows of the plain row loop; a read's rows at or past its length are
+    zero, as the row-writing kernels, which do not run them, leave
+    them."""
+    L = starts.shape[0]
+    live = (torch.arange(L, device=starts.device)[:, None] <
+            seq_lens.long()[None, :])
+    return (torch.where(live[..., None], rows, 0).transpose(0, 1)
+            .contiguous(),
+            torch.where(live[..., None], codes, 0).transpose(0, 1)
+            .contiguous(),
+            torch.where(live, starts, 0).to(torch.int32).transpose(0, 1)
+            .contiguous())
+
+
 def adaptive_banded_dp_tb_plain(event_means, n_events, ref_means, ref_sds,
                                 seq_lens, prefix_starts, prefix_valid_start,
                                 prefix_end, start_rows, params: DpParams,
                                 n_rows: int, prefix_rows: int,
-                                band_bound_thresh: int):
+                                band_bound_thresh: int, rows: bool = False):
     """K1's plain version: every row forward, then the walk back from the
     first argmax of row ``seq_len - 1``.  A read with no such row within
     ``n_rows`` (seq_len 0, or past ``n_rows``) keeps a zero final row and
-    starts its walk at its first prefix band start, as K1 does."""
+    starts its walk at its first prefix band start, as K1 does.  With
+    ``rows`` it also returns the rows (:func:`_dump_rows`)."""
     bw = params.bandwidth
     x = dp.dp_inputs(event_means, n_events, ref_means, ref_sds, seq_lens,
                      prefix_starts, prefix_valid_start, prefix_end,
                      start_rows, params, n_rows, prefix_rows)
-    state, tb, band_starts = dp.adaptive_dp_rows(
-        x, dp.init_fwd_state(x, bw), 0, n_rows, params)
+    state, tb, band_starts, *fwd_rows = dp.adaptive_dp_rows(
+        x, dp.init_fwd_state(x, bw), 0, n_rows, params, keep_rows=rows)
     init_event_pos = torch.argmax(state.final_fwd, 1) + state.last_start
     segs, _, bound_err = dp.traceback_rows(
         tb, band_starts, x.seq_lens, 0, init_event_pos,
         torch.zeros_like(state.band_error), band_bound_thresh, bw)
     segs = dp.finish_segs(segs, x.seq_lens, init_event_pos, n_rows)
-    return (segs.to(torch.int32), state.band_error, bound_err,
-            state.final_fwd)
+    out = (segs.to(torch.int32), state.band_error, bound_err,
+           state.final_fwd)
+    if rows:
+        out += _dump_rows(fwd_rows[0], tb, band_starts, x.seq_lens)
+    return out
 
 
 def adaptive_banded_dp_tb_chunked_plain(
         event_means, n_events, ref_means, ref_sds, seq_lens, prefix_starts,
         prefix_valid_start, prefix_end, start_rows, params: DpParams,
         n_rows: int, prefix_rows: int, band_bound_thresh: int,
-        chunk_rows: int = CHUNK_ROWS):
+        chunk_rows: int = CHUNK_ROWS, rows: bool = False):
     """The chunked pair's plain version, split as the kernels split the
     work: a forward pass that keeps one checkpoint (forward row, band
     start) per ``chunk_rows`` rows, then the chunks last to first, each
-    recomputed from its checkpoint and walked back."""
+    recomputed from its checkpoint and walked back.  With ``rows`` it
+    also returns the recomputed rows (:func:`_dump_rows`)."""
     bw = params.bandwidth
     x = dp.dp_inputs(event_means, n_events, ref_means, ref_sds, seq_lens,
                      prefix_starts, prefix_valid_start, prefix_end,
@@ -164,18 +190,24 @@ def adaptive_banded_dp_tb_chunked_plain(
     bound_err = torch.zeros_like(state.band_error)
     segs = torch.zeros((x.seq_lens.shape[0], n_rows), dtype=torch.long,
                        device=event_means.device)
+    kept = []
     for r0, r1, fwd, start in reversed(chunks):
         # only the rows come out of the recompute: its flags and final
         # row are the forward pass's already
-        _, tb, band_starts = dp.adaptive_dp_rows(
+        _, tb, band_starts, *fwd_rows = dp.adaptive_dp_rows(
             x, dp.FwdState(fwd, start, state.band_error, fwd, start), r0, r1,
-            params)
+            params, keep_rows=rows)
         segs[:, r0:r1], event_pos, bound_err = dp.traceback_rows(
             tb, band_starts, x.seq_lens, r0, event_pos, bound_err,
             band_bound_thresh, bw)
+        if rows:
+            kept.insert(0, (fwd_rows[0], tb, band_starts))
     segs = dp.finish_segs(segs, x.seq_lens, init_event_pos, n_rows)
-    return (segs.to(torch.int32), state.band_error, bound_err,
-            state.final_fwd)
+    out = (segs.to(torch.int32), state.band_error, bound_err,
+           state.final_fwd)
+    if rows:
+        out += _dump_rows(*(torch.cat(k) for k in zip(*kept)), x.seq_lens)
+    return out
 
 
 _IN_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -186,12 +218,12 @@ _IN_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                 [ctypes.c_float] * 5 + [ctypes.c_int])
 _ARGTYPES = {
     "tombo_banded_dp": _IN_ARGTYPES + [ctypes.c_void_p, ctypes.c_int] +
-    [ctypes.c_void_p] * 5,
+    [ctypes.c_void_p] * 6,
     "tombo_banded_dp_occupancy": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3,
     "tombo_banded_dp_chunked_fwd": _IN_ARGTYPES + [ctypes.c_int] +
     [ctypes.c_void_p] * 6,
     "tombo_banded_dp_chunked_tb": _IN_ARGTYPES + [ctypes.c_int] * 2 +
-    [ctypes.c_void_p] * 7,
+    [ctypes.c_void_p] * 10,
     "tombo_banded_dp_chunked_tb_occupancy": [ctypes.c_int] * 3 +
     [ctypes.c_void_p] * 2,
 }
@@ -258,31 +290,46 @@ def adaptive_banded_dp_tb(event_means, n_events, ref_means, ref_sds,
                           seq_lens, prefix_starts, prefix_valid_start,
                           prefix_end, start_rows, params: DpParams,
                           n_rows: int, prefix_rows: int,
-                          band_bound_thresh: int, *, also_count=()):
+                          band_bound_thresh: int, *, also_count=(),
+                          rows: bool = False):
     """Start-masked + adaptive banded DP and traceback for a read batch,
     fused (K1): device scratch of ``n_rows x move_stride(bw)`` bytes per
-    read.  A launch also counts under each name of ``also_count``."""
+    read.  A launch also counts under each name of ``also_count``.  With
+    ``rows`` the call also returns the rows (:func:`_dump_rows`); on a
+    card it launches K1's row-writing instance, counted as
+    ``banded_dp_rows``, which also writes ``n_rows x bw`` floats a read
+    and returns the move scratch's codes and band starts."""
     ins = (event_means, n_events, ref_means, ref_sds, seq_lens,
            prefix_starts, prefix_valid_start, prefix_end, start_rows,
            params, n_rows)
     if event_means.device.type == "cpu":
         return adaptive_banded_dp_tb_plain(*ins, prefix_rows,
-                                           band_bound_thresh)
+                                           band_bound_thresh, rows)
     args, _keep = _kernel_inputs(*ins, band_bound_thresh)
     B, dev = event_means.shape[0], event_means.device
     L, bw = int(n_rows), int(params.bandwidth)
     mst = move_stride(bw)
-    moves = torch.empty((B, L, mst), dtype=torch.uint8, device=dev)
+    # the row-writing instance's unrun rows read as zero
+    moves = (torch.zeros if rows else torch.empty)(
+        (B, L, mst), dtype=torch.uint8, device=dev)
     segs = torch.empty((B, L + 1), dtype=torch.int32, device=dev)
     band_err = torch.empty(B, dtype=torch.uint8, device=dev)
     bound_err = torch.empty(B, dtype=torch.uint8, device=dev)
     ffwd = torch.empty((B, bw), dtype=torch.float32, device=dev)
+    fwd_rows = (torch.zeros((B, L, bw), dtype=torch.float32, device=dev)
+                if rows else None)
     p = kernels.ptr
     with torch.cuda.device(dev):
         _check_launch(_kernel_fn("banded_dp", "tombo_banded_dp")(
             *args, p(moves), mst, p(segs), p(band_err), p(bound_err),
-            p(ffwd), kernels.stream_handle(dev)), "banded_dp", *also_count)
-    return segs, band_err.bool(), bound_err.bool(), ffwd
+            p(ffwd), p(fwd_rows) if rows else None,
+            kernels.stream_handle(dev)),
+            "banded_dp_rows" if rows else "banded_dp", *also_count)
+    out = (segs, band_err.bool(), bound_err.bool(), ffwd)
+    if rows:
+        out += (fwd_rows, moves[:, :, :bw].view(torch.int8).contiguous(),
+                moves[:, :, mst - 4:].contiguous().view(torch.int32)[..., 0])
+    return out
 
 
 def adaptive_banded_dp_tb_chunked(event_means, n_events, ref_means, ref_sds,
@@ -290,11 +337,15 @@ def adaptive_banded_dp_tb_chunked(event_means, n_events, ref_means, ref_sds,
                                   prefix_valid_start, prefix_end, start_rows,
                                   params: DpParams, n_rows: int,
                                   prefix_rows: int, band_bound_thresh: int,
-                                  chunk_rows: int = CHUNK_ROWS):
+                                  chunk_rows: int = CHUNK_ROWS,
+                                  rows: bool = False):
     """The same DP and traceback, chunked along the rows (K2 forward, then
     K2' traceback, one cluster of :data:`CLUSTER_BLOCKS` blocks per read)
     at :func:`tile_rows` rows a chunk: device scratch per read is one
-    forward-row checkpoint per chunk, whatever the read's length."""
+    forward-row checkpoint per chunk, whatever the read's length.  With
+    ``rows`` the call also returns the rows (:func:`_dump_rows`); on a
+    card K2' is then its row-writing instance, counted as
+    ``banded_dp_chunked_tb_rows``, which writes each recomputed row."""
     ins = (event_means, n_events, ref_means, ref_sds, seq_lens,
            prefix_starts, prefix_valid_start, prefix_end, start_rows,
            params, n_rows)
@@ -304,7 +355,7 @@ def adaptive_banded_dp_tb_chunked(event_means, n_events, ref_means, ref_sds,
     Lc = tile_rows(bw, min(int(chunk_rows), L))
     if event_means.device.type == "cpu":
         return adaptive_banded_dp_tb_chunked_plain(
-            *ins, prefix_rows, band_bound_thresh, Lc)
+            *ins, prefix_rows, band_bound_thresh, Lc, rows)
     args, _keep = _kernel_inputs(*ins, band_bound_thresh)
     B, dev = event_means.shape[0], event_means.device
     ckpt, ckpt_start = chunked_scratch(B, L, bw, Lc, dev)
@@ -313,6 +364,10 @@ def adaptive_banded_dp_tb_chunked(event_means, n_events, ref_means, ref_sds,
     last_bs = torch.empty(B, dtype=torch.int32, device=dev)
     segs = torch.empty((B, L + 1), dtype=torch.int32, device=dev)
     bound_err = torch.empty(B, dtype=torch.uint8, device=dev)
+    dump = ((torch.zeros((B, L, bw), dtype=torch.float32, device=dev),
+             torch.zeros((B, L, bw), dtype=torch.int8, device=dev),
+             torch.zeros((B, L), dtype=torch.int32, device=dev))
+            if rows else ())
     p, stream = kernels.ptr, kernels.stream_handle(dev)
     with torch.cuda.device(dev):
         _check_launch(_kernel_fn("banded_dp_chunked",
@@ -322,9 +377,10 @@ def adaptive_banded_dp_tb_chunked(event_means, n_events, ref_means, ref_sds,
         _check_launch(_kernel_fn("banded_dp_chunked",
                                  "tombo_banded_dp_chunked_tb")(
             *args, Lc, CLUSTER_BLOCKS, p(ckpt), p(ckpt_start), p(ffwd),
-            p(last_bs), p(segs), p(bound_err), stream),
-            "banded_dp_chunked_tb")
-    return segs, band_err.bool(), bound_err.bool(), ffwd
+            p(last_bs), p(segs), p(bound_err),
+            *([p(t) for t in dump] if rows else [None] * 3), stream),
+            "banded_dp_chunked_tb_rows" if rows else "banded_dp_chunked_tb")
+    return (segs, band_err.bool(), bound_err.bool(), ffwd) + dump
 
 
 def chunked_scratch(n_reads: int, n_rows: int, bandwidth: int, lc: int,

@@ -162,12 +162,13 @@ def init_fwd_state(x: DpInputs, bw: int) -> FwdState:
 
 
 def adaptive_dp_rows(x: DpInputs, state: FwdState, r0: int, r1: int,
-                     params: DpParams):
+                     params: DpParams, keep_rows: bool = False):
     """Rows ``[r0, r1)`` of the forward pass from ``state``, the state
     before row ``r0``.  Rows ``r < start_rows`` use the precomputed prefix
     band plan; later rows place the band adaptively.  Returns (the state
     after row ``r1 - 1``, moves (r1 - r0, B, bw) int8, band starts
-    (r1 - r0, B))."""
+    (r1 - r0, B)), and with ``keep_rows`` also the forward rows
+    (r1 - r0, B, bw) (a read's rows past its length repeat its last)."""
     bw = params.bandwidth
     half_bw = bw // 2
     fwd, prev_start, band_error, final_fwd, last_start = state
@@ -177,6 +178,8 @@ def adaptive_dp_rows(x: DpInputs, state: FwdState, r0: int, r1: int,
     Pz = x.prefix_z.shape[1]
     tb = torch.zeros((r1 - r0, B, bw), dtype=torch.int8, device=dev)
     band_starts = torch.zeros((r1 - r0, B), dtype=torch.long, device=dev)
+    rows = (torch.empty((r1 - r0, B, bw), dtype=fwd.dtype, device=dev)
+            if keep_rows else None)
 
     for r in range(r0, r1):
         is_prefix = r < x.start_rows
@@ -216,14 +219,17 @@ def adaptive_dp_rows(x: DpInputs, state: FwdState, r0: int, r1: int,
         new_fwd, moves = _row_update(fwd, z_row, first_val, first_move,
                                      diff, params)
         fwd = torch.where(active[:, None], new_fwd, fwd)
+        if keep_rows:
+            rows[r - r0] = fwd
         tb[r - r0] = torch.where(active[:, None], moves, 0)
         is_last = r == seq_lens - 1
         final_fwd = torch.where(is_last[:, None], fwd, final_fwd)
         last_start = torch.where(is_last, band_start, last_start)
         band_starts[r - r0] = band_start
         prev_start = band_start
-    return (FwdState(fwd, prev_start, band_error, final_fwd, last_start),
-            tb, band_starts)
+    out = (FwdState(fwd, prev_start, band_error, final_fwd, last_start),
+           tb, band_starts)
+    return out + (rows,) if keep_rows else out
 
 
 def traceback_rows(tb, band_starts, seq_lens, r0: int, event_pos,

@@ -29,10 +29,14 @@ their numpy bodies stay here as the plain versions.  Also here: event
 counts, read mapping, the RNA signal adjustments (3'->5' flip, adapter
 trim, stall intervals), per-read normalization (every normalization type)
 and scale values, the sequence-fitted shift and scale, and the
-deletion-fix window planner.  The JAX package's debug dump of the DP
-(an environment switch) is not ported: K1 keeps no forward matrix."""
+deletion-fix window planner.  ``debug_dp_dir`` (the JAX package reads
+an environment variable instead) makes the adaptive path run the
+row-writing instance of K1 or K2' and write the DP debug dump,
+``dp_debug.<read id>.npz``, the JAX package's file entry for entry
+(:func:`_dump_dp_debug`), which ``scripts/debug_dp_plot.py`` renders."""
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -625,12 +629,15 @@ def _trim_traceback(read_tb, events_len):
 
 
 def _adaptive_dp_read(event_means, r_ref_means, r_ref_sds, plan,
-                      rsqgl_params: ResquiggleParams, dev, dt):
+                      rsqgl_params: ResquiggleParams, dev, dt,
+                      rows: bool = False):
     """The masked-start adaptive DP and its traceback for one read: K1, or
     the chunked pair K2/K2' where :func:`banded_dp.plan_dp_layout` picks
     it for the read's rows rounded up as the batched path rounds them.
     ``plan`` is :func:`build_masked_start_plan`'s.  Returns (traceback
-    (L + 1,) int64, band error, bound error)."""
+    (L + 1,) int64, band error, bound error), and with ``rows`` (through
+    the row-writing instances on a card) also the read's forward rows
+    (L, bw), move codes (L, bw) int8 and band starts (L,) int64."""
     p = rsqgl_params
     bw = p.bandwidth
     pstarts, pvalid, pend, P, P_max = plan
@@ -648,26 +655,69 @@ def _adaptive_dp_read(event_means, r_ref_means, r_ref_sds, plan,
     layout = banded_dp.plan_dp_layout(_pow2_bucket(L, 256), bw)
     if layout[0] == "fused":
         out = banded_dp.adaptive_banded_dp_tb(
-            *args, dpp, L, P_max, p.band_bound_thresh)
+            *args, dpp, L, P_max, p.band_bound_thresh, rows=rows)
     else:
         out = banded_dp.adaptive_banded_dp_tb_chunked(
-            *args, dpp, L, P_max, p.band_bound_thresh, chunk_rows=layout[1])
+            *args, dpp, L, P_max, p.band_bound_thresh, chunk_rows=layout[1],
+            rows=rows)
     segs, band_err, bound_err = (t.cpu().numpy() for t in out[:3])
-    return segs[0].astype(np.int64), bool(band_err[0]), bool(bound_err[0])
+    res = (segs[0].astype(np.int64), bool(band_err[0]), bool(bound_err[0]))
+    if rows:
+        fwd, codes, starts = (t[0].cpu().numpy() for t in out[4:])
+        res += (fwd, codes, starts.astype(np.int64))
+    return res
+
+
+def _dump_dp_debug(debug_dp_dir, read_id, fwd_rows, codes, band_starts,
+                   read_tb, event_means, r_ref_means, r_ref_sds,
+                   events_start_clip, bandwidth):
+    """Write ``dp_debug.<read_id or "read">.npz`` into ``debug_dp_dir``
+    with the entries, names, dtypes and shapes of the JAX package's dump
+    (``tombo_tpu/pipeline/resquiggle.py`` ``_dump_dp_debug``): the forward
+    pass ``fwd_pass`` (seq_len + 1, bw) float32 and its move codes
+    ``fwd_pass_tb`` int8 (0 stay, 1 skip, 2 diag), row 0 the zero row
+    before the first base; each base's band start; the trimmed traceback;
+    the clipped events and the expected levels, float32; the event clip;
+    the optimal path's distance from each band edge (``lower_margin``,
+    ``upper_margin``, from the trimmed traceback); the bandwidth.  The
+    DP's rows are finite (the port's -1e30 stand-in for -inf never
+    reaches a forward value, nor does the JAX package's -inf), so no
+    fill value needs mapping."""
+    os.makedirs(debug_dp_dir, exist_ok=True)
+    bw = fwd_rows.shape[1]
+    fwd_pass = np.zeros((fwd_rows.shape[0] + 1, bw), np.float32)
+    fwd_pass[1:] = fwd_rows
+    fwd_pass_tb = np.zeros((codes.shape[0] + 1, bw), np.int8)
+    fwd_pass_tb[1:] = codes
+    path_pos = read_tb[1:] - band_starts[:read_tb.shape[0] - 1]
+    np.savez_compressed(
+        os.path.join(debug_dp_dir, "dp_debug.%s.npz" % (read_id or "read")),
+        fwd_pass=fwd_pass, fwd_pass_tb=fwd_pass_tb,
+        band_event_starts=band_starts, read_tb=read_tb,
+        event_means=event_means.astype(np.float32),
+        ref_means=r_ref_means.astype(np.float32),
+        ref_sds=r_ref_sds.astype(np.float32),
+        events_start_clip=np.int64(events_start_clip),
+        lower_margin=path_pos, upper_margin=bandwidth - 1 - path_pos,
+        bandwidth=np.int64(bandwidth))
 
 
 def find_adaptive_base_assignment(
         valid_cpts, event_means, rsqgl_params: ResquiggleParams, std_ref,
         genome_seq, start_clip_bases=None,
         seq_samp_type=SeqSampleType(config.DNA_SAMP_TYPE, False),
-        read_id=None, device: DeviceLike = None, dtype=None) -> DpResults:
+        read_id=None, device: DeviceLike = None, dtype=None,
+        debug_dp_dir: Optional[str] = None) -> DpResults:
     """Adaptive-band assignment of the events to the sequence (reference:
     tombo/resquiggle.py:866-1050): start discovery (K4; the save start
     band, without the score check, when the first fails), then the
     masked-start adaptive DP and traceback (K1 or K2/K2') on the events
     from the clipped start; reads too short for either take the host
-    library's static band.  ``read_id`` is kept for the JAX package's
-    signature (its debug dump is not ported)."""
+    library's static band.  With ``debug_dp_dir`` the adaptive DP runs
+    the row-writing instance of its layout (the same results) and a read
+    that passes it writes its DP debug dump there, named by ``read_id``
+    (:func:`_dump_dp_debug`); a static-band read or a failed DP writes
+    none."""
     dev = resolve_device(device)
     dt = resolve_dtype(dtype, dev)
     p = rsqgl_params
@@ -725,8 +775,9 @@ def find_adaptive_base_assignment(
     clipped_event_means = event_means[events_start_clip:]
     plan = build_masked_start_plan(clipped_event_means.shape[0],
                                    mapped_start_offset, p, events_per_base)
-    read_tb, band_err, bound_err = _adaptive_dp_read(
-        clipped_event_means, r_ref_means, r_ref_sds, plan, p, dev, dt)
+    read_tb, band_err, bound_err, *dump = _adaptive_dp_read(
+        clipped_event_means, r_ref_means, r_ref_sds, plan, p, dev, dt,
+        rows=bool(debug_dp_dir))
     if band_err:
         raise TomboError("Adaptive signal to sequence alignment extended "
                          "beyond raw signal")
@@ -737,6 +788,10 @@ def find_adaptive_base_assignment(
         read_tb, events_len=event_means.shape[0] - events_start_clip)
     seq_segs, rsrtr = get_rel_raw_coords(valid_cpts[events_start_clip:],
                                          read_tb)
+    if debug_dp_dir:
+        _dump_dp_debug(debug_dp_dir, read_id, *dump, read_tb,
+                       clipped_event_means, r_ref_means, r_ref_sds,
+                       events_start_clip, p.bandwidth)
     return DpResults(rsrtr, seq_segs, r_ref_means, r_ref_sds, genome_seq)
 
 
@@ -785,14 +840,17 @@ def resquiggle_read(
         min_event_to_seq_ratio=MIN_EVENT_TO_SEQ_RATIO, const_scale=None,
         skip_seq_scaling=False,
         seq_samp_type=SeqSampleType(config.DNA_SAMP_TYPE, False),
-        device: DeviceLike = None, dtype=None) -> ResquiggleResults:
+        device: DeviceLike = None, dtype=None,
+        debug_dp_dir: Optional[str] = None) -> ResquiggleResults:
     """Assign one read's raw signal to its mapped sequence (reference:
     tombo/resquiggle.py:1122-1214).  ``map_res`` comes from
     :func:`map_read` and :func:`adjust_map_res` with the raw signal set.
     The DP runs on ``device`` (None: the card) in ``dtype`` (float32 by
     default; float64 on the CPU is the parity mode), the fit through K5
-    at float32 and in numpy at float64.  Raises :class:`TomboError` on a
-    failed read."""
+    at float32 and in numpy at float64.  ``debug_dp_dir``: write the DP
+    debug dump of the read there (:func:`find_adaptive_base_assignment`;
+    the results do not change).  Raises :class:`TomboError` on a failed
+    read."""
     dev = resolve_device(device)
     dt = resolve_dtype(dtype, dev)
     if all_raw_signal is not None:
@@ -818,7 +876,7 @@ def resquiggle_read(
         seq_samp_type=seq_samp_type,
         read_id=(map_res.align_info.read_id
                  if map_res.align_info is not None else None),
-        device=dev, dtype=dt)
+        device=dev, dtype=dt, debug_dp_dir=debug_dp_dir)
     norm_signal = norm_signal[
         dp_res.read_start_rel_to_raw:
         dp_res.read_start_rel_to_raw + dp_res.segs[-1]]
@@ -868,16 +926,19 @@ def resquiggle_read_with_retries(
         const_scale=None, skip_seq_scaling=False,
         seq_samp_type=SeqSampleType(config.DNA_SAMP_TYPE, False),
         max_scaling_iters=config.MAX_SCALING_ITERS,
-        device: DeviceLike = None, dtype=None):
+        device: DeviceLike = None, dtype=None,
+        debug_dp_dir: Optional[str] = None):
     """:func:`resquiggle_read` with up to ``max_scaling_iters`` passes
     while the fitted scale changes, and a failed read run again at the
     save parameters (reference: tombo/resquiggle.py:1488-1600
-    ``_resquiggle_worker``)."""
+    ``_resquiggle_worker``).  With ``debug_dp_dir`` every pass writes the
+    read's DP debug dump, so the file holds the last pass's DP."""
     dev = resolve_device(device)
 
     def run_iters(params):
         kw = dict(const_scale=const_scale, skip_seq_scaling=skip_seq_scaling,
-                  seq_samp_type=seq_samp_type, device=dev, dtype=dtype)
+                  seq_samp_type=seq_samp_type, device=dev, dtype=dtype,
+                  debug_dp_dir=debug_dp_dir)
         rsqgl_res = resquiggle_read(map_res, std_ref, params,
                                     outlier_thresh, **kw)
         n_iters = 1
