@@ -28,6 +28,19 @@ event-based scale; bandwidth 500, start band 1000/3000, save bandwidth
                 read-sharded launcher (K3), every read bitwise the 1-device
                 lane's.
 
+The stage profile phase, after the mixed path, runs one full batch of
+the 1 kb and of the mixed path through their warm resquigglers without
+and with the package's ``StageProfile`` in turns (off, on, on, off):
+every result bitwise the first run's, the keys within the float32 set
+(``PROFILE_KEYS_F32``; ``start_fetch`` too where a start retry ran) and
+together all of it, the six stages 0.85 to 1.02 of each profiled
+batch's wall; it prints the table, the MB each way and the on/off wall
+ratio.  One 1 kb batch then runs through ``resquiggle_batches(...,
+trace_dir=)`` into a temporary directory: its results bitwise, the
+trace's ``banded_dp_kernel`` and ``count_le_kernel`` events as many as
+the launches K1 and K5 counted during the call, and the six stage
+ranges in it.
+
 The one-read phase, after the three re-squiggle paths, drives the
 one-read API (``pipeline/resquiggle.py::resquiggle_read_with_retries``,
 start discovery through K4, the adaptive DP through K1 or the chunked
@@ -565,6 +578,140 @@ def stage_breakdown(br, batch):
     acc["other (host)"] = wall - sum(acc.values())
     return {"reads": len(batch), "wall_s": wall, "stages_s": acc,
             "static_band": static}
+
+
+# the stage profile's keys on the float32 lane: the JAX package's float32
+# keys less finalize_native (tests/test_torch_profile.py holds the CPU
+# lane's keys to the JAX profiler's); the six stages; the coverage of a
+# batch's wall that the six must reach
+PROFILE_KEYS_F32 = {"segment", "segment_fetch", "seg_pack", "seg_upload",
+                    "plan", "start", "adaptive", "adaptive_fetch",
+                    "delfix_plan", "delfix_apply", "static", "static_fetch",
+                    "finalize"}
+PROFILE_STAGES = ("segment", "plan", "start", "adaptive", "static",
+                  "finalize")
+PROFILE_COVERAGE = (0.85, 1.02)
+
+
+def trace_counts(trace_dir, names):
+    """(kernel events whose name holds each of ``names``, annotation
+    names, bytes) of the one Chrome trace in ``trace_dir``."""
+    (fn,) = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+             if f.endswith(".pt.trace.json")]
+    with open(fn) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {n: 0 for n in names}
+    notes = set()
+    for e in events:
+        if e.get("cat") == "kernel":
+            for n in names:
+                if n in e.get("name", ""):
+                    counts[n] += 1
+        elif e.get("cat") == "user_annotation":
+            notes.add(e.get("name"))
+    return counts, notes, os.path.getsize(fn)
+
+
+def stage_profile_phase(smi, paths):
+    """The package's stage profile on one full batch of each path
+    (``paths``: (label, warm resquiggler, batch)): the batch without and
+    with a ``StageProfile`` in turns (off, on, on, off), every result
+    bitwise the first run's; the float32 key set; the six stages' share
+    of the profiled batch's wall; the table, the MB each way and the
+    on/off wall ratio.  Then one traced batch of the first path: its
+    results bitwise, the trace's K1 and K5 kernel events in the numbers
+    by which their launch counts grew, and the six stage ranges."""
+    from tombo_tpu_torch import kernels
+    from tombo_tpu_torch.pipeline import batch as batch_mod
+    keys_seen, line = set(), {"card": smi}
+    for label, br, batch in paths:
+        # the start retry (a start DP that stage A did not precompute,
+        # also in the save-bandwidth resquiggler) adds start_fetch
+        retried = []
+        cls = batch_mod.BatchedResquiggler
+        start = cls._start_discovery
+
+        def start_rec(self, states, ctx, start_bw, *a, **kw):
+            if not kw.get("precomputed"):
+                retried.append(start_bw)
+            return start(self, states, ctx, start_bw, *a, **kw)
+
+        runs = {"off": [], "on": []}
+        first = None
+        with patched([(cls, "_start_discovery", start_rec)]):
+            for mode in ("off", "on", "on", "off"):
+                prof = batch_mod.StageProfile() if mode == "on" else None
+                br.profile = prof
+                try:
+                    t0 = time.perf_counter()
+                    out = br.resquiggle_batch(batch)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                finally:
+                    br.profile = None
+                if first is None:
+                    first = out
+                if not all(same_result(a, b) for a, b in zip(out, first)):
+                    fail("stage profile %s: a %s run's results differ from "
+                         "the first run's" % (label, mode))
+                runs[mode].append((wall, prof))
+        allowed = PROFILE_KEYS_F32 | ({"start_fetch"} if retried else set())
+        entry = {"reads": len(batch), "start_retry_calls": len(retried),
+                 "wall_off_s": [w for w, _ in runs["off"]],
+                 "wall_on_s": [w for w, _ in runs["on"]],
+                 "on_off_ratio": (statistics.mean(w for w, _ in runs["on"]) /
+                                  statistics.mean(w for w, _ in runs["off"])),
+                 "profiles": []}
+        for wall, prof in runs["on"]:
+            extra = set(prof.timings) - allowed
+            if extra:
+                fail("stage profile %s: keys %s outside the float32 set" % (
+                    label, sorted(extra)))
+            keys_seen |= set(prof.timings)
+            cover = sum(prof.timings.get(k, 0.0)
+                        for k in PROFILE_STAGES) / wall
+            if not PROFILE_COVERAGE[0] <= cover <= PROFILE_COVERAGE[1]:
+                fail("stage profile %s: the six stages cover %.3f of the "
+                     "batch's wall" % (label, cover))
+            entry["profiles"].append({
+                "wall_s": wall, "stage_coverage": cover,
+                "timings_s": dict(prof.timings),
+                "mb": {k: v / 2 ** 20
+                       for k, v in prof.transfer_bytes.items()}})
+        print("stage profile, %s batch (second profiled run; %s):" % (
+            label, smi))
+        batch_mod.print_stage_timings(runs["on"][1][1], out=sys.stdout)
+        line[label] = entry
+    missing = PROFILE_KEYS_F32 - keys_seen
+    if missing:
+        fail("stage profile: keys %s missing from every batch" %
+             sorted(missing))
+
+    label, br, batch = paths[0]
+    want = br.resquiggle_batch(batch)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        (traced,) = list(br.resquiggle_batches([batch], trace_dir=tmp))
+        wall = time.perf_counter() - t0
+        grew = {n: kernels.LAUNCHES[n] - before[n] for n in kernels.LAUNCHES}
+        counts, notes, size = trace_counts(
+            tmp, ("banded_dp_kernel", "count_le_kernel"))
+    if not all(same_result(a, b) for a, b in zip(traced, want)):
+        fail("stage profile: the traced batch's results differ")
+    for name, n in (("banded_dp_kernel", grew["banded_dp"]),
+                    ("count_le_kernel", grew["count_le"])):
+        if n <= 0 or counts[name] != n:
+            fail("stage profile: the trace holds %d %s events for %d "
+                 "launches" % (counts[name], name, n))
+    if not set(PROFILE_STAGES) <= notes:
+        fail("stage profile: the trace lacks the stage ranges %s" %
+             sorted(set(PROFILE_STAGES) - notes))
+    line["trace"] = {"path": label, "wall_s": wall, "bytes": size,
+                     "kernel_events": counts,
+                     "launches": {n: v for n, v in grew.items() if v}}
+    print("stage profile " + json.dumps(line))
 
 
 def device_profile(br, batch):
@@ -3408,6 +3555,7 @@ def main():
             if launches[name] != 0:
                 fail("the 1 kb path launched %s" % name)
         launches_1kb = launches
+        br_1kb = br
 
     # ---- phase 3: kernels against their plain versions, on the card
     entries = []
@@ -3709,6 +3857,11 @@ def main():
                 [mixed[0][i] for i in pick], [res0[i] for i in pick])
         if not rec_cpu.count:
             fail("the mixed CPU cross-check ran no chunked DP")
+
+    # ---- phase 9: the package's stage profile on the 1 kb and mixed paths
+    with phase("stage profile"):
+        stage_profile_phase(smi, [("1 kb", br_1kb, batches[1]),
+                                  ("mixed", br, mixed[0])])
 
     # ---- phase 10: the direct-RNA path on the card
     with phase("RNA path"):

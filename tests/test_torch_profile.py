@@ -1,0 +1,352 @@
+"""The re-squiggle stage profiler of the port (``pipeline/batch.py``:
+``StageProfile``, ``print_stage_timings``, ``trace_ctx``), through the
+runner and the command line, on the CPU, against the JAX package's
+profiler (``STAGE_TIMINGS``, ``TRANSFER_BYTES``, ``print_stage_timings``
+under its environment switch) on tests/test_batch_parity.py's six reads of
+650 bases.
+
+The key sets equal the JAX package's but for two differences by design:
+the port has no ``finalize_native`` (its finalize is numpy), and its
+float64 lane runs the device deletion fix and fit, so its float64 set
+has ``delfix_plan`` (and ``delfix_apply`` whenever a read is fit on the
+device, which no read of these six is at float64: each has a deletion
+and finishes on the host)."""
+import glob
+import io
+import json
+import os
+import shutil
+
+import h5py
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from tombo_tpu import config as j_config
+from tombo_tpu.pipeline import batch as j_batch
+from tombo_tpu.testing import make_synthetic_dataset
+from tombo_tpu_torch import config as t_config
+from tombo_tpu_torch import convert
+from tombo_tpu_torch import testing as t_testing
+from tombo_tpu_torch.cli import main as t_cli
+from tombo_tpu_torch.io.model_io import KmerModel as TKmerModel
+from tombo_tpu_torch.pipeline import batch as t_batch
+from tombo_tpu_torch.pipeline import runner as t_runner
+from tombo_tpu_torch.pipeline.aligner import ExactAligner as TExactAligner
+from tombo_tpu_torch.types import SeqSampleType as TSeqSampleType
+from tombo_tpu_torch.types import SequenceData as TSequenceData
+
+from test_torch_batch import _convert, _prep_reads
+from test_torch_retry import _retry_reads
+
+STAGES = {"segment", "plan", "start", "adaptive", "static", "finalize"}
+CG = "RawGenomeCorrected_000/BaseCalled_template"
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    model, params, sst, maps = _prep_reads(6, read_len=650)
+    t_model = convert.kmer_model(model.means, model.sds, model.central_pos,
+                                 model.name, "DNA")
+    t_params, t_maps = _convert(params, maps)
+    return (model, params, sst, maps), (t_model, t_params, t_maps)
+
+
+def _port(t_inputs, dtype, **kw):
+    t_model, t_params, _ = t_inputs
+    return t_batch.BatchedResquiggler(
+        t_model, t_params, convert.seq_samp_type("DNA", False),
+        j_config.OUTLIER_THRESH, dtype=dtype, device="cpu", **kw)
+
+
+class _JaxProfile:
+    """The JAX package's global profile dicts, emptied for the block and
+    restored after it."""
+
+    def __enter__(self):
+        self.saved = (dict(j_batch.STAGE_TIMINGS),
+                      dict(j_batch.TRANSFER_BYTES))
+        j_batch.STAGE_TIMINGS.clear()
+        j_batch.TRANSFER_BYTES.clear()
+        return self
+
+    def __exit__(self, *exc):
+        for d, saved in zip((j_batch.STAGE_TIMINGS, j_batch.TRANSFER_BYTES),
+                            self.saved):
+            d.clear()
+            d.update(saved)
+        return False
+
+
+@pytest.fixture(scope="module")
+def jax_profiles(inputs):
+    """dtype -> (STAGE_TIMINGS, TRANSFER_BYTES) of the JAX lane's batch."""
+    model, params, sst, maps = inputs[0]
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("TOMBO_TPU_PROFILE", "1")
+        for dtype in ("float32", "float64"):
+            with _JaxProfile():
+                j_batch.BatchedResquiggler(
+                    model, params, sst, j_config.OUTLIER_THRESH,
+                    dtype=getattr(jnp, dtype)).resquiggle_batch(maps)
+                out[dtype] = (dict(j_batch.STAGE_TIMINGS),
+                              dict(j_batch.TRANSFER_BYTES))
+    return out
+
+
+@pytest.fixture(scope="module")
+def port_profiles(inputs):
+    """dtype -> (StageProfile, results) of the port's profiled batch."""
+    out = {}
+    for dtype in ("float32", "float64"):
+        prof = t_batch.StageProfile()
+        res = _port(inputs[1], dtype, profile=prof).resquiggle_batch(
+            inputs[1][2])
+        out[dtype] = (prof, res)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_stage_keys_match_jax(jax_profiles, port_profiles, dtype):
+    """(a) The JAX key set less ``finalize_native``, plus ``delfix_plan``
+    at float64; each ``_fetch`` key belongs to a stage."""
+    want = set(jax_profiles[dtype][0]) - {"finalize_native"}
+    assert "finalize_native" in jax_profiles[dtype][0]
+    if dtype == "float64":
+        assert not want & {"delfix_plan", "delfix_apply"}
+        want |= {"delfix_plan"}
+    got = set(port_profiles[dtype][0].timings)
+    assert got == want
+    assert STAGES <= got
+    for k in got:
+        if k.endswith("_fetch"):
+            assert k[:-len("_fetch")] in STAGES, k
+    assert set(port_profiles[dtype][0].transfer_bytes) == \
+        set(jax_profiles[dtype][1]) == {"upload", "fetch"}
+
+
+def _same_results(a, b):
+    assert len(a) == len(b)
+    for (ra, ea), (rb, eb) in zip(a, b):
+        assert ea == eb
+        assert (ra is None) == (rb is None)
+        if ra is None:
+            continue
+        np.testing.assert_array_equal(ra.segs, rb.segs)
+        np.testing.assert_array_equal(ra.raw_signal, rb.raw_signal)
+        assert ra.read_start_rel_to_raw == rb.read_start_rel_to_raw
+        assert ra.scale_values == rb.scale_values
+        assert ra.sig_match_score == rb.sig_match_score
+        assert ra.norm_params_changed == rb.norm_params_changed
+        assert ra.genome_seq == rb.genome_seq
+
+
+def test_profile_leaves_results_bitwise(inputs, port_profiles, monkeypatch):
+    """(b) Without a profile nothing is timed or traced (the profile's
+    methods and ``record_function`` would raise), and the results are
+    bitwise those of the profiled run, at float64."""
+    def refuse(*a, **kw):
+        raise AssertionError("timed without a profile")
+
+    for name in ("stage", "sub", "fetch", "add_time", "add_bytes"):
+        monkeypatch.setattr(t_batch.StageProfile, name, refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    plain = _port(inputs[1], "float64").resquiggle_batch(inputs[1][2])
+    _same_results(plain, port_profiles["float64"][1])
+    assert sum(r is not None for r, _ in plain) >= 5
+
+
+@pytest.mark.parametrize("dtype,itemsize", [("float32", 4),
+                                            ("float64", 8)])
+def test_transfer_bytes(inputs, port_profiles, dtype, itemsize):
+    """(c) ``upload`` holds at least the reads' raw signals at the lane's
+    dtype (counted on the CPU device too); ``fetch`` is not empty."""
+    prof = port_profiles[dtype][0]
+    raw_bytes = sum(m.raw_signal.shape[0] for m in inputs[1][2]) * itemsize
+    assert prof.transfer_bytes["upload"] >= raw_bytes
+    assert prof.transfer_bytes["fetch"] > 0
+    # a sub-stage's seconds count in its stage too
+    t = prof.timings
+    assert t["seg_pack"] + t["seg_upload"] <= t["segment"]
+    assert t["segment_fetch"] <= t["segment"]
+
+
+class _CountingProfile(t_batch.StageProfile):
+    """A StageProfile that counts the stages entered."""
+
+    def __init__(self):
+        super().__init__()
+        self.entered = {}
+
+    def stage(self, name):
+        self.entered[name] = self.entered.get(name, 0) + 1
+        return super().stage(name)
+
+
+def test_save_bandwidth_retry_adds_to_the_profile(monkeypatch):
+    """(d) The two stalled reads of tests/test_torch_retry.py fail the
+    300-event band and go through a save-bandwidth resquiggler, whose
+    stages land in the caller's profile: every adaptive stage of either
+    resquiggler is entered in it."""
+    model, params, sst, maps = _retry_reads()
+    t_params, t_maps = _convert(params, maps[2:])
+    t_model = convert.kmer_model(model.means, model.sds, model.central_pos,
+                                 model.name, "DNA")
+    calls = []
+    adaptive = t_batch.BatchedResquiggler._adaptive_batch
+
+    def adaptive_rec(self, *a, **kw):
+        calls.append((self.params.bandwidth, self.profile))
+        return adaptive(self, *a, **kw)
+
+    monkeypatch.setattr(t_batch.BatchedResquiggler, "_adaptive_batch",
+                        adaptive_rec)
+    prof = _CountingProfile()
+    out = _port((t_model, t_params, t_maps), "float32",
+                profile=prof).resquiggle_batch(t_maps)
+    save_bw = t_config.load_resquiggle_parameters(
+        "DNA", use_save_bandwidth=True).bandwidth
+    assert {bw for bw, _ in calls} == {params.bandwidth, save_bw}
+    assert all(p is prof for _, p in calls)
+    assert prof.entered["adaptive"] == len(calls)
+    assert all(res is not None for res, _ in out)
+
+
+def _tie_profile():
+    prof = t_batch.StageProfile()
+    for name, t in (("segment", 0.25), ("plan", 0.25), ("start", 0.0),
+                    ("adaptive", 1.5), ("adaptive_fetch", 1e-4)):
+        prof.add_time(name, t)
+    prof.add_bytes("upload", 3 * 2 ** 20 + 17)
+    prof.add_bytes("fetch", 1)
+    return prof
+
+
+@pytest.mark.parametrize("case", ["float32 run", "ties", "empty"])
+def test_print_matches_jax(port_profiles, case):
+    """(e) The same two dicts print byte for byte as the JAX function
+    prints them: a profiled run's, one with ties and a zero, none."""
+    prof = {"float32 run": lambda: port_profiles["float32"][0],
+            "ties": _tie_profile, "empty": t_batch.StageProfile}[case]()
+    got, want = io.StringIO(), io.StringIO()
+    t_batch.print_stage_timings(prof, out=got)
+    with _JaxProfile():
+        j_batch.STAGE_TIMINGS.update(prof.timings)
+        j_batch.TRANSFER_BYTES.update(prof.transfer_bytes)
+        j_batch.print_stage_timings(out=want)
+    assert got.getvalue() == want.getvalue()
+    assert (got.getvalue() == "") == (case == "empty")
+
+
+def _memory_reads(n, seed=11):
+    model = TKmerModel.load_default("DNA")
+    fasta = t_testing.random_reference(np.random.default_rng(seed), 8000)
+    rng = np.random.default_rng(seed + 1)
+    reads = []
+    for i in range(n):
+        read = t_testing.simulate_read(rng, fasta, model, read_len=500,
+                                       read_id="m_%d" % i)
+        reads.append((read.read_id, read.raw_signal,
+                      TSequenceData(read.seq, read.read_id, 12.0)))
+    return model, fasta, reads
+
+
+def _stage_lines(err):
+    return {line.split()[0] for line in err.splitlines()
+            if line.startswith("  ") and line.endswith("%)")}
+
+
+def test_runner_profile(capsys):
+    """(f) ``RunConfig(profile=True)``: the run's StageProfile holds the
+    stages and ``io_map``, the summary keeps it, the table goes to
+    stderr and nothing to stdout."""
+    model, fasta, reads = _memory_reads(4)
+    params = t_config.load_resquiggle_parameters("DNA")
+    rc = t_runner.RunConfig(profile=True, device="cpu", batch_size=4,
+                            num_io_threads=2, max_scaling_iters=1)
+    summary, _ = t_runner.resquiggle_all_reads(
+        t_runner.MemoryReads(reads), TExactAligner(fasta), model,
+        TSeqSampleType("DNA", False), params, rc)
+    cap = capsys.readouterr()
+    assert summary.n_success == len(reads)
+    assert cap.out == ""
+    assert STAGES | {"io_map"} <= _stage_lines(cap.err)
+    assert set(summary.stage_timings) == _stage_lines(cap.err)
+    assert set(summary.transfer_bytes) == {"upload", "fetch"}
+    assert {"io_map", "batch_loop", "writeback", "run"} <= \
+        set(summary.timings)
+
+
+def _trace_files(d):
+    return glob.glob(os.path.join(d, "*.pt.trace.json"))
+
+
+def _annotations(fn):
+    with open(fn) as f:
+        events = json.load(f)["traceEvents"]
+    return {e["name"] for e in events if e.get("cat") == "user_annotation"}
+
+
+def test_trace_dir_writes_the_stage_ranges(inputs, tmp_path):
+    """(g) ``resquiggle_batches(..., trace_dir=)`` writes one Chrome trace
+    whose annotations are the six stages, also when the caller stops after
+    the first of two batches; results bitwise the untraced run's."""
+    t_maps = inputs[1][2][:2]
+    br = _port(inputs[1], "float32")
+    d = str(tmp_path / "trace")
+    gen = br.resquiggle_batches([t_maps, t_maps], max_scaling_iters=1,
+                                trace_dir=d)
+    traced = next(gen)
+    gen.close()
+    assert not br._tracing
+    (fn,) = _trace_files(d)
+    assert STAGES <= _annotations(fn)
+    _same_results(traced, br.resquiggle_batch(t_maps, max_scaling_iters=1))
+
+
+def _corrected(d):
+    out = {}
+    for fn in sorted(os.listdir(d)):
+        if fn.endswith(".fast5"):
+            with h5py.File(os.path.join(d, fn), "r") as f:
+                g = f["Analyses/" + CG]
+                out[fn] = (dict(g.attrs.items()), g["Events"][:].tobytes()
+                           if "Events" in g else None)
+    return out
+
+
+def test_command_line_profile_and_trace(tmp_path, capsys):
+    """(h) ``resquiggle --device cpu --profile --trace-dir D`` exits 0,
+    prints the table on stderr and writes a trace in D; the corrected
+    groups equal those of the same command without the two options."""
+    _, _, fast5_dir = make_synthetic_dataset(str(tmp_path), n_reads=3,
+                                             seed=9, read_len=500,
+                                             ref_len=4000)
+    ref = str(tmp_path / "reference.fasta")
+    plain_dir = str(tmp_path / "plain")
+    shutil.copytree(fast5_dir, plain_dir)
+    trace = str(tmp_path / "trace")
+    args = ["--device", "cpu", "--quiet", "--processes", "1",
+            "--max-scaling-iterations", "1"]
+    assert t_cli.main(["resquiggle", plain_dir, ref] + args) == 0
+    assert capsys.readouterr().err == ""
+    assert t_cli.main(["resquiggle", fast5_dir, ref] + args +
+                      ["--profile", "--trace-dir", trace]) == 0
+    err = capsys.readouterr().err
+    assert STAGES | {"io_map", "writeback"} <= _stage_lines(err)
+    assert [line.split()[0] for line in err.splitlines()
+            if line.endswith(" MB")] == ["fetch", "upload"]
+    (fn,) = _trace_files(trace)
+    assert STAGES <= _annotations(fn)
+    got, want = _corrected(fast5_dir), _corrected(plain_dir)
+    assert got.keys() == want.keys() and len(got) == 3
+    assert all(events is not None for _, events in got.values())
+    for name in got:
+        ga, wa = got[name][0], want[name][0]
+        assert ga.keys() == wa.keys()
+        for k in ga:
+            if k != "time_stamp":
+                np.testing.assert_array_equal(ga[k], wa[k], err_msg=k)
+        assert got[name][1] == want[name][1]

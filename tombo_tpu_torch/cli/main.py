@@ -146,7 +146,8 @@ _RESQUIGGLE_ADVANCED = [
     "--sequence-length-range", "--fit-global-scale", "--fixed-scale",
     "--outlier-threshold", "--skip-index", "--include-event-stdev",
     "--ignore-read-locks", "--threads-per-process", "--batch-size",
-    "--num-hosts", "--host-id", "--coordinator-address",
+    "--num-hosts", "--host-id", "--coordinator-address", "--profile",
+    "--trace-dir",
 ]
 
 
@@ -232,7 +233,8 @@ def _resquiggle_main(args):
                         if args.outlier_threshold is not None and
                         args.outlier_threshold > 0 else None),
         failed_reads_fn=args.failed_reads_filename,
-        num_most_common_errors=args.num_most_common_errors)
+        num_most_common_errors=args.num_most_common_errors,
+        profile=args.profile, trace_dir=args.trace_dir)
     summary, _ = resquiggle_all_reads(
         args.fast5_basedir, aligner, std_ref, sst, params, rc)
     if not args.quiet:
@@ -298,6 +300,16 @@ def _add_resquiggle_parser(subparsers):
                    help="Show this many most common errors during the run.")
     p.add_argument("--print-advanced-arguments", action="store_true",
                    help="Print advanced re-squiggle arguments and exit.")
+    p.add_argument("--profile", action="store_true",
+                   help="Print where the run's time went at its end, on "
+                        "stderr: seconds by re-squiggle stage, the waits "
+                        "for device results, mapping and writeback, and "
+                        "the bytes sent to and fetched from the device.")
+    p.add_argument("--trace-dir", metavar="DIR",
+                   help="Write a torch.profiler trace of the re-squiggle "
+                        "batches (host calls, and the card's kernels on a "
+                        "card; each stage a named range) into DIR as "
+                        "Chrome trace JSON.")
     _add_common(p)
     _add_multihost(p)
     p.set_defaults(func=_resquiggle_main, _parser=p)

@@ -38,9 +38,21 @@ a mesh of the one ``device``.
 further scaling iteration).  The float64 parity mode (CPU) takes the JAX
 package's float64 lane where it differs from the float32 one: rescale
 passes re-select changepoints, and deletion-fix reads finish on the host.
+
+``profile=`` (a :class:`StageProfile`) records each stage's wall seconds,
+the host's waits for device results and the bytes that cross between
+host and device; :func:`print_stage_timings` prints them.
+``resquiggle_batches(..., trace_dir=)`` writes a torch.profiler trace in
+which each stage is a named range (:func:`trace_ctx`).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import os
+import sys
+import threading
+import time
 import types as _pytypes
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -72,6 +84,134 @@ _MIN_GROUP = 24         # don't cut groups smaller than this
 # (the reference errors out above MAX_RAW_CPTS=200 events)
 _DELFIX_NB_CAP = 32
 _DELFIX_T_CAP = 512
+
+
+class StageProfile:
+    """Where a re-squiggle's wall time went (the JAX package's
+    ``STAGE_TIMINGS`` and ``TRANSFER_BYTES``, as one object a caller
+    passes).
+
+    ``timings``: seconds by name.  The stages are ``segment``, ``plan``,
+    ``start``, ``adaptive``, ``static`` and ``finalize``; the sub-stages
+    ``seg_pack`` and ``seg_upload`` (the raw matrix packed on the host and
+    sent to the device) and ``delfix_plan`` and ``delfix_apply`` (the
+    deletion-fix windows planned and applied on the host); and
+    ``<stage>_fetch``, the time the host waited in a stage's device to
+    host copies.  A sub-stage's or a fetch's seconds also count in its
+    stage.  A run adds ``io_map`` and ``writeback`` (``pipeline/runner.py``).
+    ``transfer_bytes``: ``upload`` (host to device) and ``fetch`` (device
+    to host), counted on a CPU device too.
+
+    Nothing is synchronised for the profile: device work surfaces where
+    the host waits for it, in a ``_fetch`` key, or in the stage whose
+    ``.item()``, boolean indexing or ``nonzero`` on a card tensor waits
+    for it, which no ``_fetch`` key sees.  Threads may add to one profile
+    at once; each thread has its own current stage."""
+
+    def __init__(self):
+        self.timings = {}
+        self.transfer_bytes = {}
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def add_time(self, name: str, seconds: float):
+        with self._lock:
+            self.timings[name] = self.timings.get(name, 0.0) + seconds
+
+    def add_bytes(self, direction: str, n: int):
+        with self._lock:
+            self.transfer_bytes[direction] = (
+                self.transfer_bytes.get(direction, 0) + int(n))
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        """Time a stage; fetches inside it go to ``<name>_fetch``."""
+        prev = getattr(self._local, "stage", None)
+        self._local.stage = name
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._local.stage = prev
+            self.add_time(name, time.perf_counter() - t0)
+
+    @contextlib.contextmanager
+    def sub(self, name: str):
+        """Time a sub-stage of the current stage."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.add_time(name, time.perf_counter() - t0)
+
+    def fetch(self, ts) -> list:
+        """``ts`` copied to host numpy arrays, the wait charged to the
+        current stage's ``_fetch`` key and the bytes to ``fetch``."""
+        t0 = time.perf_counter()
+        out = [t.cpu().numpy() for t in ts]
+        stage = getattr(self._local, "stage", None) or "other"
+        self.add_time(stage + "_fetch", time.perf_counter() - t0)
+        self.add_bytes("fetch", sum(a.nbytes for a in out))
+        return out
+
+
+def print_stage_timings(profile: StageProfile, out=None):
+    """The JAX package's table: every key by seconds with its share of the
+    sum of all keys, then the transfer bytes by direction; to stderr by
+    default."""
+    out = out or sys.stderr
+    with profile._lock:
+        timings = dict(profile.timings)
+        transfer = dict(profile.transfer_bytes)
+    total = sum(timings.values())
+    for name, t in sorted(timings.items(), key=lambda kv: -kv[1]):
+        out.write("  %-18s %8.3f s (%4.1f%%)\n" % (
+            name, t, 100 * t / total if total else 0))
+    for name, b in sorted(transfer.items()):
+        out.write("  %-18s %8.2f MB\n" % (name, b / 2 ** 20))
+
+
+@contextlib.contextmanager
+def trace_ctx(trace_dir: str, devices):
+    """A torch.profiler trace of the block (the JAX package's
+    ``jax_trace_ctx``), written into ``trace_dir`` as Chrome trace JSON
+    (``<host>_<pid>.<ns>.pt.trace.json``; TensorBoard's profile plugin and
+    chrome://tracing read it).  Host activity always; the cards' kernels
+    and copies when ``devices`` holds a card, which is synchronised before
+    the trace closes so that the last kernels queued are in it."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    cards = [d for d in devices if d.type == "cuda"]
+    activities = [ProfilerActivity.CPU]
+    if cards:
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(trace_dir)):
+        try:
+            yield
+        finally:
+            for d in cards:
+                torch.cuda.synchronize(d)
+
+
+def _timed_stage(name: str):
+    """A BatchedResquiggler stage: timed into ``self.profile`` and, while
+    ``resquiggle_batches`` traces, a range named ``name`` in the trace.
+    Without either it calls the method and does nothing else."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, *a, **k):
+            if self.profile is None and not self._tracing:
+                return fn(self, *a, **k)
+            with contextlib.ExitStack() as spans:
+                if self._tracing:
+                    spans.enter_context(torch.profiler.record_function(name))
+                if self.profile is not None:
+                    spans.enter_context(self.profile.stage(name))
+                return fn(self, *a, **k)
+        return wrapper
+    return deco
 
 
 def _round_up(x: int, m: int) -> int:
@@ -490,13 +630,15 @@ class BatchedResquiggler:
     lane's read for read.  ``const_scale`` is one scale for every read
     (per-read median shift; reference: tombo/tombo_stats.py:505-509);
     ``skip_seq_scaling`` skips the sequence-fitted rescaling (reference:
-    tombo/resquiggle.py:1177)."""
+    tombo/resquiggle.py:1177).  ``profile``: a :class:`StageProfile`
+    that every batch adds its stages to (None: nothing is timed)."""
 
     def __init__(self, std_ref, rsqgl_params: ResquiggleParams,
                  seq_samp_type: SeqSampleType,
                  outlier_thresh: Optional[float] = config.OUTLIER_THRESH,
                  dtype=None, device: DeviceLike = None, mesh=None,
-                 const_scale=None, skip_seq_scaling: bool = False):
+                 const_scale=None, skip_seq_scaling: bool = False,
+                 profile: Optional[StageProfile] = None):
         if seq_samp_type.name not in (config.DNA_SAMP_TYPE,
                                       config.RNA_SAMP_TYPE):
             raise ValueError("unknown sample type %r" % seq_samp_type.name)
@@ -521,6 +663,9 @@ class BatchedResquiggler:
         self.save_params = rsqgl_params.replace(
             bandwidth=config.load_resquiggle_parameters(
                 seq_samp_type.name, use_save_bandwidth=True).bandwidth)
+        self.profile = profile
+        # set while resquiggle_batches writes a trace
+        self._tracing = False
 
     # ------------------------------------------------------------ helpers
     def _t(self, arr, float_=False, device=None) -> torch.Tensor:
@@ -529,7 +674,15 @@ class BatchedResquiggler:
             arr = arr.astype(self.np_dtype)
         elif arr.dtype != np.bool_:
             arr = arr.astype(np.int64)
+        if self.profile is not None:
+            self.profile.add_bytes("upload", arr.nbytes)
         return torch.as_tensor(arr).to(device or self.device)
+
+    def _sub(self, name: str):
+        """A sub-stage of the current stage (timed only with a profile)."""
+        if self.profile is None:
+            return contextlib.nullcontext()
+        return self.profile.sub(name)
 
     def _levels(self, live, width: int, clip: bool = False, device=None):
         """(B, width) expected means and sds, padded with 1.0; ``clip``
@@ -554,9 +707,11 @@ class BatchedResquiggler:
             max_half_z_score=p.max_half_z_score or -1.0,
             num_bases=p.start_n_bases, num_events=num_events)
 
-    @staticmethod
-    def _np(*ts):
-        return [t.cpu().numpy() for t in ts]
+    def _np(self, *ts):
+        """Device to host copies (the JAX package's ``_fetch``)."""
+        if self.profile is None:
+            return [t.cpu().numpy() for t in ts]
+        return self.profile.fetch(ts)
 
     def _shards(self, reads):
         """``reads`` by mesh shard: (shard, its reads in order) for every
@@ -567,6 +722,7 @@ class BatchedResquiggler:
         return [(d, r) for d, r in enumerate(by) if r]
 
     # ------------------------------------------------------ stage drivers
+    @_timed_stage("segment")
     def _segment_batch(self, states: List[_ReadState]):
         """Stages 1-3 (+ start DP): normalize, select, event means.  The
         live reads split into contiguous shards over the mesh, each run on
@@ -606,12 +762,16 @@ class BatchedResquiggler:
                        rescale_pass: bool, n_stalls: int):
         p = self.params
         B = len(live)
-        sig_lens = np.array([s.raw.shape[0] for s in live], np.int64)
-        raw_pad = np.zeros((B, sig_w), self.np_dtype)
-        for i, s in enumerate(live):
-            raw_pad[i, :s.raw.shape[0]] = s.raw
-        raw_j = torch.as_tensor(raw_pad).to(dev)
-        lens_j = self._t(sig_lens, device=dev)
+        with self._sub("seg_pack"):
+            sig_lens = np.array([s.raw.shape[0] for s in live], np.int64)
+            raw_pad = np.zeros((B, sig_w), self.np_dtype)
+            for i, s in enumerate(live):
+                raw_pad[i, :s.raw.shape[0]] = s.raw
+        with self._sub("seg_upload"):
+            raw_j = torch.as_tensor(raw_pad).to(dev)
+            if self.profile is not None:
+                self.profile.add_bytes("upload", raw_pad.nbytes)
+            lens_j = self._t(sig_lens, device=dev)
         rm_sj, rs_sj = self._levels(live, p.start_n_bases, clip=True,
                                     device=dev)
         sp = self._start_params(p.start_bw)
@@ -746,6 +906,7 @@ class BatchedResquiggler:
                 "start": (s0.astype(np.int64), sN.astype(np.int64),
                           score.astype(np.float64))}
 
+    @_timed_stage("plan")
     def _plan_reads(self, states: List[_ReadState]):
         """Expected levels + static-band routing."""
         p = self.params
@@ -773,6 +934,7 @@ class BatchedResquiggler:
                     s.ref_means.shape[0] < p.start_n_bases):
                 s.use_static = True
 
+    @_timed_stage("start")
     def _start_discovery(self, states, ctx, start_bw: int,
                          check_score: bool, precomputed: bool = False):
         """Static-band start discovery + validity score (``precomputed``:
@@ -818,6 +980,7 @@ class BatchedResquiggler:
                 s.mapped_start = int(seg0[i])
         return failed
 
+    @_timed_stage("adaptive")
     def _adaptive_batch(self, states: List[_ReadState], ctx):
         """Masked-start prefix + adaptive DP + traceback."""
         p = self.params
@@ -928,63 +1091,65 @@ class BatchedResquiggler:
         fit_reads = []
         w = config.DEL_FIX_WINDOW
         min_sig_per_base = p.raw_min_obs_per_base * config.EXTRA_SIG_FACTOR
-        for d, reads in shards:
-            win_i, win_bs, win_nb, win_t, win_rel = wins[d]
-            for i, s in enumerate(reads):
-                if s.error is not None or s.dp_segs is None:
-                    continue
-                if not s.has_del:
-                    fit_reads.append(s)
-                    continue
-                if self.dtype == torch.float64:
-                    # host lane, as the JAX package's float64 lane: the
-                    # device window DP is the same recurrence in
-                    # prefix-sum form, which rounds differently where
-                    # integer signals tie
-                    continue
-                segs = s.dp_segs
-                # vectorized fast path of plan_del_fix_windows: deletion
-                # clusters with gaps > 2w map one-to-one to merged
-                # windows, final unless too small; else the exact host
-                # planner
-                dels = np.flatnonzero(np.diff(segs) == 0)
-                if dels.size == 0:
-                    s.has_del = False
-                    fit_reads.append(s)
-                    continue
-                brk = np.flatnonzero(np.diff(dels) > 2 * w) + 1
-                first = dels[np.concatenate([[0], brk])]
-                last = dels[np.concatenate([brk - 1, [dels.shape[0] - 1]])]
-                ws_arr = np.maximum(first - w, 0)
-                we_arr = np.minimum(last + w + 1, segs.shape[0] - 1)
-                n_ev = we_arr - ws_arr
-                sig_len = segs[we_arr] - segs[ws_arr]
-                if np.any(sig_len <= (n_ev + 1) * min_sig_per_base):
-                    try:
-                        windows = rsq.plan_del_fix_windows(
-                            _pytypes.SimpleNamespace(segs=segs), p)
-                    except TomboError as e:
-                        s.error = str(e)
+        with self._sub("delfix_plan"):
+            for d, reads in shards:
+                win_i, win_bs, win_nb, win_t, win_rel = wins[d]
+                for i, s in enumerate(reads):
+                    if s.error is not None or s.dp_segs is None:
                         continue
-                    if not windows:
+                    if not s.has_del:
+                        fit_reads.append(s)
+                        continue
+                    if self.dtype == torch.float64:
+                        # host lane, as the JAX package's float64 lane: the
+                        # device window DP is the same recurrence in
+                        # prefix-sum form, which rounds differently where
+                        # integer signals tie
+                        continue
+                    segs = s.dp_segs
+                    # vectorized fast path of plan_del_fix_windows: deletion
+                    # clusters with gaps > 2w map one-to-one to merged
+                    # windows, final unless too small; else the exact host
+                    # planner
+                    dels = np.flatnonzero(np.diff(segs) == 0)
+                    if dels.size == 0:
                         s.has_del = False
                         fit_reads.append(s)
                         continue
-                    ws_arr = np.array([a for a, _ in windows])
-                    we_arr = np.array([b for _, b in windows])
+                    brk = np.flatnonzero(np.diff(dels) > 2 * w) + 1
+                    first = dels[np.concatenate([[0], brk])]
+                    last = dels[np.concatenate([brk - 1, [dels.shape[0] - 1]])]
+                    ws_arr = np.maximum(first - w, 0)
+                    we_arr = np.minimum(last + w + 1, segs.shape[0] - 1)
                     n_ev = we_arr - ws_arr
                     sig_len = segs[we_arr] - segs[ws_arr]
-                if (n_ev.max() > _DELFIX_NB_CAP or
-                        sig_len.max() > _DELFIX_T_CAP):
-                    continue                  # host lane (s.has_del True)
-                s.del_windows = (list(zip(ws_arr.tolist(), we_arr.tolist())),
-                                 len(win_i))
-                win_i.extend([i] * ws_arr.shape[0])
-                win_bs.extend(ws_arr.tolist())
-                win_nb.extend(n_ev.tolist())
-                win_t.extend(sig_len.tolist())
-                win_rel.extend(segs[ws_arr].tolist())
-                fit_reads.append(s)
+                    if np.any(sig_len <= (n_ev + 1) * min_sig_per_base):
+                        try:
+                            windows = rsq.plan_del_fix_windows(
+                                _pytypes.SimpleNamespace(segs=segs), p)
+                        except TomboError as e:
+                            s.error = str(e)
+                            continue
+                        if not windows:
+                            s.has_del = False
+                            fit_reads.append(s)
+                            continue
+                        ws_arr = np.array([a for a, _ in windows])
+                        we_arr = np.array([b for _, b in windows])
+                        n_ev = we_arr - ws_arr
+                        sig_len = segs[we_arr] - segs[ws_arr]
+                    if (n_ev.max() > _DELFIX_NB_CAP or
+                            sig_len.max() > _DELFIX_T_CAP):
+                        continue                  # host lane (s.has_del True)
+                    s.del_windows = (
+                        list(zip(ws_arr.tolist(), we_arr.tolist())),
+                        len(win_i))
+                    win_i.extend([i] * ws_arr.shape[0])
+                    win_bs.extend(ws_arr.tolist())
+                    win_nb.extend(n_ev.tolist())
+                    win_t.extend(sig_len.tolist())
+                    win_rel.extend(segs[ws_arr].tolist())
+                    fit_reads.append(s)
         if not fit_reads:
             return
 
@@ -1027,50 +1192,54 @@ class BatchedResquiggler:
         # the rescaled event means stay on the device
         res = {d: self._np(*out[:-1]) for d, out in queued.items()}
 
-        for s in fit_reads:
-            if s.del_windows is None:
-                continue
-            bounds, fail = res[s.shard][:2]
-            windows, w0 = s.del_windows
-            segs = s.dp_segs
-            ok = True
-            for k, (ws, we) in enumerate(windows):
-                if fail[w0 + k]:
-                    s.error = "Raw-signal traceback failed to find boundary"
-                    ok = False
-                    break
-                segs[ws + 1:we] = (bounds[w0 + k, :we - ws - 1].astype(
-                    np.int64) + segs[ws])
-            if not ok:
-                continue
-            # reference validity checks (tombo/resquiggle.py:470-500)
-            if np.diff(segs).min() < 1:
-                s.error = "New segments include zero length events"
-                continue
-            if segs[0] < 0:
-                s.error = "New segments start with negative index"
-                continue
-            s.del_fixed = True
-        fit_ids = {id(s) for s in fit_reads}
-        for d, reads in shards:
-            if d not in res:
-                continue
-            f_shc, f_scc, f_score, f_changed, f_ok = res[d][2:]
-            lvl_entries = []
-            for i, s in enumerate(reads):
-                if (s.error is None and id(s) in fit_ids and
-                        (s.has_del is False or s.del_fixed)):
-                    s.dev_fit = (float(f_shc[i]), float(f_scc[i]),
-                                 float(f_score[i]), bool(f_changed[i]),
-                                 bool(f_ok[i]))
-                    if f_ok[i] and s.map_res.align_info is not None:
-                        lvl_entries.append((s.map_res.align_info.read_id, i,
-                                            s.ref_means.shape[0]))
-            # the device fit's means serve detection in this process
-            # (stats/device_levels.py); _finalize drops the reads that
-            # fail or finish on a host lane
-            device_levels.register_batch(queued[d][-1], lvl_entries)
+        with self._sub("delfix_apply"):
+            for s in fit_reads:
+                if s.del_windows is None:
+                    continue
+                bounds, fail = res[s.shard][:2]
+                windows, w0 = s.del_windows
+                segs = s.dp_segs
+                ok = True
+                for k, (ws, we) in enumerate(windows):
+                    if fail[w0 + k]:
+                        s.error = ("Raw-signal traceback failed to find "
+                                   "boundary")
+                        ok = False
+                        break
+                    segs[ws + 1:we] = (bounds[w0 + k, :we - ws - 1].astype(
+                        np.int64) + segs[ws])
+                if not ok:
+                    continue
+                # reference validity checks (tombo/resquiggle.py:470-500)
+                if np.diff(segs).min() < 1:
+                    s.error = "New segments include zero length events"
+                    continue
+                if segs[0] < 0:
+                    s.error = "New segments start with negative index"
+                    continue
+                s.del_fixed = True
+            fit_ids = {id(s) for s in fit_reads}
+            for d, reads in shards:
+                if d not in res:
+                    continue
+                f_shc, f_scc, f_score, f_changed, f_ok = res[d][2:]
+                lvl_entries = []
+                for i, s in enumerate(reads):
+                    if (s.error is None and id(s) in fit_ids and
+                            (s.has_del is False or s.del_fixed)):
+                        s.dev_fit = (float(f_shc[i]), float(f_scc[i]),
+                                     float(f_score[i]), bool(f_changed[i]),
+                                     bool(f_ok[i]))
+                        if f_ok[i] and s.map_res.align_info is not None:
+                            lvl_entries.append((
+                                s.map_res.align_info.read_id, i,
+                                s.ref_means.shape[0]))
+                # the device fit's means serve detection in this process
+                # (stats/device_levels.py); _finalize drops the reads that
+                # fail or finish on a host lane
+                device_levels.register_batch(queued[d][-1], lvl_entries)
 
+    @_timed_stage("static")
     def _static_reads(self, states: List[_ReadState], ctx):
         """Short-read static-band assignment (host, numpy)."""
         need = [s for s in states if s.error is None and s.use_static and
@@ -1102,6 +1271,7 @@ class BatchedResquiggler:
             norm = np.clip(norm, sv.lower_lim, sv.upper_lim)
         return norm
 
+    @_timed_stage("finalize")
     def _finalize(self, states: List[_ReadState], will_retry: bool = False):
         """Apply the device fit (scalar bookkeeping) or run the numpy host
         lane (deletion fix + Theil-Sen) and assemble results.  With
@@ -1239,7 +1409,8 @@ class BatchedResquiggler:
         self._finalize(states, will_retry=will_retry)
 
     def resquiggle_batches(self, batches, pipeline_depth: int = 3,
-                           max_scaling_iters: int = config.MAX_SCALING_ITERS):
+                           max_scaling_iters: int = config.MAX_SCALING_ITERS,
+                           trace_dir: Optional[str] = None):
         """Process an iterable of mapped-read batches, yielding per-batch
         result lists in order, one batch after another.
 
@@ -1247,9 +1418,18 @@ class BatchedResquiggler:
         no effect: that package runs batches side by side in threads, but
         a batch here makes thousands of short PyTorch calls, each of which
         hands the GIL over, so concurrent batches slow each other down
-        (PERF.md, Findings)."""
-        for b in batches:
-            yield self.resquiggle_batch(b, max_scaling_iters=max_scaling_iters)
+        (PERF.md, Findings).  ``trace_dir``: trace the batches into it
+        (:func:`trace_ctx`), each stage a range named as in
+        :class:`StageProfile`; the trace is written when the generator
+        ends or is closed."""
+        with contextlib.ExitStack() as stack:
+            if trace_dir is not None:
+                stack.enter_context(trace_ctx(trace_dir, self.mesh))
+                self._tracing = True
+                stack.callback(setattr, self, "_tracing", False)
+            for b in batches:
+                yield self.resquiggle_batch(
+                    b, max_scaling_iters=max_scaling_iters)
 
     def resquiggle_batch(self, map_results: Sequence[ResquiggleResults],
                          max_scaling_iters: int = config.MAX_SCALING_ITERS
@@ -1300,7 +1480,8 @@ class BatchedResquiggler:
                 self.std_ref, self.save_params, self.seq_samp_type,
                 self.outlier_thresh, self.dtype, mesh=self.mesh,
                 const_scale=self.const_scale,
-                skip_seq_scaling=self.skip_seq_scaling)
+                skip_seq_scaling=self.skip_seq_scaling, profile=self.profile)
+            saver._tracing = self._tracing
             retry_out = saver.resquiggle_batch(
                 [s.map_res.replace(scale_values=None) for s in retry],
                 max_scaling_iters=max_scaling_iters)

@@ -41,7 +41,7 @@ from ..seq import invalid_seq
 from ..stats import levels_cache as lc
 from ..types import ReadData, ResquiggleResults, SeqSampleType, SequenceData
 from . import resquiggle as rsq
-from .batch import BatchedResquiggler
+from .batch import BatchedResquiggler, StageProfile, print_stage_timings
 
 POOR_MATCH = ("Poor raw to expected signal matching "
               "(revert with `filter clear_filters`)")
@@ -95,8 +95,12 @@ class RunConfig:
     # smaller runs and memory sources map on num_io_threads threads
     ingest_min: int = 256
     ingest_procs: Optional[int] = None
-    # print where the run's host time went
+    # time the run by stage into a batch.StageProfile (the re-squiggle
+    # stages, io_map, writeback), kept in the summary and printed to
+    # stderr at the end of the run
     profile: bool = False
+    # write a torch.profiler trace of the batch loop into this directory
+    trace_dir: Optional[str] = None
     # append each written read to its directory's levels sidecar
     levels_sidecar: bool = True
 
@@ -110,6 +114,10 @@ class RunSummary:
     # chunks as they arrive), the batch loop (re-squiggle on the device,
     # less the wait for mapped reads), writeback, and the whole run
     timings: Dict[str, float] = field(default_factory=dict)
+    # with RunConfig.profile: the StageProfile's seconds by name and
+    # bytes by direction (batch.StageProfile)
+    stage_timings: Dict[str, float] = field(default_factory=dict)
+    transfer_bytes: Dict[str, int] = field(default_factory=dict)
 
     def as_dict(self):
         return dict(n_success=self.n_success, n_failed=self.n_failed,
@@ -440,7 +448,9 @@ def resquiggle_all_reads(
     """Re-squiggle every read of ``fast5s_dir``: a directory of FAST5
     files, or a read source (:class:`MemoryReads`).  Returns the summary
     and the reads index (None with ``skip_index``); the index file is
-    written for a FAST5 directory unless ``dry_run``."""
+    written for a FAST5 directory unless ``dry_run``.  A ``resquiggler``
+    passed in brings its own profile (or none): the run adds ``io_map``
+    and ``writeback`` to it, and prints it with ``rc.profile``."""
     rc = rc or RunConfig()
     t_run = time.perf_counter()
     source = (fast5s_dir if hasattr(fast5s_dir, "read")
@@ -493,6 +503,10 @@ def resquiggle_all_reads(
 
     map_pool = None
     inline_sidecars = _Sidecars("m")
+    if resquiggler is not None:
+        profile = resquiggler.profile
+    else:
+        profile = StageProfile() if rc.profile else None
     try:
         all_fns = source.names()
         if resquiggler is None:
@@ -503,7 +517,7 @@ def resquiggle_all_reads(
                 std_ref, rsqgl_params, seq_samp_type, rc.outlier_thresh,
                 dtype=rc.dtype, device=rc.device, mesh=rc.mesh,
                 const_scale=const_scale,
-                skip_seq_scaling=rc.skip_seq_rescaling)
+                skip_seq_scaling=rc.skip_seq_rescaling, profile=profile)
         batch_size = rc.batch_size * len(resquiggler.mesh)
         if multi_host:
             # this host's disjoint shard of the files (reference analog:
@@ -521,7 +535,10 @@ def resquiggle_all_reads(
                 return load_and_map(fn, source, aligner, std_ref,
                                     seq_samp_type, rc, rsqgl_params)
             finally:
-                timings["io_map"] += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                timings["io_map"] += dt
+                if profile is not None:
+                    profile.add_time("io_map", dt)
 
         n_units = len(all_fns) * len(rc.basecall_subgroups)
         # processes start before any thread of this run opens a FAST5: a
@@ -592,7 +609,8 @@ def resquiggle_all_reads(
         t_loop = time.perf_counter()
         t_write = 0.0
         for chunk_i, results in enumerate(resquiggler.resquiggle_batches(
-                iter_chunks(), max_scaling_iters=rc.max_scaling_iters)):
+                iter_chunks(), max_scaling_iters=rc.max_scaling_iters,
+                trace_dir=rc.trace_dir)):
             chunk = chunks[chunk_i]
             if len(results) != len(chunk):
                 raise RuntimeError("a batch returned %d results for %d "
@@ -615,6 +633,7 @@ def resquiggle_all_reads(
                 if res.align_info is not mr.align_info:
                     raise RuntimeError("a batch's results are out of order")
                 if writes:
+                    t_w = time.perf_counter()
                     try:
                         if writers is not None:
                             writers.submit(fn, res, rc.corrected_group,
@@ -628,6 +647,10 @@ def resquiggle_all_reads(
                     except Exception:  # noqa: BLE001 — a failed read
                         record_failure(fn, "FAST5 write error")
                         continue
+                    finally:
+                        if profile is not None:
+                            profile.add_time("writeback",
+                                             time.perf_counter() - t_w)
                 summary.n_success += 1
                 if reads_index is None:
                     continue
@@ -648,6 +671,8 @@ def resquiggle_all_reads(
         t0 = time.perf_counter()
         if writers is not None:
             werrs = writers.flush()
+            if profile is not None:
+                profile.add_time("writeback", time.perf_counter() - t0)
             failed_keys = set(werrs)
             for wfn, wsub in werrs:
                 record_failure(wfn, "FAST5 write error")
@@ -670,7 +695,9 @@ def resquiggle_all_reads(
             failed_fp.close()
         f5io.clear_locks(lock_fns)
     timings["run"] = time.perf_counter() - t_run
-    if rc.profile:
-        for name, t in timings.items():
-            print("  %-12s %9.3f s" % (name, t))
+    if profile is not None:
+        summary.stage_timings = dict(profile.timings)
+        summary.transfer_bytes = dict(profile.transfer_bytes)
+        if rc.profile:
+            print_stage_timings(profile)
     return summary, reads_index
