@@ -41,6 +41,16 @@ trace's ``banded_dp_kernel`` and ``count_le_kernel`` events as many as
 the launches K1 and K5 counted during the call, and the six stage
 ranges in it.
 
+The host lane and the raw wire: after each path's breakdown (1 kb, mixed,
+RNA), one batch with a ``StageProfile`` prints the reads the float32 host
+lane finished in one ``native.finalize_batch`` call a group and pass, the
+``finalize_native`` seconds and the MB each way (``host lane`` lines; a
+host-lane read without ``finalize_native`` fails, here and in the stage
+profile phase); for one 1 kb and one mixed batch, every length group's
+raw matrix goes up through the int8-delta wire and dense, and the two
+float32 matrices on the card must be bitwise equal (``raw wire`` lines:
+MB and seconds of each).
+
 The one-read phase, after the three re-squiggle paths, drives the
 one-read API (``pipeline/resquiggle.py::resquiggle_read_with_retries``,
 start discovery through K4, the adaptive DP through K1 or the chunked
@@ -581,16 +591,105 @@ def stage_breakdown(br, batch):
 
 
 # the stage profile's keys on the float32 lane: the JAX package's float32
-# keys less finalize_native (tests/test_torch_profile.py holds the CPU
-# lane's keys to the JAX profiler's); the six stages; the coverage of a
-# batch's wall that the six must reach
+# keys (tests/test_torch_profile.py holds the CPU lane's keys to the JAX
+# profiler's); the six stages; the coverage of a batch's wall that the six
+# must reach
 PROFILE_KEYS_F32 = {"segment", "segment_fetch", "seg_pack", "seg_upload",
                     "plan", "start", "adaptive", "adaptive_fetch",
                     "delfix_plan", "delfix_apply", "static", "static_fetch",
-                    "finalize"}
+                    "finalize", "finalize_native"}
 PROFILE_STAGES = ("segment", "plan", "start", "adaptive", "static",
                   "finalize")
 PROFILE_COVERAGE = (0.85, 1.02)
+
+
+@contextlib.contextmanager
+def native_lane_counted():
+    """Counts the reads the float32 host lane sends through
+    ``native.finalize_batch`` in the block: yields a list that holds each
+    call's job count."""
+    from tombo_tpu_torch import native
+    jobs = []
+    fn = native.finalize_batch
+
+    def counted(j, *a, **kw):
+        jobs.append(len(j))
+        return fn(j, *a, **kw)
+
+    with patched([(native, "finalize_batch", counted)]):
+        yield jobs
+
+
+def host_lane_line(label, br, batch):
+    """One batch through a warm resquiggler with a ``StageProfile``: the
+    reads the float32 host lane finished in the host library, its calls
+    and ``finalize_native`` seconds, ``finalize``'s seconds and the MB
+    each way."""
+    from tombo_tpu_torch.pipeline import batch as batch_mod
+    br.profile = prof = batch_mod.StageProfile()
+    try:
+        with native_lane_counted() as jobs:
+            t0 = time.perf_counter()
+            br.resquiggle_batch(batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        br.profile = None
+    if sum(jobs) and "finalize_native" not in prof.timings:
+        fail("host lane %s: %d reads went through the host library but "
+             "no finalize_native was timed" % (label, sum(jobs)))
+    line = {"path": label, "reads": len(batch), "wall_s": wall,
+            "native_lane_reads": sum(jobs), "finalize_batch_calls": len(jobs),
+            "finalize_native_s": prof.timings.get("finalize_native", 0.0),
+            "finalize_s": prof.timings.get("finalize", 0.0),
+            "mb_up": prof.transfer_bytes.get("upload", 0) / 2 ** 20,
+            "mb_down": prof.transfer_bytes.get("fetch", 0) / 2 ** 20}
+    print("host lane %s" % json.dumps(line))
+    return line
+
+
+def raw_wire_check(label, br, batch, dev):
+    """The raw matrix of each length group of ``batch`` through the wire
+    (``_upload_raw``: the integrality check, int8 deltas and escapes,
+    decoded on the card) and dense (the same reads with ``raw_i16``
+    unset) at float32: bitwise equal, else a failure; the MB each sends
+    and the seconds of each (host clock, card synchronised)."""
+    from tombo_tpu_torch.pipeline import batch as batch_mod
+    tot = {True: [0, 0.0], False: [0, 0.0]}
+    got = {}
+    for wire in (True, False):
+        reads = [batch_mod._ReadState(
+            idx=i, map_res=m, raw=np.asarray(m.raw_signal, np.float64),
+            num_events=0) for i, m in enumerate(batch)]
+        if not wire:
+            for s in reads:
+                s.raw_i16 = None
+        got[wire] = []
+        for group in batch_mod._length_groups(reads):
+            S = batch_mod._sig_bucket(max(s.raw.shape[0] for s in group))
+            br.profile = batch_mod.StageProfile()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got[wire].append(br._upload_raw(group, dev, S)[0])
+                torch.cuda.synchronize()
+                tot[wire][1] += time.perf_counter() - t0
+                tot[wire][0] += br.profile.transfer_bytes["upload"]
+            finally:
+                br.profile = None
+        if wire and any(s.raw_i16 is None for s in reads):
+            fail("raw wire %s: a raw signal is not integral" % label)
+    for a, b in zip(got[True], got[False]):
+        if not (a.dtype == b.dtype == torch.float32 and torch.equal(a, b)):
+            fail("raw wire %s: the decoded matrix of a group of %d reads "
+                 "differs from the dense one" % (label, a.shape[0]))
+    line = {"path": label, "groups": len(got[True]), "bitwise_dense": True,
+            "mb_wire": tot[True][0] / 2 ** 20,
+            "mb_dense": tot[False][0] / 2 ** 20,
+            "ratio": tot[False][0] / tot[True][0],
+            "s_wire": tot[True][1], "s_dense": tot[False][1]}
+    print("raw wire %s" % json.dumps(line))
+    return line
 
 
 def trace_counts(trace_dir, names):
@@ -643,12 +742,17 @@ def stage_profile_phase(smi, paths):
                 prof = batch_mod.StageProfile() if mode == "on" else None
                 br.profile = prof
                 try:
-                    t0 = time.perf_counter()
-                    out = br.resquiggle_batch(batch)
-                    torch.cuda.synchronize()
-                    wall = time.perf_counter() - t0
+                    with native_lane_counted() as jobs:
+                        t0 = time.perf_counter()
+                        out = br.resquiggle_batch(batch)
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t0
                 finally:
                     br.profile = None
+                if (prof is not None and sum(jobs) and
+                        "finalize_native" not in prof.timings):
+                    fail("stage profile %s: %d host-lane reads but no "
+                         "finalize_native" % (label, sum(jobs)))
                 if first is None:
                     first = out
                 if not all(same_result(a, b) for a, b in zip(out, first)):
@@ -3681,6 +3785,8 @@ def main():
     with phase("1 kb breakdown"):
         print("stages: %s" % json.dumps(stage_breakdown(br, batches[1])))
         print("device: %s" % json.dumps(device_profile(br, batches[2])))
+        host_lane_line("1 kb", br, batches[1])
+        raw_wire_check("1 kb", br, batches[1], dev)
 
     # ---- phase 6: the mixed-length path on the card
     with phase("mixed path"):
@@ -3730,6 +3836,8 @@ def main():
                     L, bw, layout, n, reads))
         stages_m = stage_breakdown(br, mixed[0])
         print("stages (mixed): %s" % json.dumps(stages_m))
+        host_lane_line("mixed", br, mixed[0])
+        raw_wire_check("mixed", br, mixed[0], dev)
         print("device (mixed): %s" % json.dumps(
             device_profile(br, mixed[1])))
 
@@ -4073,6 +4181,7 @@ def main():
     with phase("RNA breakdown"):
         stages_r = stage_breakdown(br_r, rna[1])
         print("stages (RNA): %s" % json.dumps(stages_r))
+        host_lane_line("RNA", br_r, rna[1])
         print("device (RNA): %s" % json.dumps(device_profile(br_r, rna[0])))
 
     # ---- phase 13a: the one-read API on reads of the three paths

@@ -5,12 +5,14 @@ profiler (``STAGE_TIMINGS``, ``TRANSFER_BYTES``, ``print_stage_timings``
 under its environment switch) on tests/test_batch_parity.py's six reads of
 650 bases.
 
-The key sets equal the JAX package's but for two differences by design:
-the port has no ``finalize_native`` (its finalize is numpy), and its
-float64 lane runs the device deletion fix and fit, so its float64 set
-has ``delfix_plan`` (and ``delfix_apply`` whenever a read is fit on the
-device, which no read of these six is at float64: each has a deletion
-and finishes on the host)."""
+The float32 key set equals the JAX package's, ``finalize_native`` (the
+host library's batched finalize) included.  The float64 set differs by
+design: the port's float64 lane runs the device deletion fix and fit, so
+its float64 set adds ``delfix_plan`` (and ``delfix_apply`` whenever a
+read is fit on the device, which no read of these six is at float64:
+each has a deletion and finishes on the host, through the host
+library's batched deletion fix and Theil-Sen under ``finalize_native``,
+as in the JAX float64 lane)."""
 import glob
 import io
 import json
@@ -110,15 +112,16 @@ def port_profiles(inputs):
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_stage_keys_match_jax(jax_profiles, port_profiles, dtype):
-    """(a) The JAX key set less ``finalize_native``, plus ``delfix_plan``
-    at float64; each ``_fetch`` key belongs to a stage."""
-    want = set(jax_profiles[dtype][0]) - {"finalize_native"}
+    """(a) The JAX key set, ``finalize_native`` included, plus
+    ``delfix_plan`` at float64; each ``_fetch`` key belongs to a stage."""
+    want = set(jax_profiles[dtype][0])
     assert "finalize_native" in jax_profiles[dtype][0]
     if dtype == "float64":
         assert not want & {"delfix_plan", "delfix_apply"}
         want |= {"delfix_plan"}
     got = set(port_profiles[dtype][0].timings)
     assert got == want
+    assert "finalize_native" in got
     assert STAGES <= got
     for k in got:
         if k.endswith("_fetch"):
@@ -160,12 +163,24 @@ def test_profile_leaves_results_bitwise(inputs, port_profiles, monkeypatch):
 
 @pytest.mark.parametrize("dtype,itemsize", [("float32", 4),
                                             ("float64", 8)])
-def test_transfer_bytes(inputs, port_profiles, dtype, itemsize):
-    """(c) ``upload`` holds at least the reads' raw signals at the lane's
-    dtype (counted on the CPU device too); ``fetch`` is not empty."""
+def test_transfer_bytes(inputs, port_profiles, dtype, itemsize,
+                        monkeypatch):
+    """(c) ``upload`` holds at least the reads' raw signals at a byte a
+    sample (the int8-delta wire of integral signals) and less than half
+    of what the same batch sends with the dense upload (no read's signal
+    taken as integral), which holds at least the signals at the lane's
+    dtype; at float64, less than the signals alone at the lane's dtype
+    (counted on the CPU device too); ``fetch`` is not empty."""
     prof = port_profiles[dtype][0]
-    raw_bytes = sum(m.raw_signal.shape[0] for m in inputs[1][2]) * itemsize
-    assert prof.transfer_bytes["upload"] >= raw_bytes
+    n_samples = sum(m.raw_signal.shape[0] for m in inputs[1][2])
+    assert n_samples <= prof.transfer_bytes["upload"]
+    if dtype == "float64":
+        assert prof.transfer_bytes["upload"] < n_samples * itemsize
+    monkeypatch.setattr(t_batch, "_as_int16", lambda signal, raw: None)
+    dense = t_batch.StageProfile()
+    _port(inputs[1], dtype, profile=dense).resquiggle_batch(inputs[1][2])
+    assert dense.transfer_bytes["upload"] >= n_samples * itemsize
+    assert 2 * prof.transfer_bytes["upload"] < dense.transfer_bytes["upload"]
     assert prof.transfer_bytes["fetch"] > 0
     # a sub-stage's seconds count in its stage too
     t = prof.timings

@@ -242,7 +242,9 @@ def pack_delta8_batch(raws, lens: np.ndarray, flat8: np.ndarray,
                          "int8 buffer holding every read's deltas")
     firsts = np.zeros(B, np.int16)
     ptrs = (ctypes.c_void_p * B)(*(a.ctypes.data for a in raws))
-    exc_cap = 4096
+    # room for an escape in eight samples, so that one pass does (raw DAC
+    # signals escape in ~3% of positions); more escapes take a second pass
+    exc_cap = max(4096, int(lens.sum()) // 8)
     while True:
         exc_read = np.empty(exc_cap, np.int32)
         exc_pos = np.empty(exc_cap, np.int32)

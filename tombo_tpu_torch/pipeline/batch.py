@@ -18,7 +18,9 @@ JAX package's stage order:
      reads retried with the save bandwidth.
 
 Host-lane reads (short reads routed to the static band, deletion windows
-beyond the device caps) finish in numpy.  The PyTorch-side parts are plain
+beyond the device caps) finish in batched calls of the host library
+(``native.py``: ``finalize_batch`` at float32; ``del_fix_batch`` and
+``theil_sen_batch`` at float64).  The PyTorch-side parts are plain
 tensor code; the kernels are ``ops/banded_dp.py``'s (fused and chunked DP)
 and ``ops/rescale.py``'s ``count_le``.  On a CPU device every kernel
 wrapper runs its plain version.  A batch splits into signal-length groups
@@ -60,7 +62,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, native
 from ..config import MASK_FILL_Z_SCORE, ResquiggleParams, SIG_MATCH_THRESH
 from ..device import DeviceLike, resolve_device, resolve_dtype, resolve_mesh
 from ..errors import TomboError
@@ -236,6 +238,60 @@ def _sig_bucket(x: int, lo: int = 1024) -> int:
         b *= 2
 
 
+def _as_int16(signal, raw: np.ndarray) -> Optional[np.ndarray]:
+    """A read's raw ``signal`` as int16 where it is integral and below
+    2^15 in magnitude (the wire's input), else None; ``raw`` is its
+    float64 copy."""
+    signal = np.asarray(signal)
+    if signal.dtype == np.int16:
+        return signal
+    if (raw.size and np.abs(raw).max() < 2 ** 15 and
+            np.all(raw == np.trunc(raw))):
+        return raw.astype(np.int16)
+    return None
+
+
+def _pack_delta_wire(raws, sig_lens: np.ndarray, S: int):
+    """The int8-delta wire of int16 rows (the JAX package's): each read's
+    consecutive differences in one flat int8 buffer, the differences that
+    int8 cannot hold as an escape list of (position in the flattened
+    (B, S) matrix, residual).  Returns (flat8, offs int32 (B,), firsts
+    int16 (B,), exc_dest int32, exc_res int32).  Unlike the JAX lane's,
+    the buffers are not padded to bucket sizes: eager PyTorch compiles
+    nothing per shape, and the padding would be a fifth of the wire."""
+    B = len(raws)
+    if B * S >= 2 ** 31:
+        raise ValueError("a %d x %d raw matrix is past the wire's int32 "
+                         "positions" % (B, S))
+    d8_lens = np.maximum(sig_lens - 1, 0)
+    # one byte at least: the decoder gathers from it for every row
+    flat8 = np.zeros(max(int(d8_lens.sum()), 1), np.int8)
+    offs = np.zeros(B, np.int64)
+    np.cumsum(d8_lens[:-1], out=offs[1:])
+    firsts, exc_rd, exc_pos, exc_res = native.pack_delta8_batch(
+        [np.ascontiguousarray(r) for r in raws], sig_lens, flat8, offs)
+    exc_dest = (exc_pos + 1 + exc_rd.astype(np.int64) * S).astype(np.int32)
+    return flat8, offs.astype(np.int32), firsts, exc_dest, exc_res
+
+
+def _unflatten_delta_rows(flat8, offs, firsts, exc_dest, exc_res, lens,
+                          S: int) -> torch.Tensor:
+    """The (B, S) int16 matrix from the int8-delta wire (the JAX
+    package's ``_unflatten_delta_rows``): deltas gathered into their rows,
+    the escape residuals added at their positions, an integer cumsum
+    along the signal axis; zero past each read's end.  Exact."""
+    B = offs.shape[0]
+    pos = torch.arange(S, device=flat8.device)[None, :]
+    lens = lens[:, None]
+    valid = (pos >= 1) & (pos < lens)
+    idx = torch.where(valid, offs.long()[:, None] + pos - 1, 0)
+    d = torch.where(valid, flat8[idx].int(), 0)
+    d = torch.where(pos == 0, firsts.int()[:, None], d)
+    d = d.reshape(-1).index_add_(0, exc_dest.long(), exc_res)
+    x = torch.cumsum(d.view(B, S), 1, dtype=torch.int32)
+    return torch.where(pos < lens, x, 0).to(torch.int16)
+
+
 @dataclass
 class _ReadState:
     """Per-read mutable state as it flows through the stages."""
@@ -269,6 +325,13 @@ class _ReadState:
     del_fixed: bool = False
     # device fit (shift_corr, scale_corr, score, changed, fit_ok)
     dev_fit: Optional[tuple] = None
+
+    @functools.cached_property
+    def raw_i16(self) -> Optional[np.ndarray]:
+        """The raw signal as int16 where it is integral and below 2^15 in
+        magnitude (the input of the raw wire), else None; looked at on
+        first use and kept for every later pass."""
+        return _as_int16(self.map_res.raw_signal, self.raw)
 
     def reset_pass(self):
         """Clear per-pass products before another scaling iteration."""
@@ -758,20 +821,39 @@ class BatchedResquiggler:
                                          rescale_pass, n_stalls)
         return ctx
 
+    def _upload_raw(self, live, dev, sig_w: int):
+        """The shard's (B, sig_w) raw matrix on ``dev`` at the lane's
+        dtype, zero past each read's end, and its (B,) lengths.  When
+        every raw signal of the shard is integral (``raw_i16``, looked at
+        here once a read) they go up as int8 deltas and an escape list
+        (the JAX package's wire), decoded bit for bit to the dense matrix,
+        which goes up otherwise."""
+        B = len(live)
+        sig_lens = np.array([s.raw.shape[0] for s in live], np.int64)
+        with self._sub("seg_pack"):
+            wire = all(s.raw_i16 is not None for s in live)
+            if wire:
+                host = _pack_delta_wire([s.raw_i16 for s in live],
+                                        sig_lens, sig_w)
+            else:
+                raw_pad = np.zeros((B, sig_w), self.np_dtype)
+                for i, s in enumerate(live):
+                    raw_pad[i, :s.raw.shape[0]] = s.raw
+                host = (raw_pad,)
+        with self._sub("seg_upload"):
+            lens_j = self._t(sig_lens, device=dev)
+            up = [torch.as_tensor(a).to(dev) for a in host]
+            if self.profile is not None:
+                self.profile.add_bytes("upload", sum(a.nbytes for a in host))
+            raw_j = (_unflatten_delta_rows(*up, lens_j, sig_w) if wire
+                     else up[0])
+        return raw_j.to(self.dtype), lens_j
+
     def _segment_shard(self, live, dev, sig_w: int, cpts_w: int,
                        rescale_pass: bool, n_stalls: int):
         p = self.params
         B = len(live)
-        with self._sub("seg_pack"):
-            sig_lens = np.array([s.raw.shape[0] for s in live], np.int64)
-            raw_pad = np.zeros((B, sig_w), self.np_dtype)
-            for i, s in enumerate(live):
-                raw_pad[i, :s.raw.shape[0]] = s.raw
-        with self._sub("seg_upload"):
-            raw_j = torch.as_tensor(raw_pad).to(dev)
-            if self.profile is not None:
-                self.profile.add_bytes("upload", raw_pad.nbytes)
-            lens_j = self._t(sig_lens, device=dev)
+        raw_j, lens_j = self._upload_raw(live, dev, sig_w)
         rm_sj, rs_sj = self._levels(live, p.start_n_bases, clip=True,
                                     device=dev)
         sp = self._start_params(p.start_bw)
@@ -1271,12 +1353,128 @@ class BatchedResquiggler:
             norm = np.clip(norm, sv.lower_lim, sv.upper_lim)
         return norm
 
+    def _apply_fit(self, s: _ReadState, slope: float, inter: float):
+        """A host-lane read's Theil-Sen fit applied to its scale values.
+        Returns (shift_corr, scale_corr, whether the scale changed enough
+        for another scaling iteration)."""
+        scale_corr, shift_corr = 1.0 / slope, -inter / slope
+        sv = s.scale_values
+        s.scale_values = sv.replace(
+            shift=sv.shift + shift_corr * sv.scale,
+            scale=sv.scale * scale_corr, outlier_thresh=self.outlier_thresh)
+        return shift_corr, scale_corr, bool(
+            abs(shift_corr) > config.SHIFT_CHANGE_THRESH or
+            abs(scale_corr - 1) > config.SCALE_CHANGE_THRESH)
+
+    def _finalize_native(self, host):
+        """The float32 host lane (the JAX package's float32 lane): every
+        read the device did not fit becomes one job of a single threaded
+        ``native.finalize_batch`` call (normalize the mapped slice, fix
+        deletions, per-base means, Theil-Sen, the correction).  Its score
+        comes from the pre-correction means, corrected affinely.  Returns
+        the reads' (state, dp_res, segs, norm, score, changed)."""
+        max_n = config.MAX_POINTS_FOR_THEIL_SEN
+        jobs = []
+        for s, dp_res in host:
+            sv = s.scale_values
+            L = s.ref_means.shape[0]
+            jobs.append((
+                s.raw[s.dp_rsrtr:s.dp_rsrtr + int(s.dp_segs[-1])], sv.shift,
+                sv.scale, sv.lower_lim, sv.upper_lim, s.ref_means, s.ref_sds,
+                s.dp_segs, {True: 1, False: 0, None: -1}[s.has_del],
+                _ts_sample_idx(L, max_n) if L > max_n else None))
+        with self._sub("finalize_native"):
+            segs_l, ev_l, norm_l, slopes, inters, status = \
+                native.finalize_batch(jobs, self.params,
+                                      -1 if self.skip_seq_scaling else 1)
+        results = []
+        for i, (s, dp_res) in enumerate(host):
+            st = int(status[i])
+            if st == native.FIT_FAILED_STATUS:
+                s.error = ("Read failed sequence-based signal re-scaling "
+                           "parameter estimation.")
+                continue
+            if st != 0:
+                s.error = native.DEL_FIX_ERRORS.get(st, "deletion fix failed")
+                continue
+            ev, changed = ev_l[i], False
+            if not self.skip_seq_scaling:
+                shc, scc, changed = self._apply_fit(s, float(slopes[i]),
+                                                    float(inters[i]))
+                ev = (ev - shc) / scc
+            score = rsq.get_read_seg_score(ev, dp_res.ref_means,
+                                           dp_res.ref_sds)
+            results.append((s, dp_res, segs_l[i], norm_l[i], score, changed))
+        return results
+
+    def _finalize_host_f64(self, host):
+        """The float64 host lane (the JAX package's float64 lane, bit for
+        bit): the normalized mapped slice in numpy, one
+        ``native.del_fix_batch`` call for the reads with a deletion (or
+        not known to have none), one float64 ``native.theil_sen_batch``
+        call for the fit, the score from the corrected slice's means.
+        Returns the reads' (state, dp_res, segs, norm, score, changed)."""
+        reads = []
+        for s, dp_res in host:
+            norm = self._host_norm(s.raw, s.scale_values, s.dp_rsrtr,
+                                   s.dp_rsrtr + int(s.dp_segs[-1]))
+            reads.append([s, dp_res, dp_res.segs, norm])
+        dels = [r for r in reads if r[0].has_del is not False]
+        if dels:
+            with self._sub("finalize_native"):
+                segs_l, status = native.del_fix_batch(
+                    [(norm, dp_res.ref_means, dp_res.ref_sds, segs)
+                     for _, dp_res, segs, norm in dels], self.params)
+            for r, segs, st in zip(dels, segs_l, status):
+                if st == 0:
+                    r[2] = segs
+                else:
+                    r[0].error = native.DEL_FIX_ERRORS.get(
+                        int(st), "deletion fix failed")
+            reads = [r for r in reads if r[0].error is None]
+        if not reads:
+            return []
+        if self.skip_seq_scaling:
+            return [(s, dp_res, segs, norm, rsq.get_read_seg_score(
+                ref_impl.new_means(norm, segs), dp_res.ref_means,
+                dp_res.ref_sds), False) for s, dp_res, segs, norm in reads]
+        max_n = config.MAX_POINTS_FOR_THEIL_SEN
+        ev = np.zeros((len(reads), max_n))
+        mod = np.zeros((len(reads), max_n))
+        n_pts = np.zeros(len(reads), np.int64)
+        for i, (_, dp_res, segs, norm) in enumerate(reads):
+            r_ev, r_mod = ref_impl.new_means(norm, segs), dp_res.ref_means
+            n = r_mod.shape[0]
+            if n > max_n:
+                samp = _ts_sample_idx(n, max_n)
+                r_ev, r_mod, n = r_ev[samp], r_mod[samp], max_n
+            ev[i, :n], mod[i, :n], n_pts[i] = r_ev, r_mod, n
+        with self._sub("finalize_native"):
+            slopes, inters = native.theil_sen_batch(ev, mod, n_pts,
+                                                    use_f32=False)
+        results = []
+        for (s, dp_res, segs, norm), slope, inter in zip(reads, slopes,
+                                                         inters):
+            if slope == 0:
+                s.error = ("Read failed sequence-based signal re-scaling "
+                           "parameter estimation.")
+                continue
+            shc, scc, changed = self._apply_fit(s, float(slope),
+                                                float(inter))
+            norm = (norm - shc) / scc
+            score = rsq.get_read_seg_score(ref_impl.new_means(norm, segs),
+                                           dp_res.ref_means, dp_res.ref_sds)
+            results.append((s, dp_res, segs, norm, score, changed))
+        return results
+
     @_timed_stage("finalize")
     def _finalize(self, states: List[_ReadState], will_retry: bool = False):
-        """Apply the device fit (scalar bookkeeping) or run the numpy host
-        lane (deletion fix + Theil-Sen) and assemble results.  With
-        ``skip_seq_scaling`` the scale values stay as segmentation set
-        them and no read asks for another scaling iteration."""
+        """Apply the device fit (scalar bookkeeping), finish every other
+        read in batched calls of the host library (:meth:`_finalize_native`
+        at float32, :meth:`_finalize_host_f64` at float64) and assemble
+        results.  With ``skip_seq_scaling`` the scale values stay as
+        segmentation set them and no read asks for another scaling
+        iteration."""
         host, dev = [], []
         for s in states:
             if s.error is not None or s.result is not None:
@@ -1288,51 +1486,14 @@ class BatchedResquiggler:
                                s.genome_seq_trim)
             if s.dev_fit is not None:
                 dev.append((s, dp_res, s.dp_segs))
-                continue
-            try:
-                norm = self._host_norm(
-                    s.raw, s.scale_values, s.dp_rsrtr,
-                    s.dp_rsrtr + int(s.dp_segs[-1]))
-                segs = (dp_res.segs if s.has_del is False else
-                        rsq.resolve_skipped_bases_with_raw(dp_res, norm,
-                                                           self.params))
-                host.append((s, dp_res, segs, norm))
-            except TomboError as e:
-                s.error = str(e)
+            else:
+                host.append((s, dp_res))
 
         results = []
-        max_n = config.MAX_POINTS_FOR_THEIL_SEN
-        for s, dp_res, segs, norm in host:
-            if self.skip_seq_scaling:
-                score = rsq.get_read_seg_score(ref_impl.new_means(norm, segs),
-                                               dp_res.ref_means,
-                                               dp_res.ref_sds)
-                results.append((s, dp_res, segs, norm, score, False))
-                continue
-            ev = ref_impl.new_means(norm, segs)
-            mod = dp_res.ref_means
-            n = mod.shape[0]
-            if n > max_n:
-                samp = _ts_sample_idx(n, max_n)
-                ev, mod = ev[samp], mod[samp]
-            slope, inter = rescale.theil_sen_host(ev, mod)
-            if slope == 0:
-                s.error = ("Read failed sequence-based signal re-scaling "
-                           "parameter estimation.")
-                continue
-            scale_corr, shift_corr = 1.0 / slope, -inter / slope
-            sv = s.scale_values
-            s.scale_values = sv.replace(
-                shift=sv.shift + shift_corr * sv.scale,
-                scale=sv.scale * scale_corr,
-                outlier_thresh=self.outlier_thresh)
-            norm = (norm - shift_corr) / scale_corr
-            changed = bool(
-                abs(shift_corr) > config.SHIFT_CHANGE_THRESH or
-                abs(scale_corr - 1) > config.SCALE_CHANGE_THRESH)
-            score = rsq.get_read_seg_score(ref_impl.new_means(norm, segs),
-                                           dp_res.ref_means, dp_res.ref_sds)
-            results.append((s, dp_res, segs, norm, score, changed))
+        if host:
+            results = (self._finalize_host_f64(host)
+                       if self.dtype == torch.float64
+                       else self._finalize_native(host))
 
         for s, dp_res, segs in dev:
             shc, scc, score, changed, fit_ok = s.dev_fit
