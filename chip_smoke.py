@@ -692,6 +692,102 @@ def raw_wire_check(label, br, batch, dev):
     return line
 
 
+def host_levels(reads, width, clip, np_dt):
+    """The (B, width) level matrices the host built and sent before the
+    levels were looked up on the card: ones-padded float64 rows cast to
+    the lane's dtype; ``clip`` as ``BatchedResquiggler._levels``."""
+    rm = np.ones((len(reads), width))
+    rs = np.ones((len(reads), width))
+    for i, s in enumerate(reads):
+        n = s.ref_means.shape[0]
+        if clip:
+            if n >= width:
+                rm[i], rs[i] = s.ref_means[:width], s.ref_sds[:width]
+        else:
+            m = min(n, width)
+            rm[i, :m], rs[i, :m] = s.ref_means[:m], s.ref_sds[:m]
+    return rm.astype(np_dt), rs.astype(np_dt)
+
+
+def resident_check(label, br, batch, dev):
+    """One batch through a warm resquiggler with a ``StageProfile``,
+    every piece of the device-resident flow held bitwise as it runs:
+    each level matrix looked up on the card against the host-built one;
+    each rescale pass's gathered raw matrix against a fresh
+    ``_upload_raw`` of its reads; each segment table rebuilt from the
+    uint8 wire against the full table fetched from the card (every row
+    whose table is non-decreasing).  Prints a ``resident`` line: MB up
+    and down, the host's changepoint row copies and ``seg_over`` rows,
+    and the counts checked.  The checks' own copies are not counted."""
+    from tombo_tpu_torch.pipeline import batch as batch_mod
+    cls = batch_mod.BatchedResquiggler
+    levels, seg_shard, seg_tables = (cls._levels, cls._segment_shard,
+                                     cls._seg_tables)
+    n = {"levels": 0, "raw_gathers": 0, "tables": 0}
+
+    def levels_rec(self, live, width, clip=False, device=None):
+        out = levels(self, live, width, clip, device)
+        for g, w in zip(out, host_levels(live, width, clip, self.np_dtype)):
+            if not torch.equal(g.cpu(), torch.as_tensor(w)):
+                fail("resident %s: a level matrix (%d x %d) differs from "
+                     "the host-built one" % (label, len(live), width))
+        n["levels"] += 1
+        return out
+
+    def seg_shard_rec(self, live, d, sig_w, *a):
+        gathered = all(s.raw_dev is not None for s in live)
+        out = seg_shard(self, live, d, sig_w, *a)
+        if gathered:
+            prof, self.profile = self.profile, None
+            try:
+                want = self._upload_raw(live, d, sig_w)[0]
+            finally:
+                self.profile = prof
+            if not torch.equal(live[0].raw_dev[0], want):
+                fail("resident %s: a rescale pass's gathered raw matrix "
+                     "differs from _upload_raw's" % label)
+            n["raw_gathers"] += 1
+        return out
+
+    def seg_tables_rec(self, d8, over, seq_segs_j):
+        out = seg_tables(self, d8, over, seq_segs_j)
+        # each row up to its first decrease (past a read's own bases the
+        # table is not used), where the wire holds it or it came in full
+        full = seq_segs_j.cpu().numpy()
+        d = np.diff(full, axis=1)
+        neg = d < 0
+        end = np.where(neg.any(1), neg.argmax(1), d.shape[1])
+        col = np.arange(d.shape[1])[None, :]
+        ok = over | np.all((d <= 255) | (col >= end[:, None]), axis=1)
+        cols = np.arange(full.shape[1])[None, :] <= end[:, None]
+        if not np.array_equal(np.where(cols, out, 0)[ok],
+                              np.where(cols, full, 0)[ok]):
+            fail("resident %s: a table rebuilt from the uint8 wire differs "
+                 "from the full one" % label)
+        n["tables"] += int(ok.sum())
+        return out
+
+    br.profile = prof = batch_mod.StageProfile()
+    try:
+        with patched([(cls, "_levels", levels_rec),
+                      (cls, "_segment_shard", seg_shard_rec),
+                      (cls, "_seg_tables", seg_tables_rec)]):
+            out = br.resquiggle_batch(batch)
+    finally:
+        br.profile = None
+    if not (n["levels"] and n["raw_gathers"] and n["tables"]):
+        fail("resident %s: a piece went unchecked: %s" % (label, n))
+    line = {"path": label, "reads": len(batch),
+            "ok_reads": sum(r is not None for r, _ in out),
+            "mb_up": prof.transfer_bytes.get("upload", 0) / 2 ** 20,
+            "mb_down": prof.transfer_bytes.get("fetch", 0) / 2 ** 20,
+            "cpts_row_fetches": prof.row_fetches.get("cpts", 0),
+            "seg_over_rows": prof.row_fetches.get("seg_over", 0),
+            "checked_bitwise": n}
+    print("resident %s" % json.dumps(line))
+    return line
+
+
 def trace_counts(trace_dir, names):
     """(kernel events whose name holds each of ``names``, annotation
     names, bytes) of the one Chrome trace in ``trace_dir``."""
@@ -3787,6 +3883,7 @@ def main():
         print("device: %s" % json.dumps(device_profile(br, batches[2])))
         host_lane_line("1 kb", br, batches[1])
         raw_wire_check("1 kb", br, batches[1], dev)
+        resident_check("1 kb", br, batches[1], dev)
 
     # ---- phase 6: the mixed-length path on the card
     with phase("mixed path"):
@@ -3838,6 +3935,7 @@ def main():
         print("stages (mixed): %s" % json.dumps(stages_m))
         host_lane_line("mixed", br, mixed[0])
         raw_wire_check("mixed", br, mixed[0], dev)
+        resident_check("mixed", br, mixed[0], dev)
         print("device (mixed): %s" % json.dumps(
             device_profile(br, mixed[1])))
 
@@ -4182,6 +4280,7 @@ def main():
         stages_r = stage_breakdown(br_r, rna[1])
         print("stages (RNA): %s" % json.dumps(stages_r))
         host_lane_line("RNA", br_r, rna[1])
+        resident_check("RNA", br_r, rna[1], dev)
         print("device (RNA): %s" % json.dumps(device_profile(br_r, rna[0])))
 
     # ---- phase 13a: the one-read API on reads of the three paths

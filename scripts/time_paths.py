@@ -2,7 +2,7 @@
 ``chip_smoke.py`` on one CUDA card, for this checkout or another one.
 
     python3 scripts/time_paths.py [--tree DIR] [--paths 1kb,mixed,rna]
-        [--batches 2] [--reads-cache DIR]
+        [--batches 2] [--reads-cache DIR] [--save FILE] [--against FILE]
 
 The reads are ``chip_smoke.py``'s recipes and seeds (``build_reads``,
 ``mixed_lens``, ``build_rna_reads``): a warm-up batch of 512 and
@@ -11,15 +11,21 @@ the card's name and power limit, the tree, reads/s of the timed batches
 through ``resquiggle_batches`` (pipeline depth 3, as ``chip_smoke.py``'s
 ``run_path``) and of one batch after them with a ``StageProfile``, whose
 seconds by key, six stages' share of that batch's wall and MB up and down
-it also prints.  ``--tree DIR`` imports ``tombo_tpu_torch`` from another
-checkout (the parent commit unpacked under ``build/``), so two versions
-run in turns on one card in one chip call, one process each.
+it also prints, with a SHA-256 digest of every timed and profiled
+read's outcome (error, segment table, start, scale values, score and
+whether the scale changed).  ``--tree DIR`` imports ``tombo_tpu_torch``
+from another checkout (the parent commit unpacked under ``build/``), so
+two versions run in turns on one card in one chip call, one process
+each; ``--save FILE`` writes the lines to FILE and ``--against FILE``
+adds to each line whether its digest equals the one FILE holds for the
+path (bitwise the same results).
 ``--reads-cache DIR`` keeps the mapped reads of each path in DIR as
 pickles, so later processes load the same reads instead of mapping them
 again (the package's types pickle by module name, which both trees
 share).
 """
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -69,6 +75,23 @@ def path_reads(cs, name, n_batches, cache):
     return out
 
 
+def digest(outs):
+    """SHA-256 of the outcomes of batches of (result, error) pairs."""
+    import numpy as np
+    h = hashlib.sha256()
+    for out in outs:
+        for res, err in out:
+            h.update(repr(err).encode())
+            if res is None:
+                continue
+            sv = res.scale_values
+            h.update(np.ascontiguousarray(res.segs, np.int64).tobytes())
+            h.update(repr((res.read_start_rel_to_raw, sv.shift, sv.scale,
+                           sv.lower_lim, sv.upper_lim, res.sig_match_score,
+                           res.norm_params_changed)).encode())
+    return h.hexdigest()
+
+
 def time_path(cs, name, n_batches, cache, smi, tree):
     import torch
     from tombo_tpu_torch import config
@@ -93,8 +116,9 @@ def time_path(cs, name, n_batches, cache, smi, tree):
     torch.cuda.synchronize()
     one_wall = time.perf_counter() - t0
     br.profile = None
-    print(json.dumps({
+    line = {
         "path": name, "tree": tree, "card": smi, "reads": n_ok,
+        "results_sha256": digest(outs + [one]),
         "reads_per_s": n_ok / wall,
         "profiled_batch": {
             "wall_s": one_wall,
@@ -102,9 +126,10 @@ def time_path(cs, name, n_batches, cache, smi, tree):
             "six_stages_share": sum(prof.timings.get(k, 0.0)
                                     for k in STAGES) / one_wall,
             "s": dict(sorted(prof.timings.items())),
+            "stage_keys": sorted(prof.timings),
             "mb_up": prof.transfer_bytes.get("upload", 0) / 2 ** 20,
-            "mb_down": prof.transfer_bytes.get("fetch", 0) / 2 ** 20}}),
-        flush=True)
+            "mb_down": prof.transfer_bytes.get("fetch", 0) / 2 ** 20}}
+    return line
 
 
 def main():
@@ -113,6 +138,8 @@ def main():
     ap.add_argument("--paths", default="1kb,mixed,rna")
     ap.add_argument("--batches", type=int, default=2)
     ap.add_argument("--reads-cache", default=None)
+    ap.add_argument("--save", default=None)
+    ap.add_argument("--against", default=None)
     a = ap.parse_args()
     tree = os.path.abspath(a.tree)
     sys.path.insert(0, tree)
@@ -131,9 +158,23 @@ def main():
     kernels.build()
     native.get_native_lib()
     cs = recipes()
+    against = {}
+    if a.against:
+        with open(a.against) as f:
+            against = {ln["path"]: ln for ln in json.load(f)}
+    lines = []
     for name in a.paths.split(","):
-        time_path(cs, name, a.batches, a.reads_cache, smi,
-                  os.path.relpath(tree, ROOT))
+        line = time_path(cs, name, a.batches, a.reads_cache, smi,
+                         os.path.relpath(tree, ROOT))
+        if name in against:
+            line["against"] = against[name]["tree"]
+            line["bitwise_against"] = (line["results_sha256"] ==
+                                       against[name]["results_sha256"])
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+    if a.save:
+        with open(a.save, "w") as f:
+            json.dump(lines, f)
 
 
 if __name__ == "__main__":

@@ -41,6 +41,15 @@ further scaling iteration).  The float64 parity mode (CPU) takes the JAX
 package's float64 lane where it differs from the float32 one: rescale
 passes re-select changepoints, and deletion-fix reads finish on the host.
 
+Data stays on the device between stages and passes, as in the JAX
+package's float32 lane: a read's raw matrix row and changepoints are
+kept as (device matrix, row) and gathered there by a rescale pass;
+k-mer levels are looked up on the device from 2-bit packed bases; the
+segment tables come down as uint8 deltas (a row with a longer segment
+again in full); the host fetches a read's changepoints only for the
+static band; and each stage's per-read scalars come down as one stacked
+float32 array on the float32 lane.
+
 ``profile=`` (a :class:`StageProfile`) records each stage's wall seconds,
 the host's waits for device results and the bytes that cross between
 host and device; :func:`print_stage_timings` prints them.
@@ -74,7 +83,7 @@ from ..ops import select as sel
 from ..ops.dp import DpParams, StartDpParams
 from ..ops.precision import prefix_sums, row_sums
 from ..parallel.mesh import shard_sizes
-from ..seq import encode_seq, seq_to_kmer_codes
+from ..seq import encode_seq
 from ..stats import device_levels
 from ..types import DpResults, ResquiggleResults, ScaleValues, SeqSampleType
 from . import resquiggle as rsq
@@ -102,7 +111,10 @@ class StageProfile:
     host copies.  A sub-stage's or a fetch's seconds also count in its
     stage.  A run adds ``io_map`` and ``writeback`` (``pipeline/runner.py``).
     ``transfer_bytes``: ``upload`` (host to device) and ``fetch`` (device
-    to host), counted on a CPU device too.
+    to host), counted on a CPU device too.  ``row_fetches``: rows the
+    host copied from a matrix that otherwise stays on the device, by
+    name: ``cpts`` (a static-band read's changepoints) and ``seg_over``
+    (a segment table with a segment longer than the uint8 wire holds).
 
     Nothing is synchronised for the profile: device work surfaces where
     the host waits for it, in a ``_fetch`` key, or in the stage whose
@@ -113,6 +125,7 @@ class StageProfile:
     def __init__(self):
         self.timings = {}
         self.transfer_bytes = {}
+        self.row_fetches = {}
         self._lock = threading.Lock()
         self._local = threading.local()
 
@@ -124,6 +137,10 @@ class StageProfile:
         with self._lock:
             self.transfer_bytes[direction] = (
                 self.transfer_bytes.get(direction, 0) + int(n))
+
+    def add_rows(self, name: str, n: int):
+        with self._lock:
+            self.row_fetches[name] = self.row_fetches.get(name, 0) + int(n)
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -292,6 +309,85 @@ def _unflatten_delta_rows(flat8, offs, firsts, exc_dest, exc_res, lens,
     return torch.where(pos < lens, x, 0).to(torch.int16)
 
 
+def _pack_bases(bc: np.ndarray) -> np.ndarray:
+    """Base codes 0..3 packed four to a byte, the first base in the
+    lowest two bits, zero past the end (the JAX package's
+    ``_pack_bases``); the device unpacks them with two-bit shifts
+    (:func:`_codes_from_packed`)."""
+    b = np.zeros(_round_up(bc.shape[0], 4), np.uint8)
+    b[:bc.shape[0]] = bc
+    b = b.reshape(-1, 4)
+    return (b[:, 0] | (b[:, 1] << 2) | (b[:, 2] << 4) |
+            (b[:, 3] << 6)).astype(np.uint8)
+
+
+def _kmer_plan(seqs: Sequence[str], k: int):
+    """The k-mer plan of a batch of sequences in a few array operations
+    over one flat buffer of every read's base codes, each read starting
+    at a multiple of 4 and padded with A (code 0) up to the next (the
+    JAX package's ``_plan_reads`` builds a (reads, longest read) matrix
+    instead, whose padding doubles the work on mixed lengths).  Returns
+    (the k-mer code at each position of the buffer, first base most
+    significant: a read's codes are the first ``len - k + 1`` from its
+    start, exact where the read holds no invalid base; the buffer packed
+    four bases to a byte, a read's from its start / 4; each read's start;
+    each read's base count; whether a read holds an invalid base)."""
+    lens = np.array([len(q) for q in seqs], np.int64)
+    starts = np.zeros(lens.shape[0] + 1, np.int64)
+    np.cumsum((lens + 3) // 4 * 4, out=starts[1:])
+    N = int(starts[-1])
+    # k - 1 more A's: the last position's window stays inside the buffer
+    bases = encode_seq("".join(q.ljust(n, "A") for q, n in zip(
+        seqs, np.diff(starts).tolist())) + "A" * (k - 1))
+    invalid = np.flatnonzero(bases < 0)
+    starts = starts[:-1]
+    bad = (np.searchsorted(invalid, starts + lens) >
+           np.searchsorted(invalid, starts))
+    np.maximum(bases, 0, out=bases)
+    codes = np.zeros(N, np.int32)
+    for j in range(k):
+        codes *= 4
+        codes += bases[j:j + N]
+    # int64 indices gather the levels fastest
+    return codes.astype(np.int64), _pack_bases(bases[:N]), starts, lens, bad
+
+
+def _codes_from_packed(packed, n_codes, width: int, k: int, n_sent: int,
+                       clip: bool) -> torch.Tensor:
+    """(B, width) int32 k-mer codes from (B, PB) 2-bit packed bases and
+    each read's code count (the JAX package's ``_codes_from_packed``):
+    the host's integer arithmetic, first base most significant; ``n_sent``
+    past each read's codes, or, with ``clip``, on every row of a read
+    with fewer than ``width`` codes."""
+    B, PB = packed.shape
+    p = packed.to(torch.int32)
+    bases = torch.stack([(p >> (2 * j)) & 3 for j in range(4)],
+                        -1).reshape(B, PB * 4)[:, :width + k - 1]
+    codes = torch.zeros((B, width), dtype=torch.int32, device=p.device)
+    for j in range(k):
+        codes = codes * 4 + bases[:, j:j + width]
+    nc = n_codes.to(torch.int32)[:, None]
+    if clip:
+        valid = nc >= width
+    else:
+        valid = torch.arange(width, device=p.device)[None, :] < nc
+    return torch.where(valid, codes, n_sent)
+
+
+def _levels_from_codes(mt, st, codes):
+    """(means, sds) rows gathered from the device k-mer table; the
+    sentinel index (the table's last row) gives (1.0, 1.0), so the rows
+    equal the host-built, ones-padded level matrices bit for bit."""
+    c = codes.long()
+    return mt[c], st[c]
+
+
+def _gather_rows_pad(src, rows, width: int) -> torch.Tensor:
+    """``src[rows]`` cropped or zero-padded to ``width`` columns (the JAX
+    package's ``_gather_rows_pad``)."""
+    return _pad_cols(src[rows.long()][:, :width], width)
+
+
 @dataclass
 class _ReadState:
     """Per-read mutable state as it flows through the stages."""
@@ -301,10 +397,21 @@ class _ReadState:
     num_events: int
     error: Optional[str] = None
     scale_values: Optional[ScaleValues] = None
+    # the changepoints on the host, copied only where the host needs them
+    # (:meth:`BatchedResquiggler._fetch_cpts`); on the device they are
+    # (matrix, row, count), gathered there by a rescale pass
     cpts: Optional[np.ndarray] = None
+    cpts_dev: Optional[tuple] = None
+    # (device raw matrix at the lane's dtype, row) of the last segment
+    # pass; a rescale pass gathers it instead of sending the signal again
+    raw_dev: Optional[tuple] = None
     event_means: Optional[np.ndarray] = None
     ref_means: Optional[np.ndarray] = None
     ref_sds: Optional[np.ndarray] = None
+    # k-mer codes of the mapped sequence and its 2-bit packed bases, from
+    # which the device derives the codes and looks up the levels
+    ref_codes: Optional[np.ndarray] = None
+    packed_bases: Optional[np.ndarray] = None
     genome_seq_trim: Optional[str] = None
     use_static: bool = False
     n_ev: int = 0
@@ -514,7 +621,12 @@ def _stage_finalize(cpts, rows, clips, segs_dp, seq_lens, ev_lens,
     tombo/resquiggle.py:754-764 trim, then pipeline/resquiggle.py
     ``get_rel_raw_coords``; integer-exact).  Only leading (<0) and
     trailing (>events_len) positions can be out of range, so a clip is
-    the trim."""
+    the trim.  Returns (seq_segs, rsrtr, has_del, seg_d8, seg_over): the
+    table's wire (the JAX package's) is its (B, L) uint8 differences,
+    exact for every read whose ``seg_over`` is False (no segment of its
+    own bases longer than 255 samples); the host rebuilds a table by an
+    integer cumsum from 0 and copies a ``seg_over`` row in full from
+    ``seq_segs``, which stays on the device."""
     L = n_rows
     tb = torch.minimum(segs_dp.long().clamp(min=0), ev_lens[:, None])
     cpts_rows = cpts[rows]
@@ -526,7 +638,8 @@ def _stage_finalize(cpts, rows, clips, segs_dp, seq_lens, ev_lens,
     base_valid = torch.arange(L, device=cpts.device)[None, :] < \
         seq_lens[:, None]
     has_del = ((d == 0) & base_valid).any(1)
-    return seq_segs, rsrtr, has_del
+    seg_over = ((d > 255) & base_valid).any(1)
+    return seq_segs, rsrtr, has_del, d.to(torch.uint8), seg_over
 
 
 def _stage_fit(norm, rows, rsrtr, seq_segs, rm, rs, seq_lens, samp, tri,
@@ -729,17 +842,33 @@ class BatchedResquiggler:
         self.profile = profile
         # set while resquiggle_batches writes a trace
         self._tracing = False
+        # the device k-mer table of each mesh device (_levels_tab)
+        self._level_tabs = {}
 
     # ------------------------------------------------------------ helpers
-    def _t(self, arr, float_=False, device=None) -> torch.Tensor:
+    def _up(self, arr, device=None) -> torch.Tensor:
+        """A host array on ``device`` (default the lane's) as it is, its
+        bytes counted."""
         arr = np.asarray(arr)
-        if float_:
-            arr = arr.astype(self.np_dtype)
-        elif arr.dtype != np.bool_:
-            arr = arr.astype(np.int64)
         if self.profile is not None:
             self.profile.add_bytes("upload", arr.nbytes)
         return torch.as_tensor(arr).to(device or self.device)
+
+    def _t(self, arr, float_=False, device=None) -> torch.Tensor:
+        """A host array on ``device``: floats at the lane's dtype, bools
+        as they are, integers sent as int32 where they fit (the JAX
+        lane's ``_up`` sends index and count vectors at their own width)
+        and widened to int64 on the device, where the stages gather and
+        compute with them."""
+        arr = np.asarray(arr)
+        if float_:
+            return self._up(arr.astype(self.np_dtype), device)
+        if arr.dtype == np.bool_:
+            return self._up(arr, device)
+        fits = arr.size == 0 or (arr.min() >= -2 ** 31 and
+                                 arr.max() < 2 ** 31)
+        return self._up(arr.astype(np.int32 if fits else np.int64),
+                        device).long()
 
     def _sub(self, name: str):
         """A sub-stage of the current stage (timed only with a profile)."""
@@ -747,21 +876,58 @@ class BatchedResquiggler:
             return contextlib.nullcontext()
         return self.profile.sub(name)
 
-    def _levels(self, live, width: int, clip: bool = False, device=None):
-        """(B, width) expected means and sds, padded with 1.0; ``clip``
-        crops each read to ``width`` (reads shorter than ``width`` become
-        all-padding rows)."""
-        rm = np.ones((len(live), width))
-        rs = np.ones((len(live), width))
+    def _levels_tab(self, dev):
+        """The k-mer table (means, sds) on ``dev`` at the lane's dtype,
+        with the sentinel row (1.0, 1.0) appended (the JAX package's
+        ``_levels_tab``); sent once a device."""
+        tab = self._level_tabs.get(dev)
+        if tab is None:
+            tab = self._level_tabs[dev] = tuple(
+                self._up(np.append(a, 1.0).astype(self.np_dtype), dev)
+                for a in (self.std_ref.means, self.std_ref.sds))
+        return tab
+
+    def _codes_rows(self, live, width: int, clip: bool, dev):
+        """(B, width) k-mer codes of ``live`` on ``dev``, sentinel past
+        each read's codes (the JAX package's ``_codes_rows``): derived on
+        the device from the reads' packed bases and code counts, or,
+        where a read has no packed bases, sent as dense int16 code rows;
+        ``clip`` as in :meth:`_levels`."""
+        n_sent = self.std_ref.means.shape[0]
+        k = self.std_ref.kmer_width
+        B = len(live)
+        if all(s.packed_bases is not None for s in live):
+            PB = _round_up(width + k - 1, 4) // 4
+            packed = np.zeros((B, PB), np.uint8)
+            n_codes = np.zeros(B, np.int32)
+            for i, s in enumerate(live):
+                m = min(PB, s.packed_bases.shape[0])
+                packed[i, :m] = s.packed_bases[:m]
+                n_codes[i] = s.ref_codes.shape[0]
+            return _codes_from_packed(self._up(packed, dev),
+                                      self._up(n_codes, dev), width, k,
+                                      n_sent, clip)
+        codes = np.full((B, width), n_sent,
+                        np.int16 if n_sent < 2 ** 15 else np.int32)
         for i, s in enumerate(live):
-            n = s.ref_means.shape[0]
+            c = s.ref_codes
             if clip:
-                if n >= width:
-                    rm[i], rs[i] = s.ref_means[:width], s.ref_sds[:width]
+                if c.shape[0] >= width:
+                    codes[i] = c[:width]
             else:
-                m = min(n, width)
-                rm[i, :m], rs[i, :m] = s.ref_means[:m], s.ref_sds[:m]
-        return self._t(rm, True, device), self._t(rs, True, device)
+                codes[i, :c.shape[0]] = c[:width]
+        return self._up(codes, dev)
+
+    def _levels(self, live, width: int, clip: bool = False, device=None):
+        """(B, width) expected means and sds on ``device`` at the lane's
+        dtype, padded with 1.0, looked up on the device from the k-mer
+        codes (:meth:`_codes_rows`); ``clip`` crops each read to
+        ``width`` (reads shorter than ``width`` become all-padding
+        rows)."""
+        dev = device or self.device
+        mt, st = self._levels_tab(dev)
+        return _levels_from_codes(mt, st,
+                                  self._codes_rows(live, width, clip, dev))
 
     def _start_params(self, num_events: int) -> StartDpParams:
         p = self.params
@@ -775,6 +941,75 @@ class BatchedResquiggler:
         if self.profile is None:
             return [t.cpu().numpy() for t in ts]
         return self.profile.fetch(ts)
+
+    def _np_scalars(self, reads, *ts) -> list:
+        """Per-read vectors of ``reads`` to the host: on the float32 lane,
+        while every raw signal is shorter than 2^24 samples, one stacked
+        (k, B) float32 copy (the JAX package's ``_fetch_packed_f32`` under
+        its ``pack_ok``: exact for float32 values and for integers below
+        2^24: statuses, flags, event and sample positions); else one copy
+        a vector, each at its own dtype."""
+        if (self.dtype != torch.float32 or
+                max(s.raw.shape[0] for s in reads) >= 2 ** 24):
+            return self._np(*ts)
+        out, = self._np(torch.stack([t.to(torch.float32) for t in ts]))
+        return list(out)
+
+    def _gather_resident(self, refs, dev, width: int) -> torch.Tensor:
+        """(B, width) matrix on ``dev`` of the rows ``refs`` ((device
+        matrix, row) a read), each cropped or zero-padded to ``width``:
+        one gather on each source matrix's device, the rows then moved
+        to ``dev`` device to device (a no-op on one device).  Every
+        source row is zero past its read's values, so this is the matrix
+        the host would have built and sent."""
+        by_src = {}
+        for i, (src, row) in enumerate(refs):
+            by_src.setdefault(id(src), (src, [], []))
+            by_src[id(src)][1].append(i)
+            by_src[id(src)][2].append(row)
+        parts = [(pos, _gather_rows_pad(
+            src, self._t(rows, device=src.device), width).to(dev))
+            for src, pos, rows in by_src.values()]
+        if len(parts) == 1:
+            return parts[0][1]
+        out = torch.zeros((len(refs), width), dtype=parts[0][1].dtype,
+                          device=dev)
+        for pos, part in parts:
+            out[self._t(pos, device=dev)] = part
+        return out
+
+    def _fetch_cpts(self, reads):
+        """Each read's changepoints on the host (``s.cpts``), where it
+        has none yet: one gathered copy from each device matrix that
+        holds some (the JAX package's ``_cpts_of``), counted in the
+        profile's ``cpts`` rows."""
+        by_src = {}
+        for s in reads:
+            if s.cpts is None:
+                by_src.setdefault(id(s.cpts_dev[0]), []).append(s)
+        for group in by_src.values():
+            src = group[0].cpts_dev[0]
+            rows, = self._np(src[self._t([s.cpts_dev[1] for s in group],
+                                         device=src.device)])
+            for s, row in zip(group, rows):
+                s.cpts = row[:s.cpts_dev[2]].astype(np.int64)
+            if self.profile is not None:
+                self.profile.add_rows("cpts", len(group))
+
+    def _seg_tables(self, d8, over, seq_segs_j) -> np.ndarray:
+        """(B, L + 1) int64 segment tables from their uint8 wire: an
+        integer cumsum of ``d8`` from 0, and the rows of the ``over``
+        reads copied in full from ``seq_segs_j`` in one gathered copy,
+        counted in the profile's ``seg_over`` rows."""
+        out = np.zeros((d8.shape[0], d8.shape[1] + 1), np.int64)
+        np.cumsum(d8, axis=1, dtype=np.int64, out=out[:, 1:])
+        rows = np.flatnonzero(over)
+        if rows.size:
+            out[rows], = self._np(seq_segs_j[self._t(
+                rows, device=seq_segs_j.device)])
+            if self.profile is not None:
+                self.profile.add_rows("seg_over", rows.size)
+        return out
 
     def _shards(self, reads):
         """``reads`` by mesh shard: (shard, its reads in order) for every
@@ -806,10 +1041,10 @@ class BatchedResquiggler:
         # float64 lane does (selection is invariant under the affine
         # re-normalization only in exact arithmetic)
         rescale_pass = self.dtype != torch.float64 and all(
-            s.map_res.scale_values is not None and s.cpts is not None
+            s.map_res.scale_values is not None and s.cpts_dev is not None
             for s in live)
         cpts_w = _pow2_bucket(max(
-            s.cpts.shape[0] if rescale_pass else s.num_events
+            s.cpts_dev[2] if rescale_pass else s.num_events
             for s in live), 256)
         # stall intervals per read, padded to a multiple of 8 for the group
         n_stalls = _round_up(max([1] + [
@@ -852,8 +1087,15 @@ class BatchedResquiggler:
     def _segment_shard(self, live, dev, sig_w: int, cpts_w: int,
                        rescale_pass: bool, n_stalls: int):
         p = self.params
-        B = len(live)
-        raw_j, lens_j = self._upload_raw(live, dev, sig_w)
+        if all(s.raw_dev is not None for s in live):
+            # a rescale pass: the raw rows are still on the device
+            raw_j = self._gather_resident([s.raw_dev for s in live], dev,
+                                          sig_w)
+            lens_j = self._t([s.raw.shape[0] for s in live], device=dev)
+        else:
+            raw_j, lens_j = self._upload_raw(live, dev, sig_w)
+        for i, s in enumerate(live):
+            s.raw_dev = (raw_j, i)
         rm_sj, rs_sj = self._levels(live, p.start_n_bases, clip=True,
                                     device=dev)
         sp = self._start_params(p.start_bw)
@@ -876,15 +1118,15 @@ class BatchedResquiggler:
             (None if self.outlier_thresh is None
              else float(self.outlier_thresh)), w, p.min_obs_per_base,
             cpts_w, sp)
-        (cpts_np, status, shift, scale, lower, upper, s0, sN,
-         score) = self._np(cpts_j, status_j, shift, scale, lower, upper,
-                           start_segs_j[:, 0], start_segs_j[:, -1],
-                           start_score_j)
+        (status, shift, scale, lower, upper, s0, sN,
+         score) = self._np_scalars(live, status_j, shift, scale, lower,
+                                   upper, start_segs_j[:, 0],
+                                   start_segs_j[:, -1], start_score_j)
         for i, s in enumerate(live):
             if status[i] != 0:
                 s.error = "Fewer changepoints found than requested"
                 continue
-            s.cpts = cpts_np[i, :s.num_events].astype(np.int64)
+            s.cpts, s.cpts_dev = None, (cpts_j, i, s.num_events)
             s.n_ev = s.num_events - 1
             s.event_means = None
             prev_sv = s.map_res.scale_values
@@ -942,16 +1184,16 @@ class BatchedResquiggler:
             (None if self.outlier_thresh is None
              else float(self.outlier_thresh)), p.running_stat_width,
             p.min_obs_per_base, cpts_w, sp)
-        (cpts_np, n_cpts, status, shift, scale, lower, upper, s0, sN,
-         score) = self._np(cpts_j, n_cpts_j, status_j, shift, scale, lower,
-                           upper, start_segs_j[:, 0], start_segs_j[:, -1],
-                           start_score_j)
+        (n_cpts, status, shift, scale, lower, upper, s0, sN,
+         score) = self._np_scalars(live, n_cpts_j, status_j, shift, scale,
+                                   lower, upper, start_segs_j[:, 0],
+                                   start_segs_j[:, -1], start_score_j)
         lim = lambda v: None if np.isnan(v) else float(v)
         for i, s in enumerate(live):
             if status[i] != 0:
                 s.error = "Fewer changepoints found than requested"
                 continue
-            s.cpts = cpts_np[i, :n_cpts[i]].astype(np.int64)
+            s.cpts, s.cpts_dev = None, (cpts_j, i, int(n_cpts[i]))
             s.n_ev = int(n_cpts[i]) - 1
             s.event_means = None
             s.scale_values = ScaleValues(float(shift[i]), float(scale[i]),
@@ -964,23 +1206,23 @@ class BatchedResquiggler:
 
     def _segment_rescale(self, live, dev, raw_j, lens_j, rm_sj, rs_sj, sp,
                          cpts_w: int):
-        """Rescale-pass segmentation reusing first-pass changepoints."""
-        B = len(live)
-        n_cpts = np.array([s.cpts.shape[0] for s in live], np.int64)
-        cpts = np.zeros((B, cpts_w), np.int64)
-        for i, s in enumerate(live):
-            cpts[i, :n_cpts[i]] = s.cpts
+        """Rescale-pass segmentation reusing first-pass changepoints,
+        gathered where they stay on the device (the JAX package's
+        ``_segment_rescale`` with ``_gather_rows_pad``)."""
+        n_cpts = np.array([s.cpts_dev[2] for s in live], np.int64)
         _, sv_shift, sv_scale, sv_lower, sv_upper = self._given_sv(
             live, np.nan, np.nan)
         t = lambda a, f=False: self._t(a, f, dev)
-        cpts_j = t(cpts)
+        cpts_j = self._gather_resident([s.cpts_dev[:2] for s in live], dev,
+                                       cpts_w)
         norm_j, em_j, start_segs_j, start_score_j = _stage_a_rescale(
             raw_j, lens_j, t(sv_shift, True), t(sv_scale, True),
             t(sv_lower, True), t(sv_upper, True), cpts_j, t(n_cpts), rm_sj,
             rs_sj, sp)
-        s0, sN, score = self._np(start_segs_j[:, 0], start_segs_j[:, -1],
-                                 start_score_j)
+        s0, sN, score = self._np_scalars(live, start_segs_j[:, 0],
+                                         start_segs_j[:, -1], start_score_j)
         for i, s in enumerate(live):
+            s.cpts_dev = (cpts_j, i, int(n_cpts[i]))
             s.n_ev = int(n_cpts[i]) - 1
             s.event_means = None
             s.scale_values = s.map_res.scale_values.replace()
@@ -990,25 +1232,34 @@ class BatchedResquiggler:
 
     @_timed_stage("plan")
     def _plan_reads(self, states: List[_ReadState]):
-        """Expected levels + static-band routing."""
+        """Expected levels + static-band routing.  The k-mer codes, packed
+        bases and levels of every read new to the resquiggler come from
+        one batch of matrix operations (:func:`_kmer_plan`)."""
         p = self.params
         std_ref = self.std_ref
         k = std_ref.kmer_width
         dnstrm = k - std_ref.central_pos - 1
-        for s in states:
-            if s.error is not None:
-                continue
-            if s.ref_means is None:
-                codes = seq_to_kmer_codes(encode_seq(s.map_res.genome_seq),
-                                          k)
-                if codes.shape[0] <= 0 or np.any(codes < 0):
+        fresh = [s for s in states
+                 if s.error is None and s.ref_codes is None]
+        if fresh:
+            codes, packed, starts, lens, bad = _kmer_plan(
+                [s.map_res.genome_seq for s in fresh], k)
+            means, sds = std_ref.means[codes], std_ref.sds[codes]
+            for s, a, n_bases, bad_read in zip(fresh, starts.tolist(),
+                                               lens.tolist(), bad):
+                n = n_bases - k + 1
+                if bad_read or n <= 0:
                     s.error = ("Invalid sequence encountered from genome "
                                "sequence.")
                     continue
-                s.ref_means = std_ref.means[codes]
-                s.ref_sds = std_ref.sds[codes]
+                s.ref_codes = codes[a:a + n]
+                s.packed_bases = packed[a // 4:(a + n_bases + 3) // 4]
+                s.ref_means, s.ref_sds = means[a:a + n], sds[a:a + n]
                 s.genome_seq_trim = s.map_res.genome_seq[
                     std_ref.central_pos:-dnstrm]
+        for s in states:
+            if s.error is not None:
+                continue
             if len(s.genome_seq_trim) != s.ref_means.shape[0]:
                 s.error = "Discordant reference and sequence lengths."
                 continue
@@ -1049,7 +1300,8 @@ class BatchedResquiggler:
                 segs, score = _start_dp_with_score(
                     ctx[d]["em"][rows][:, :need], rm_sj, rs_sj, sp)
                 queued.append((reads, (segs[:, 0], segs[:, -1], score)))
-            found = [(reads, self._np(*out)) for reads, out in queued]
+            found = [(reads, self._np_scalars(reads, *out))
+                     for reads, out in queued]
         failed = []
         thresh = SIG_MATCH_THRESH[self.seq_samp_type.name]
         for reads, (seg0, segN, score) in found:
@@ -1132,32 +1384,35 @@ class BatchedResquiggler:
             banded_dp.adaptive_banded_dp_tb_sharded(
                 self.mesh, dp_args, dpp, L_max, P_max, p.band_bound_thresh,
                 banded_dp.plan_dp_layout(L_max, bw))
-        band_err, bound_err = self._np(band_err, bound_err)
-        segs_by = dict(zip([d for d, _ in shards],
-                           segs_j.split([len(r) for _, r in shards])))
+        sizes = [len(r) for _, r in shards]
+        by = [dict(zip([d for d, _ in shards], a.split(sizes)))
+              for a in (segs_j, band_err, bound_err)]
         fin = {}
         for d, reads in shards:
             rows, clips, n_events, seq_lens = dev_in[d][:4]
             fin[d] = _stage_finalize(
-                ctx[d]["cpts"], rows, clips, segs_by[d].to(self.mesh[d]),
+                ctx[d]["cpts"], rows, clips, by[0][d].to(self.mesh[d]),
                 seq_lens, n_events, L_max)
-        k = 0
         for d, reads in shards:
-            seq_segs, rsrtr, has_del = self._np(*fin[d])
+            seq_segs_j, rsrtr, has_del, d8_j, over_j = fin[d]
+            d8, = self._np(d8_j)
+            band, bound, over, rsrtr, has_del = self._np_scalars(
+                reads, by[1][d].to(self.mesh[d]), by[2][d].to(self.mesh[d]),
+                over_j, rsrtr, has_del)
+            tables = self._seg_tables(
+                d8, (over != 0) & (band == 0) & (bound == 0), seq_segs_j)
             for i, s in enumerate(reads):
-                if band_err[k + i]:
+                if band[i]:
                     s.error = ("Adaptive signal to sequence alignment "
                                "extended beyond raw signal")
                     continue
-                if bound_err[k + i]:
+                if bound[i]:
                     s.error = ("Read event to sequence alignment extends "
                                "beyond bandwidth")
                     continue
-                s.dp_segs = seq_segs[i, :s.ref_means.shape[0] + 1].astype(
-                    np.int64)
+                s.dp_segs = tables[i, :s.ref_means.shape[0] + 1].copy()
                 s.dp_rsrtr = int(rsrtr[i])
                 s.has_del = bool(has_del[i])
-            k += len(reads)
         self._delfix_and_fit(shards, ctx, {
             d: (rows, fin[d][1], fin[d][0], rm_j, rs_j, seq_lens)
             for d, (rows, _, _, seq_lens, rm_j, rs_j) in dev_in.items()})
@@ -1271,8 +1526,13 @@ class BatchedResquiggler:
                 scale_thresh=float(config.SCALE_CHANGE_THRESH),
                 do_fit=not self.skip_seq_scaling)
         # (bounds, fail, shift_corr, scale_corr, score, changed, fit_ok);
-        # the rescaled event means stay on the device
-        res = {d: self._np(*out[:-1]) for d, out in queued.items()}
+        # the boundaries come down as int16 (window positions, < t_pad),
+        # the fit's scalars stacked; the rescaled event means stay on the
+        # device
+        shard_reads = dict(shards)
+        res = {d: self._np(out[0].to(torch.int16), out[1]) +
+               self._np_scalars(shard_reads[d], *out[2:-1])
+               for d, out in queued.items()}
 
         with self._sub("delfix_apply"):
             for s in fit_reads:
@@ -1332,9 +1592,9 @@ class BatchedResquiggler:
                     [s.dev_row for s in reads], device=self.mesh[d])])
                 for s, row in zip(reads, em_rows):
                     s.event_means = row.astype(np.float64)[:s.n_ev]
-        for s in states:
-            if s.error is not None or not s.use_static:
-                continue
+        static = [s for s in states if s.error is None and s.use_static]
+        self._fetch_cpts(static)
+        for s in static:
             try:
                 seq_events = rsq.find_static_base_assignment(
                     s.event_means, s.ref_means, s.ref_sds, self.params)
@@ -1631,6 +1891,9 @@ class BatchedResquiggler:
                     scale_values=s.result.scale_values)
                 s.reset_pass()
             self._run_pass(redo, will_retry=it < max_scaling_iters - 2)
+        # the device matrices the reads kept between passes
+        for s in states:
+            s.raw_dev = s.cpts_dev = None
 
         # failed reads retried with the save bandwidth
         # (reference: tombo/resquiggle.py:1586-1588)

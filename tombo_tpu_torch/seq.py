@@ -27,6 +27,8 @@ _BASE_LUT = np.full(256, -1, dtype=np.int8)
 for _i, _b in enumerate(BASES):
     _BASE_LUT[ord(_b)] = _i
     _BASE_LUT[ord(_b.lower())] = _i
+# the same lookup as a bytes.translate table (one pass in C)
+_BASE_TABLE = _BASE_LUT.view(np.uint8).tobytes()
 
 
 _INVALID_BASES = re.compile("[^ACGT]")
@@ -54,8 +56,10 @@ def get_mean_q_score(read_q: str, phred_base: int = 33) -> float:
 
 
 def encode_seq(seq: str) -> np.ndarray:
-    """ACGT string -> int8 codes 0..3; non-ACGT become -1."""
-    return _BASE_LUT[np.frombuffer(seq.encode("ascii"), dtype=np.uint8)]
+    """ACGT string -> int8 codes 0..3 (a writable array); non-ACGT
+    become -1."""
+    return np.frombuffer(bytearray(seq.encode("ascii").translate(
+        _BASE_TABLE)), dtype=np.int8)
 
 
 def seq_to_kmer_codes(seq_codes: np.ndarray, kmer_width: int) -> np.ndarray:
