@@ -51,7 +51,23 @@ raw matrix goes up through the int8-delta wire and dense, and the two
 float32 matrices on the card must be bitwise equal (``raw wire`` lines:
 MB and seconds of each).
 
-The one-read phase, after the three re-squiggle paths, drives the
+The lanes phase, after the three re-squiggle paths, runs one batch of
+each path through each non-default finalize lane
+(``pipeline/batch.py::FinalizeLanes``, ``LANES``: the JAX package's
+alternative finalize lanes: the fit on the adaptive pass gated by the
+deletion rate or forced, no device fit, the host traceback trim, the
+Python host lane, and its fit on the card in blocks of 64 reads), each
+in a fresh resquiggler with the launch counts zeroed just before it:
+its results held to the default lane's (at most ``LANES_OUTSIDE`` of the
+reads may differ: another error, start or table length, or outside
+tests/test_batch_parity.py's bars; each that does runs again through the
+same lane on the CPU, and the card's result must lie within the bars of
+that run), the count kernel launched exactly where the lane fits on the
+card, one ``lanes`` line a lane.  K5 at the blocks' shape (64 reads of
+1,000 points) is held bitwise against its plain version and timed; its
+row joins the kernels line.
+
+The one-read phase, after the lanes phase, drives the
 one-read API (``pipeline/resquiggle.py::resquiggle_read_with_retries``,
 start discovery through K4, the adaptive DP through K1 or the chunked
 pair, the fit through K5, each at a batch of one) over 64 reads of the
@@ -786,6 +802,239 @@ def resident_check(label, br, batch, dev):
             "checked_bitwise": n}
     print("resident %s" % json.dumps(line))
     return line
+
+
+# the lanes phase: the non-default finalize lanes (pipeline/batch.py
+# FinalizeLanes), each held to the default lane on one batch of each path.
+# A lane fits on other numbers (float64 host normalization, a float32
+# Theil-Sen on the host, unfixed tables), so a read whose correction lies
+# near the rescaling threshold may take another scaling pass and end
+# elsewhere (one RNA read of 512 at segs 0.921 on the H100, 700 W).  So
+# at most LANES_OUTSIDE of a lane's reads may differ from the default
+# lane (another error, start or table length, or outside
+# tests/test_batch_parity.py's bars), and each that does runs again
+# through the same lane on the CPU, where the lane is held to the JAX
+# package's: the card's result must be within the bars of that run.
+LANES = [
+    ("device_delfix=False", {"device_delfix": False}),
+    ("device_delfix=False, device_fit=True",
+     {"device_delfix": False, "device_fit": True}),
+    ("device_fit=False", {"device_fit": False}),
+    ("device_finalize=False", {"device_finalize": False}),
+    ("native_finalize=False", {"native_finalize": False}),
+    ("device_fit=False, native_finalize=False, device_theil_sen=True",
+     {"device_fit": False, "native_finalize": False,
+      "device_theil_sen": True}),
+]
+LANES_OUTSIDE = 0.1
+# K5 at the device Theil-Sen blocks' shape: 64 reads, 1,000 points
+TS_BLOCK_SHAPE = (64, 1000 * 999 // 2)
+
+
+@contextlib.contextmanager
+def lane_counts():
+    """Counts, over the block, the reads each finalize lane took: the
+    device fit (reads with a device fit at ``_finalize``), the host
+    library's ``finalize_batch``, ``del_fix_batch`` and ``theil_sen_batch``
+    and the device Theil-Sen blocks; and the reads (with a deletion) that
+    the device finalize saw.  Yields the dict it fills."""
+    from tombo_tpu_torch import native
+    from tombo_tpu_torch.pipeline import batch as batch_mod
+    cls = batch_mod.BatchedResquiggler
+    n = {"device_fit": 0, "finalize_batch": 0, "del_fix_batch": 0,
+         "theil_sen_batch": 0, "ts_blocks": 0, "has_del_seen": 0,
+         "has_del": 0}
+    fin, note = cls._finalize, cls._note_del_rate
+
+    def count(key, fn, size):
+        def run(*a, **kw):
+            n[key] += size(*a)
+            return fn(*a, **kw)
+        return run
+
+    def fin_rec(self, states, *a, **kw):
+        n["device_fit"] += sum(1 for s in states if s.error is None and
+                               s.result is None and s.dev_fit is not None)
+        return fin(self, states, *a, **kw)
+
+    def note_rec(self, has_del):
+        n["has_del_seen"] += int(has_del.shape[0])
+        n["has_del"] += int(np.count_nonzero(has_del))
+        return note(self, has_del)
+
+    with patched([
+            (native, "finalize_batch", count(
+                "finalize_batch", native.finalize_batch,
+                lambda j, *a: len(j))),
+            (native, "del_fix_batch", count(
+                "del_fix_batch", native.del_fix_batch, lambda j, *a: len(j))),
+            (native, "theil_sen_batch", count(
+                "theil_sen_batch", native.theil_sen_batch,
+                lambda ev, *a: ev.shape[0])),
+            (batch_mod, "_theil_sen_device_blocks", count(
+                "ts_blocks", batch_mod._theil_sen_device_blocks,
+                lambda ev, *a: ev.shape[0])),
+            (cls, "_finalize", fin_rec), (cls, "_note_del_rate", note_rec)]):
+        yield n
+
+
+def lanes_phase(smi, paths):
+    """Each finalize lane of ``LANES`` on one batch of each path
+    (``paths``: (label, (model, params, sst), batch, the default lane's
+    results of that batch)), a fresh resquiggler each with the launch
+    counts zeroed just before it: its results held to the default lane's
+    (:func:`lane_differences`); the kernels the lane must
+    and must not launch; one line a lane with reads/s, the
+    ``finalize``, ``finalize_native`` and ``adaptive`` seconds of its
+    ``StageProfile``, the reads each lane took, the share of reads with a
+    deletion and the MB each way.  The default lane runs last on each
+    batch, its results bitwise the path's, which leaves the device means
+    of the batch's reads as the path registered them.  Returns (the count
+    kernel's arguments at the blocks' shape, the arguments of a block's
+    fit, the blocks' launches by path)."""
+    from tombo_tpu_torch import config
+    from tombo_tpu_torch.ops import rescale
+    from tombo_tpu_torch.pipeline import batch as batch_mod
+    # the count kernel's and the fit's calls of the blocks lane
+    rec_k5 = Recorder(rescale.count_le, lambda keys, piv: (
+        tuple(keys.shape), 1))
+    rec_ts = Recorder(rescale.theil_sen_device, lambda ev, *a, **kw: (
+        tuple(ev.shape), 1))
+    block_launches = {}
+    for label, cfg, batch, default in paths:
+        for lane, kw in LANES + [("default", {})]:
+            prof = batch_mod.StageProfile()
+            br = batch_mod.BatchedResquiggler(
+                *cfg, config.OUTLIER_THRESH, device=DEVICE, profile=prof,
+                lanes=batch_mod.FinalizeLanes(**kw))
+            blocks = kw.get("device_theil_sen", False)
+            with lane_counts() as n:
+                (out,), wall, launches = run_path(
+                    "lanes %s, %s" % (label, lane), br, [batch],
+                    [(rescale, "count_le", rec_k5),
+                     (rescale, "theil_sen_device", rec_ts)] if blocks
+                    else [])
+            if lane == "default":
+                if not all(same_result(a, b) for a, b in zip(out, default)):
+                    fail("lanes %s: the default lane's results differ from "
+                         "the path's" % label)
+                outside = 0
+            else:
+                outside = lane_differences("lanes %s, %s" % (label, lane),
+                                           cfg, kw, batch, out, default)
+            if launches["banded_dp"] <= 0:
+                fail("lanes %s, %s: no DP kernel launched" % (label, lane))
+            # the count kernel runs for a device fit or the blocks only
+            fits = (kw.get("device_finalize", True) and
+                    kw.get("device_fit", True) is not False) or blocks
+            if (launches["count_le"] > 0) != fits:
+                fail("lanes %s, %s: %d count kernel launches" % (
+                    label, lane, launches["count_le"]))
+            if blocks:
+                if n["ts_blocks"] < 32:
+                    fail("lanes %s: the device Theil-Sen blocks took %d "
+                         "reads" % (label, n["ts_blocks"]))
+                block_launches[label] = launches["count_le"]
+            n_ok = sum(r is not None for r, _ in out)
+            line = {
+                "path": label, "lane": lane, "card": smi,
+                "reads": len(batch), "reads_ok": n_ok, "wall_s": wall,
+                "reads_per_s": n_ok / wall, "outside_bars": outside,
+                "s": {k: prof.timings.get(k, 0.0) for k in (
+                    "finalize", "finalize_native", "adaptive")},
+                "reads_by_lane": {k: v for k, v in n.items()
+                                  if not k.startswith("has_del")},
+                "has_del_share": (n["has_del"] / n["has_del_seen"]
+                                  if n["has_del_seen"] else None),
+                "mb_up": prof.transfer_bytes.get("upload", 0) / 2 ** 20,
+                "mb_down": prof.transfer_bytes.get("fetch", 0) / 2 ** 20,
+                "launches": {k: v for k, v in launches.items() if v}}
+            print("lanes " + json.dumps(line))
+    if TS_BLOCK_SHAPE not in rec_k5.calls:
+        fail("lanes: no count kernel call at the blocks' shape %s (saw %s)"
+             % (TS_BLOCK_SHAPE, sorted(rec_k5.calls)))
+    return (rec_k5.calls[TS_BLOCK_SHAPE][1],
+            rec_ts.calls[(TS_BLOCK_SHAPE[0], 1000)][1], block_launches)
+
+
+def lane_differences(label, cfg, kw, batch, out, default):
+    """The reads of ``batch`` whose lane result ``out`` differs from the
+    default lane's (``default``): another error, start or table length,
+    or outside :func:`result_bars`.  Fails past LANES_OUTSIDE of the
+    batch; runs the differing reads again through the same lane on the
+    CPU and holds the card's results to those (:func:`hold_results`, none
+    allowed outside).  Prints each difference and the worst within the
+    bars; returns the count."""
+    from tombo_tpu_torch import config
+    from tombo_tpu_torch.pipeline import batch as batch_mod
+    diff = []
+    worst = {"segs": 1.0, "shift": 0.0, "scale": 0.0, "score": 0.0}
+    for i, ((g, ge), (c, ce)) in enumerate(zip(out, default)):
+        if g is None or c is None:
+            if ge != ce:
+                diff.append(i)
+                print("  %s %s: error %r, default lane's %r" % (
+                    label, batch[i].align_info.read_id, ge, ce))
+            continue
+        ok, d = result_bars(g, c)
+        if not ok:
+            diff.append(i)
+            print("  %s %s: outside the bars %s" % (
+                label, batch[i].align_info.read_id, json.dumps(d)))
+            continue
+        worst = {"segs": min(worst["segs"], d["segs"]),
+                 "shift": max(worst["shift"], d["shift"]),
+                 "scale": max(worst["scale"], d["scale"]),
+                 "score": max(worst["score"], d["score"])}
+    print("%s: %d of %d reads differ from the default lane (%d allowed); "
+          "worst within the bars: %s" % (
+              label, len(diff), len(batch),
+              math.ceil(LANES_OUTSIDE * len(batch)), json.dumps(worst)))
+    if len(diff) > math.ceil(LANES_OUTSIDE * len(batch)):
+        fail("%s: %d of %d reads differ from the default lane" % (
+            label, len(diff), len(batch)))
+    if diff:
+        reads = [batch[i] for i in diff]
+        cpu = batch_mod.BatchedResquiggler(
+            *cfg, config.OUTLIER_THRESH, device="cpu",
+            lanes=batch_mod.FinalizeLanes(**kw)).resquiggle_batch(reads)
+        hold_results("%s: card vs CPU" % label, [out[i] for i in diff], cpu,
+                     [m.align_info.read_id for m in reads], allowed=0)
+    return len(diff)
+
+
+def ts_block_row(k5, block_args, ts_args, block_launches):
+    """K5 at the device Theil-Sen blocks' shape: counts bitwise its plain
+    version on the captured block, CUDA-event ms of it, of the plain
+    version and of ``torch.kthvalue`` at the block's first read's upper
+    middle rank, and its bound."""
+    from tombo_tpu_torch.ops import rescale
+    keys, piv = block_args
+    c_k = k5(keys, piv)
+    c_p = rescale.count_le_plain(keys, piv)
+    if not torch.equal(c_k, c_p):
+        fail("count_le at the blocks' shape differs from the plain version "
+             "by %d" % int((c_k - c_p).abs().max()))
+    B, M = keys.shape
+    P = piv.shape[1]
+    k_rank = int(rescale._pair_ranks(ts_args[2])[2][0]) + 1
+    try:
+        lib = cuda_ms(lambda: torch.kthvalue(keys, k_rank, dim=1), 5)
+    except RuntimeError as e:          # yardstick only, never on the path
+        print("torch.kthvalue yardstick unavailable: %s" % e)
+        lib = None
+    t_b = (B * M * 4 + 3 * B * P * 4) / HBM_BYTES_PER_S
+    t_o = 2 * B * M * P / F32_OPS_PER_S
+    row = {"B": B, "M": M, "P": P, "launches": block_launches["1 kb"],
+           "launches_by_path": block_launches, "max_abs_err": 0,
+           "ms": cuda_ms(lambda: k5(keys, piv), 20),
+           "plain_ms": cuda_ms(lambda: rescale.count_le_plain(keys, piv), 5),
+           "bound_ms": 1e3 * max(t_b, t_o),
+           "bound_by": "bytes" if t_b >= t_o else "operations",
+           "library_ms": lib}
+    print("count_le at the device Theil-Sen blocks' shape: %s" %
+          json.dumps(row))
+    return row
 
 
 def trace_counts(trace_dir, names):
@@ -4283,6 +4532,16 @@ def main():
         resident_check("RNA", br_r, rna[1], dev)
         print("device (RNA): %s" % json.dumps(device_profile(br_r, rna[0])))
 
+    # ---- phase 13a0: the finalize lanes on a batch of each path
+    with phase("lanes"):
+        t_ln = time.perf_counter()
+        block_args, block_ts, block_launches = lanes_phase(smi, [
+            ("1 kb", (model, params, sst), batches[0], outs[0]),
+            ("mixed", (model, params, sst), mixed[0], outs_m[0]),
+            ("RNA", (model_r, params_r, sst_r), rna[0], outs_r[0])])
+        k5_blocks = ts_block_row(k5, block_args, block_ts, block_launches)
+        print("lanes phase: %.1f s" % (time.perf_counter() - t_ln))
+
     # ---- phase 13a: the one-read API on reads of the three paths
     with phase("one_read"):
         t_or = time.perf_counter()
@@ -4534,6 +4793,7 @@ def main():
     k5_entry["shape_rna"] = k5_rna
     k5_entry["launches_estimation"] = k5_est.pop("launches")
     k5_entry["shape_recentring"] = k5_est
+    k5_entry["shape_ts_blocks"] = k5_blocks
     entries.append(k5_entry)
     k3m = k3_shapes[0]
     entries.append({

@@ -3,6 +3,7 @@
 
     python3 scripts/time_paths.py [--tree DIR] [--paths 1kb,mixed,rna]
         [--batches 2] [--reads-cache DIR] [--save FILE] [--against FILE]
+        [--lanes]
 
 The reads are ``chip_smoke.py``'s recipes and seeds (``build_reads``,
 ``mixed_lens``, ``build_rna_reads``): a warm-up batch of 512 and
@@ -23,6 +24,19 @@ path (bitwise the same results).
 pickles, so later processes load the same reads instead of mapping them
 again (the package's types pickle by module name, which both trees
 share).
+
+``--lanes`` times the finalize lanes instead (``chip_smoke.py``'s
+``LANES``, ``pipeline/batch.py::FinalizeLanes``): after the warm-up
+batch, the first timed batch of a path runs through the default lane and
+each other lane, each time in a fresh resquiggler with a ``StageProfile``,
+in turns (default, the lanes, then the same in reverse order).  One JSON
+line a path gives each lane's reads/s of both runs and their ratio to the
+default lane's, its seconds by key (the mean of the two runs), the reads
+each lane took (read-passes: a read counts once a scaling pass), the
+share of reads with a deletion that the device finalize saw, MB up and
+down, and a SHA-256 digest of its results, whether the two runs'
+digests are equal and, with ``--against``, whether it equals the one
+FILE holds for the same path and lane.
 """
 import argparse
 import hashlib
@@ -132,6 +146,58 @@ def time_path(cs, name, n_batches, cache, smi, tree):
     return line
 
 
+def time_lanes(cs, name, n_batches, cache, smi, tree):
+    import statistics
+    import torch
+    from tombo_tpu_torch import config
+    from tombo_tpu_torch.pipeline import batch as batch_mod
+    model, params, sst, maps = path_reads(cs, name, n_batches, cache)
+    B = cs.BATCH
+    warm, batch = maps[:B], maps[B:2 * B]
+    batch_mod.BatchedResquiggler(model, params, sst, config.OUTLIER_THRESH,
+                                 device=DEVICE).resquiggle_batch(warm)
+    torch.cuda.synchronize()
+    lanes = [("default", {})] + cs.LANES
+    runs = {lane: [] for lane, _ in lanes}
+    for lane, kw in lanes + lanes[::-1]:
+        prof = batch_mod.StageProfile()
+        br = batch_mod.BatchedResquiggler(
+            model, params, sst, config.OUTLIER_THRESH, device=DEVICE,
+            profile=prof, lanes=batch_mod.FinalizeLanes(**kw))
+        with cs.lane_counts() as n:
+            t0 = time.perf_counter()
+            out = br.resquiggle_batch(batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runs[lane].append((wall, out, prof, dict(n)))
+    base = statistics.mean(
+        sum(r is not None for r, _ in out) / w for w, out, _, _ in
+        runs["default"])
+    entries = []
+    for lane, _ in lanes:
+        rps = [sum(r is not None for r, _ in out) / w
+               for w, out, _, _ in runs[lane]]
+        profs = [p for _, _, p, _ in runs[lane]]
+        n = runs[lane][0][3]
+        keys = sorted(set().union(*(p.timings for p in profs)))
+        digests = [digest([out]) for _, out, _, _ in runs[lane]]
+        entries.append({
+            "lane": lane, "reads_per_s": rps,
+            "ratio_to_default": statistics.mean(rps) / base,
+            "s": {k: statistics.mean(p.timings.get(k, 0.0) for p in profs)
+                  for k in keys},
+            "reads_by_lane": {k: v for k, v in n.items()
+                              if not k.startswith("has_del")},
+            "has_del_share": (n["has_del"] / n["has_del_seen"]
+                              if n["has_del_seen"] else None),
+            "mb_up": profs[0].transfer_bytes.get("upload", 0) / 2 ** 20,
+            "mb_down": profs[0].transfer_bytes.get("fetch", 0) / 2 ** 20,
+            "results_sha256": digests[0],
+            "repeat_bitwise": digests[0] == digests[1]})
+    return {"path": name, "tree": tree, "card": smi, "batch_reads": B,
+            "lanes": entries}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=ROOT)
@@ -140,6 +206,7 @@ def main():
     ap.add_argument("--reads-cache", default=None)
     ap.add_argument("--save", default=None)
     ap.add_argument("--against", default=None)
+    ap.add_argument("--lanes", action="store_true")
     a = ap.parse_args()
     tree = os.path.abspath(a.tree)
     sys.path.insert(0, tree)
@@ -164,6 +231,19 @@ def main():
             against = {ln["path"]: ln for ln in json.load(f)}
     lines = []
     for name in a.paths.split(","):
+        if a.lanes:
+            line = time_lanes(cs, name, a.batches, a.reads_cache, smi,
+                              os.path.relpath(tree, ROOT))
+            if name in against:
+                want = {e["lane"]: e["results_sha256"]
+                        for e in against[name].get("lanes", [])}
+                for e in line["lanes"]:
+                    if e["lane"] in want:
+                        e["bitwise_against"] = (e["results_sha256"] ==
+                                                want[e["lane"]])
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+            continue
         line = time_path(cs, name, a.batches, a.reads_cache, smi,
                          os.path.relpath(tree, ROOT))
         if name in against:

@@ -302,16 +302,42 @@ def masked_median_sorted(vals, n_valid):
     return torch.where(n > 0, med, 0.0)
 
 
-def theil_sen_device(ev, mod, n_pts, max_slope: float = 1000.0, tri=None):
+def fused_residuals(mod, slope, ev):
+    """float32 ``mod - slope[:, None] * ev`` rounded once, as a fused
+    multiply-add rounds it: the product is exact in float64, the
+    difference is held exactly as its float64 sum and that sum's error
+    (Knuth's two-sum), and a sum that lies halfway between two float32
+    values rounds by the sign of the error; elsewhere the float64 sum
+    rounds to the float32 value the exact difference rounds to."""
+    a = mod.double()
+    b = -(slope.double()[:, None] * ev.double())
+    d = a + b
+    bb = d - a
+    err = (a - (d - bb)) + (b - bb)
+    f = d.float()
+    r = d - f.double()
+    nb = torch.nextafter(f, torch.where(r > 0, float("inf"),
+                                        float("-inf")).float())
+    tie = (r != 0) & (2 * r == nb.double() - f.double())
+    return torch.where(tie & (err * r > 0), nb, f)
+
+
+def theil_sen_device(ev, mod, n_pts, max_slope: float = 1000.0, tri=None,
+                     fused: bool = False):
     """Batched Theil-Sen fit: (slopes, intercepts) with slope = median
     pairwise slope and intercept = median(mod - slope * ev).  float32 goes
-    through the count kernel; float64 through the dual selection."""
+    through the count kernel; float64 through the dual selection.
+    ``fused``: float32 residuals rounded once (:func:`fused_residuals`),
+    as the JAX package's jitted device fit computes them."""
     if ev.dtype == torch.float32:
         slope = pairwise_slope_median_count(ev, mod, n_pts, max_slope,
                                             tri=tri)
     else:
         slope = pairwise_slope_median(ev, mod, n_pts, max_slope)
-    return slope, masked_median_sorted(mod - slope[:, None] * ev, n_pts)
+    resid = (fused_residuals(mod, slope, ev)
+             if fused and ev.dtype == torch.float32
+             else mod - slope[:, None] * ev)
+    return slope, masked_median_sorted(resid, n_pts)
 
 
 def theil_sen_host(ev: np.ndarray, mod: np.ndarray, max_slope=1000.0):

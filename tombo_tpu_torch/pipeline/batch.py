@@ -20,7 +20,8 @@ JAX package's stage order:
 Host-lane reads (short reads routed to the static band, deletion windows
 beyond the device caps) finish in batched calls of the host library
 (``native.py``: ``finalize_batch`` at float32; ``del_fix_batch`` and
-``theil_sen_batch`` at float64).  The PyTorch-side parts are plain
+``theil_sen_batch`` at float64, and at float32 in the Python host lane
+of :class:`FinalizeLanes`).  The PyTorch-side parts are plain
 tensor code; the kernels are ``ops/banded_dp.py``'s (fused and chunked DP)
 and ``ops/rescale.py``'s ``count_le``.  On a CPU device every kernel
 wrapper runs its plain version.  A batch splits into signal-length groups
@@ -49,6 +50,10 @@ segment tables come down as uint8 deltas (a row with a longer segment
 again in full); the host fetches a read's changepoints only for the
 static band; and each stage's per-read scalars come down as one stacked
 float32 array on the float32 lane.
+
+``lanes=`` (a :class:`FinalizeLanes`) picks where the float32 lane trims
+the traceback, fixes deletions and fits: the JAX package's alternative
+lanes of its batched finalize, the defaults its defaults.
 
 ``profile=`` (a :class:`StageProfile`) records each stage's wall seconds,
 the host's waits for device results and the bytes that cross between
@@ -95,6 +100,50 @@ _MIN_GROUP = 24         # don't cut groups smaller than this
 # (the reference errors out above MAX_RAW_CPTS=200 events)
 _DELFIX_NB_CAP = 32
 _DELFIX_T_CAP = 512
+# reads a block of the Python host lane's device Theil-Sen fit
+_TS_BLOCK = 64
+
+
+@dataclass(frozen=True)
+class FinalizeLanes:
+    """The lanes of the batched finalize, one field a switch of the JAX
+    package's batched lane; the defaults are its defaults.  The float64
+    lane heeds ``device_finalize`` alone, as the JAX float64 lane does.
+
+    ``device_finalize``: the traceback trim, raw coordinates and deletion
+    flag on the device (``_stage_finalize``).  False: the traceback and
+    its reads' changepoints come down and the host trims it
+    (``_trim_traceback``, ``get_rel_raw_coords``), as the JAX
+    ``_dp_and_finalize``'s host branch; no device deletion fix or fit
+    follows, and every read finishes on a host lane.
+
+    ``device_delfix``: the deletion fix, then the fit on the fixed table,
+    on the device (``_delfix_and_fit``).  False: the fit rides the
+    adaptive dispatch on the unfixed table (``_stage_fit``, the JAX
+    ``_dp_and_finalize``'s ``use_dev_fit``), serves the reads without a
+    deletion, and is skipped while the deletion rate says most of it would
+    be thrown away (``_fit_mostly_wasted``); reads with a deletion finish
+    on a host lane.
+
+    ``device_fit``: None gates that fit by the deletion rate; True runs it
+    without the gate (where ``device_delfix`` is False); False turns off
+    the device fit and the device deletion fix together.
+
+    ``native_finalize``: host-lane reads go through the host library's
+    ``finalize_batch`` (``_finalize_native``).  False: the Python host lane
+    (``_finalize_host``, the JAX ``_finalize``'s Python passes): float64
+    normalization, one ``del_fix_batch``, event means, one float32
+    ``theil_sen_batch``.
+
+    ``device_theil_sen``: the Python host lane's fit runs on the device in
+    blocks of ``_TS_BLOCK`` reads through the count kernel
+    (``_theil_sen_device_blocks``) where it has 32 reads or more on one
+    device."""
+    device_finalize: bool = True
+    device_delfix: bool = True
+    device_fit: Optional[bool] = None
+    native_finalize: bool = True
+    device_theil_sen: bool = False
 
 
 class StageProfile:
@@ -794,6 +843,50 @@ def _ts_sample_idx(n: int, max_n: int) -> np.ndarray:
     return out
 
 
+def _theil_sen_device_blocks(ev, mod, n_pts, device,
+                             profile: Optional[StageProfile] = None):
+    """Theil-Sen fits of (B, N) host points on ``device`` in blocks of
+    ``_TS_BLOCK`` reads at float32 (the JAX package's
+    ``_theil_sen_device_blocks``): the reads padded to a multiple of the
+    block with empty rows, every block queued (``rescale.theil_sen_device``,
+    the count kernel on a card) before one copy of every slope and
+    intercept comes down; the intercepts' residuals are rounded once, as
+    the JAX lane's compiled fit rounds them.  Returns float64 (slopes,
+    intercepts) of the B reads.  A ``profile`` counts the bytes each way;
+    as in the JAX lane, no key times the blocks."""
+    B, N = ev.shape
+    Bp = _round_up(B, _TS_BLOCK)
+    evp = np.zeros((Bp, N), np.float32)
+    modp = np.zeros((Bp, N), np.float32)
+    npts = np.zeros(Bp, np.int32)
+    evp[:B], modp[:B], npts[:B] = ev, mod, n_pts
+    if profile is not None:
+        profile.add_bytes("upload", evp.nbytes + modp.nbytes + npts.nbytes)
+    ev_j, mod_j = (torch.as_tensor(a).to(device) for a in (evp, modp))
+    npts_j = torch.as_tensor(npts).to(device).long()
+    tri = rescale.tri_indices(N, device)
+    fits = [torch.stack(rescale.theil_sen_device(
+        ev_j[b0:b0 + _TS_BLOCK], mod_j[b0:b0 + _TS_BLOCK],
+        npts_j[b0:b0 + _TS_BLOCK], tri=tri, fused=True))
+        for b0 in range(0, Bp, _TS_BLOCK)]
+    out = torch.cat(fits, 1).cpu().numpy()
+    if profile is not None:
+        profile.add_bytes("fetch", out.nbytes)
+    out = out.astype(np.float64)
+    return out[0, :B], out[1, :B]
+
+
+def _dp_failed(s: _ReadState, band_err, bound_err) -> bool:
+    """Set the read's error where the adaptive DP flagged it; True if it
+    did."""
+    if band_err:
+        s.error = ("Adaptive signal to sequence alignment extended beyond "
+                   "raw signal")
+    elif bound_err:
+        s.error = "Read event to sequence alignment extends beyond bandwidth"
+    return bool(band_err or bound_err)
+
+
 # --------------------------------------------------------------- driver
 class BatchedResquiggler:
     """Drive batches of mapped DNA or RNA reads (raw signal adjusted by
@@ -807,14 +900,16 @@ class BatchedResquiggler:
     (per-read median shift; reference: tombo/tombo_stats.py:505-509);
     ``skip_seq_scaling`` skips the sequence-fitted rescaling (reference:
     tombo/resquiggle.py:1177).  ``profile``: a :class:`StageProfile`
-    that every batch adds its stages to (None: nothing is timed)."""
+    that every batch adds its stages to (None: nothing is timed).
+    ``lanes``: the finalize lanes (:class:`FinalizeLanes`)."""
 
     def __init__(self, std_ref, rsqgl_params: ResquiggleParams,
                  seq_samp_type: SeqSampleType,
                  outlier_thresh: Optional[float] = config.OUTLIER_THRESH,
                  dtype=None, device: DeviceLike = None, mesh=None,
                  const_scale=None, skip_seq_scaling: bool = False,
-                 profile: Optional[StageProfile] = None):
+                 profile: Optional[StageProfile] = None,
+                 lanes: FinalizeLanes = FinalizeLanes()):
         if seq_samp_type.name not in (config.DNA_SAMP_TYPE,
                                       config.RNA_SAMP_TYPE):
             raise ValueError("unknown sample type %r" % seq_samp_type.name)
@@ -840,10 +935,45 @@ class BatchedResquiggler:
             bandwidth=config.load_resquiggle_parameters(
                 seq_samp_type.name, use_save_bandwidth=True).bandwidth)
         self.profile = profile
+        self.lanes = lanes
         # set while resquiggle_batches writes a trace
         self._tracing = False
         # the device k-mer table of each mesh device (_levels_tab)
         self._level_tabs = {}
+        # reads seen by the device finalize, and those with a deletion:
+        # the gate of the fit on the adaptive dispatch
+        self._del_seen = 0
+        self._del_total = 0
+
+    # ------------------------------------------------------- finalize lanes
+    def _fit_mostly_wasted(self) -> bool:
+        """True once the reads seen say most of a fit on the adaptive
+        dispatch would be thrown away (a read with a deletion is fit again
+        on a host lane after its deletion fix); False until 64 reads have
+        been seen, so the first batches run the fit."""
+        return self._del_total >= 64 and self._del_seen * 2 > self._del_total
+
+    def _note_del_rate(self, has_del: np.ndarray):
+        """Count a group's reads and those with a deletion; past 2^16
+        reads both counts halve, so the rate follows recent batches."""
+        self._del_total += int(has_del.shape[0])
+        self._del_seen += int(np.count_nonzero(has_del))
+        if self._del_total > 1 << 16:
+            self._del_total //= 2
+            self._del_seen //= 2
+
+    def _fit_lanes(self) -> Tuple[bool, bool]:
+        """(the deletion fix and fit on the device, the fit on the adaptive
+        dispatch) for the next group: the JAX package's ``use_dev_delfix``
+        and ``use_dev_fit``.  The float64 lane keeps its own: reads
+        without a deletion fit on the device, the others on the host."""
+        lanes = self.lanes
+        if self.dtype == torch.float64:
+            return True, False
+        delfix = lanes.device_delfix and lanes.device_fit is not False
+        fit = (not delfix and lanes.device_fit is not False and
+               (lanes.device_fit or not self._fit_mostly_wasted()))
+        return delfix, fit
 
     # ------------------------------------------------------------ helpers
     def _up(self, arr, device=None) -> torch.Tensor:
@@ -1387,35 +1517,101 @@ class BatchedResquiggler:
         sizes = [len(r) for _, r in shards]
         by = [dict(zip([d for d, _ in shards], a.split(sizes)))
               for a in (segs_j, band_err, bound_err)]
-        fin = {}
+        if not self.lanes.device_finalize:
+            self._host_trim(shards, *by)
+            return
+        delfix, fit = self._fit_lanes()
+        fin, fits = {}, {}
         for d, reads in shards:
             rows, clips, n_events, seq_lens = dev_in[d][:4]
             fin[d] = _stage_finalize(
                 ctx[d]["cpts"], rows, clips, by[0][d].to(self.mesh[d]),
                 seq_lens, n_events, L_max)
+        if fit:
+            # the fit on the unfixed tables in the same pass; its scalars
+            # come down with the stage's own
+            for d, (samp, tri) in self._fit_points(shards, L_max).items():
+                rows, _, _, seq_lens, rm_j, rs_j = dev_in[d]
+                fits[d] = _stage_fit(
+                    ctx[d]["norm"], rows, fin[d][1], fin[d][0], rm_j, rs_j,
+                    seq_lens, samp, tri, float(config.SHIFT_CHANGE_THRESH),
+                    float(config.SCALE_CHANGE_THRESH),
+                    not self.skip_seq_scaling)[:5]
+        has_del_all = []
         for d, reads in shards:
             seq_segs_j, rsrtr, has_del, d8_j, over_j = fin[d]
             d8, = self._np(d8_j)
-            band, bound, over, rsrtr, has_del = self._np_scalars(
+            band, bound, over, rsrtr, has_del, *f = self._np_scalars(
                 reads, by[1][d].to(self.mesh[d]), by[2][d].to(self.mesh[d]),
-                over_j, rsrtr, has_del)
+                over_j, rsrtr, has_del, *fits.get(d, ()))
+            has_del_all.append(has_del)
             tables = self._seg_tables(
                 d8, (over != 0) & (band == 0) & (bound == 0), seq_segs_j)
             for i, s in enumerate(reads):
-                if band[i]:
-                    s.error = ("Adaptive signal to sequence alignment "
-                               "extended beyond raw signal")
-                    continue
-                if bound[i]:
-                    s.error = ("Read event to sequence alignment extends "
-                               "beyond bandwidth")
+                if _dp_failed(s, band[i], bound[i]):
                     continue
                 s.dp_segs = tables[i, :s.ref_means.shape[0] + 1].copy()
                 s.dp_rsrtr = int(rsrtr[i])
                 s.has_del = bool(has_del[i])
-        self._delfix_and_fit(shards, ctx, {
-            d: (rows, fin[d][1], fin[d][0], rm_j, rs_j, seq_lens)
-            for d, (rows, _, _, seq_lens, rm_j, rs_j) in dev_in.items()})
+                if f and not s.has_del:
+                    # as in the JAX lane, no device means are registered
+                    # for these reads
+                    s.dev_fit = (float(f[0][i]), float(f[1][i]),
+                                 float(f[2][i]), bool(f[3][i]),
+                                 bool(f[4][i]))
+        self._note_del_rate(np.concatenate(has_del_all))
+        if delfix:
+            self._delfix_and_fit(shards, ctx, {
+                d: (rows, fin[d][1], fin[d][0], rm_j, rs_j, seq_lens)
+                for d, (rows, _, _, seq_lens, rm_j, rs_j) in dev_in.items()})
+
+    def _host_trim(self, shards, segs_by, band_by, bound_by):
+        """The traceback finished on the host (``device_finalize`` False,
+        the JAX ``_dp_and_finalize``'s host branch): each shard's DP
+        tables and flags come down whole, then the changepoints of its
+        reads that the DP did not fail (``_fetch_cpts``), and each read's
+        traceback is trimmed to its events and mapped to raw coordinates.
+        ``has_del`` stays unknown."""
+        for d, reads in shards:
+            segs, = self._np(segs_by[d])
+            band, bound = self._np_scalars(reads, band_by[d], bound_by[d])
+            ok = [(i, s) for i, s in enumerate(reads)
+                  if not _dp_failed(s, band[i], bound[i])]
+            self._fetch_cpts([s for _, s in ok])
+            for i, s in ok:
+                tb = rsq._trim_traceback(
+                    segs[i, :s.ref_means.shape[0] + 1].astype(np.int64),
+                    events_len=s.n_ev - s.events_start_clip)
+                s.dp_segs, s.dp_rsrtr = rsq.get_rel_raw_coords(
+                    s.cpts[s.events_start_clip:], tb)
+
+    def _fit_points(self, shards, L_max: int, only=None) -> dict:
+        """(sample, pair indices) for ``_stage_fit`` of each shard (of those
+        in ``only``, if given): a read of more than
+        MAX_POINTS_FOR_THEIL_SEN bases fits on its rng(0) subsample
+        (reference: tombo/tombo_stats.py:398-401), and when any read of the
+        group does, every read fits on a sample row of that width (the
+        others' bases in order); else None and the pairs of L_max
+        points."""
+        max_n = config.MAX_POINTS_FOR_THEIL_SEN
+        sampled = any(s.ref_means.shape[0] > max_n
+                      for _, reads in shards for s in reads)
+        out = {}
+        for d, reads in shards:
+            if only is not None and d not in only:
+                continue
+            dev = self.mesh[d]
+            samp_j = None
+            if sampled:
+                samp_np = np.zeros((len(reads), max_n), np.int64)
+                for i, s in enumerate(reads):
+                    n = s.ref_means.shape[0]
+                    samp_np[i] = (_ts_sample_idx(n, max_n) if n > max_n else
+                                  np.pad(np.arange(n), (0, max_n - n)))
+                samp_j = self._t(samp_np, device=dev)
+            out[d] = (samp_j, rescale.tri_indices(
+                max_n if sampled else L_max, dev))
+        return out
 
     def _delfix_and_fit(self, shards, ctx, dev_in):
         """Deletion-fix windows planned on the host from the segment
@@ -1491,28 +1687,15 @@ class BatchedResquiggler:
             return
 
         # the group's shapes on every shard: sample points, window pads
-        max_n = config.MAX_POINTS_FOR_THEIL_SEN
         L_max = next(iter(dev_in.values()))[2].shape[1] - 1
-        sampled = any(s.ref_means.shape[0] > max_n
-                      for _, reads in shards for s in reads)
         nb_pad = max([2] + [n for v in wins.values() for n in v[2]])
         t_pad = max([2] + [n for v in wins.values() for n in v[3]])
         mhz = p.max_half_z_score
         fit_shards = {s.shard for s in fit_reads}
+        points = self._fit_points(shards, L_max, fit_shards)
         queued = {}
-        for d, reads in shards:
-            if d not in fit_shards:
-                continue
+        for d, (samp_j, tri) in points.items():
             dev = self.mesh[d]
-            samp_j = None
-            if sampled:
-                samp_np = np.zeros((len(reads), max_n), np.int64)
-                for i, s in enumerate(reads):
-                    n = s.ref_means.shape[0]
-                    samp_np[i] = (_ts_sample_idx(n, max_n) if n > max_n else
-                                  np.pad(np.arange(n), (0, max_n - n)))
-                samp_j = self._t(samp_np, device=dev)
-            tri = rescale.tri_indices(max_n if sampled else L_max, dev)
             # one inert window keeps a call without windows shape-valid
             win = wins[d] if wins[d][0] else ([0], [0], [0], [2], [0])
             rows_j, rsrtr_j, seq_segs_j, rm_j, rs_j, seq_lens_j = dev_in[d]
@@ -1667,13 +1850,19 @@ class BatchedResquiggler:
             results.append((s, dp_res, segs_l[i], norm_l[i], score, changed))
         return results
 
-    def _finalize_host_f64(self, host):
-        """The float64 host lane (the JAX package's float64 lane, bit for
-        bit): the normalized mapped slice in numpy, one
-        ``native.del_fix_batch`` call for the reads with a deletion (or
-        not known to have none), one float64 ``native.theil_sen_batch``
-        call for the fit, the score from the corrected slice's means.
-        Returns the reads' (state, dp_res, segs, norm, score, changed)."""
+    def _finalize_host(self, host):
+        """The Python host lane (the JAX package's float64 lane, and its
+        float32 lane's Python passes under ``native_finalize`` False): the
+        normalized mapped slice in float64, one ``native.del_fix_batch``
+        call for the reads with a deletion (or not known to have none),
+        event means, one ``native.theil_sen_batch`` call for the fit (at
+        float32 a float32 fit, or the device blocks of
+        :func:`_theil_sen_device_blocks` under ``device_theil_sen`` with 32
+        reads or more on one device).  The score comes from the corrected
+        slice's means at float64, from the pre-correction means corrected
+        affinely at float32, each as its JAX lane.  Returns the reads'
+        (state, dp_res, segs, norm, score, changed)."""
+        f32 = self.dtype != torch.float64
         reads = []
         for s, dp_res in host:
             norm = self._host_norm(s.raw, s.scale_values, s.dp_rsrtr,
@@ -1702,19 +1891,25 @@ class BatchedResquiggler:
         ev = np.zeros((len(reads), max_n))
         mod = np.zeros((len(reads), max_n))
         n_pts = np.zeros(len(reads), np.int64)
+        ev_pre = []
         for i, (_, dp_res, segs, norm) in enumerate(reads):
             r_ev, r_mod = ref_impl.new_means(norm, segs), dp_res.ref_means
+            ev_pre.append(r_ev)
             n = r_mod.shape[0]
             if n > max_n:
                 samp = _ts_sample_idx(n, max_n)
                 r_ev, r_mod, n = r_ev[samp], r_mod[samp], max_n
             ev[i, :n], mod[i, :n], n_pts[i] = r_ev, r_mod, n
-        with self._sub("finalize_native"):
+        if (f32 and self.lanes.device_theil_sen and len(self.mesh) == 1 and
+                len(reads) >= 32):
+            slopes, inters = _theil_sen_device_blocks(
+                ev, mod, n_pts, self.device, self.profile)
+        else:
             slopes, inters = native.theil_sen_batch(ev, mod, n_pts,
-                                                    use_f32=False)
+                                                    use_f32=f32)
         results = []
-        for (s, dp_res, segs, norm), slope, inter in zip(reads, slopes,
-                                                         inters):
+        for (s, dp_res, segs, norm), r_ev, slope, inter in zip(
+                reads, ev_pre, slopes, inters):
             if slope == 0:
                 s.error = ("Read failed sequence-based signal re-scaling "
                            "parameter estimation.")
@@ -1722,8 +1917,10 @@ class BatchedResquiggler:
             shc, scc, changed = self._apply_fit(s, float(slope),
                                                 float(inter))
             norm = (norm - shc) / scc
-            score = rsq.get_read_seg_score(ref_impl.new_means(norm, segs),
-                                           dp_res.ref_means, dp_res.ref_sds)
+            means = ((r_ev - shc) / scc if f32 else
+                     ref_impl.new_means(norm, segs))
+            score = rsq.get_read_seg_score(means, dp_res.ref_means,
+                                           dp_res.ref_sds)
             results.append((s, dp_res, segs, norm, score, changed))
         return results
 
@@ -1731,10 +1928,10 @@ class BatchedResquiggler:
     def _finalize(self, states: List[_ReadState], will_retry: bool = False):
         """Apply the device fit (scalar bookkeeping), finish every other
         read in batched calls of the host library (:meth:`_finalize_native`
-        at float32, :meth:`_finalize_host_f64` at float64) and assemble
-        results.  With ``skip_seq_scaling`` the scale values stay as
-        segmentation set them and no read asks for another scaling
-        iteration."""
+        at float32, :meth:`_finalize_host` at float64 or without
+        ``native_finalize``) and assemble results.  With
+        ``skip_seq_scaling`` the scale values stay as segmentation set
+        them and no read asks for another scaling iteration."""
         host, dev = [], []
         for s in states:
             if s.error is not None or s.result is not None:
@@ -1751,9 +1948,10 @@ class BatchedResquiggler:
 
         results = []
         if host:
-            results = (self._finalize_host_f64(host)
-                       if self.dtype == torch.float64
-                       else self._finalize_native(host))
+            results = (self._finalize_native(host)
+                       if self.dtype == torch.float32 and
+                       self.lanes.native_finalize
+                       else self._finalize_host(host))
 
         for s, dp_res, segs in dev:
             shc, scc, score, changed, fit_ok = s.dev_fit
@@ -1904,7 +2102,8 @@ class BatchedResquiggler:
                 self.std_ref, self.save_params, self.seq_samp_type,
                 self.outlier_thresh, self.dtype, mesh=self.mesh,
                 const_scale=self.const_scale,
-                skip_seq_scaling=self.skip_seq_scaling, profile=self.profile)
+                skip_seq_scaling=self.skip_seq_scaling, profile=self.profile,
+                lanes=self.lanes)
             saver._tracing = self._tracing
             retry_out = saver.resquiggle_batch(
                 [s.map_res.replace(scale_values=None) for s in retry],

@@ -41,7 +41,8 @@ from ..seq import invalid_seq
 from ..stats import levels_cache as lc
 from ..types import ReadData, ResquiggleResults, SeqSampleType, SequenceData
 from . import resquiggle as rsq
-from .batch import BatchedResquiggler, StageProfile, print_stage_timings
+from .batch import (BatchedResquiggler, FinalizeLanes, StageProfile,
+                    print_stage_timings)
 
 POOR_MATCH = ("Poor raw to expected signal matching "
               "(revert with `filter clear_filters`)")
@@ -103,6 +104,9 @@ class RunConfig:
     trace_dir: Optional[str] = None
     # append each written read to its directory's levels sidecar
     levels_sidecar: bool = True
+    # the finalize lanes of the run's resquiggler and of its save-bandwidth
+    # retry (batch.FinalizeLanes; the command line keeps the defaults)
+    lanes: FinalizeLanes = FinalizeLanes()
 
 
 @dataclass
@@ -517,7 +521,8 @@ def resquiggle_all_reads(
                 std_ref, rsqgl_params, seq_samp_type, rc.outlier_thresh,
                 dtype=rc.dtype, device=rc.device, mesh=rc.mesh,
                 const_scale=const_scale,
-                skip_seq_scaling=rc.skip_seq_rescaling, profile=profile)
+                skip_seq_scaling=rc.skip_seq_rescaling, profile=profile,
+                lanes=rc.lanes)
         batch_size = rc.batch_size * len(resquiggler.mesh)
         if multi_host:
             # this host's disjoint shard of the files (reference analog:
