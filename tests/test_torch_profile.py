@@ -1,9 +1,11 @@
 """The re-squiggle stage profiler of the port (``pipeline/batch.py``:
-``StageProfile``, ``print_stage_timings``, ``trace_ctx``), through the
-runner and the command line, on the CPU, against the JAX package's
-profiler (``STAGE_TIMINGS``, ``TRANSFER_BYTES``, ``print_stage_timings``
-under its environment switch) on tests/test_batch_parity.py's six reads of
-650 bases.
+``StageProfile``, ``print_stage_timings``, ``print_counters``,
+``trace_ctx``), through the runner and the command line, on the CPU,
+against the JAX package's profiler (``STAGE_TIMINGS``, ``TRANSFER_BYTES``,
+``print_stage_timings`` under its environment switch) on
+tests/test_batch_parity.py's six reads of 650 bases.  The span log behind
+the timings: its tree, its clock against the exported trace's, and the
+counters of the work done, retried and routed.
 
 The float32 key set equals the JAX package's, ``finalize_native`` (the
 host library's batched finalize) included.  The float64 set differs by
@@ -147,13 +149,14 @@ def _same_results(a, b):
 
 
 def test_profile_leaves_results_bitwise(inputs, port_profiles, monkeypatch):
-    """(b) Without a profile nothing is timed or traced (the profile's
-    methods and ``record_function`` would raise), and the results are
-    bitwise those of the profiled run, at float64."""
+    """(b) Without a profile nothing is timed, counted or traced (the
+    profile's methods and ``record_function`` would raise), and the
+    results are bitwise those of the profiled run, at float64."""
     def refuse(*a, **kw):
         raise AssertionError("timed without a profile")
 
-    for name in ("stage", "sub", "fetch", "add_time", "add_bytes"):
+    for name in ("begin", "end", "count", "add_time", "add_bytes",
+                 "add_rows"):
         monkeypatch.setattr(t_batch.StageProfile, name, refuse)
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     plain = _port(inputs[1], "float64").resquiggle_batch(inputs[1][2])
@@ -188,23 +191,12 @@ def test_transfer_bytes(inputs, port_profiles, dtype, itemsize,
     assert t["segment_fetch"] <= t["segment"]
 
 
-class _CountingProfile(t_batch.StageProfile):
-    """A StageProfile that counts the stages entered."""
-
-    def __init__(self):
-        super().__init__()
-        self.entered = {}
-
-    def stage(self, name):
-        self.entered[name] = self.entered.get(name, 0) + 1
-        return super().stage(name)
-
-
 def test_save_bandwidth_retry_adds_to_the_profile(monkeypatch):
     """(d) The two stalled reads of tests/test_torch_retry.py fail the
     300-event band and go through a save-bandwidth resquiggler, whose
-    stages land in the caller's profile: every adaptive stage of either
-    resquiggler is entered in it."""
+    spans land in the caller's profile under a ``save_bw_retry`` span:
+    every adaptive stage of either resquiggler is a span of it; the reads
+    it retries are counted as such, the two reads once as the batch's."""
     model, params, sst, maps = _retry_reads()
     t_params, t_maps = _convert(params, maps[2:])
     t_model = convert.kmer_model(model.means, model.sds, model.central_pos,
@@ -218,15 +210,160 @@ def test_save_bandwidth_retry_adds_to_the_profile(monkeypatch):
 
     monkeypatch.setattr(t_batch.BatchedResquiggler, "_adaptive_batch",
                         adaptive_rec)
-    prof = _CountingProfile()
+    sent = []
+    reads = t_batch.BatchedResquiggler._resquiggle_reads
+
+    def reads_rec(self, map_results, *a):
+        sent.append((self.params.bandwidth, len(map_results)))
+        return reads(self, map_results, *a)
+
+    monkeypatch.setattr(t_batch.BatchedResquiggler, "_resquiggle_reads",
+                        reads_rec)
+    prof = t_batch.StageProfile()
     out = _port((t_model, t_params, t_maps), "float32",
                 profile=prof).resquiggle_batch(t_maps)
     save_bw = t_config.load_resquiggle_parameters(
         "DNA", use_save_bandwidth=True).bandwidth
     assert {bw for bw, _ in calls} == {params.bandwidth, save_bw}
     assert all(p is prof for _, p in calls)
-    assert prof.entered["adaptive"] == len(calls)
+    adaptive = [s for s in prof.spans if s.name == "adaptive"]
+    assert len(adaptive) == len(calls)
+    retry = [i for i, s in enumerate(prof.spans) if s.name == "save_bw_retry"]
+    assert len(retry) == 1 and prof.spans[retry[0]].parent == 0
+    assert any(_ancestors(prof.spans, s) & set(retry) for s in adaptive)
+    c = prof.counters
+    assert [n for bw, n in sent] == [2, c["save_bw_retry_reads"]]
+    assert sent[1][0] == save_bw
+    assert (c["batches"], c["reads"]) == (1, 2)
     assert all(res is not None for res, _ in out)
+
+
+def _ancestors(spans, span):
+    """The indices of the spans open around ``span``."""
+    out = set()
+    while span.parent >= 0:
+        out.add(span.parent)
+        span = spans[span.parent]
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_span_tree(port_profiles, dtype):
+    """(i) The profiled batch's span log: one ``batch`` root; every other
+    span inside its parent in time and in the parent's pass; the passes
+    numbered from 0, each stage a child of one, each ``_fetch`` span
+    inside its stage; ``timings`` the log's sums over its keys."""
+    prof = port_profiles[dtype][0]
+    spans = prof.spans
+    assert [s.name for s in spans if s.parent < 0] == ["batch"]
+    passes = [s.pass_no for s in spans if s.name == "pass"]
+    assert passes == list(range(len(passes))) and len(passes) >= 2
+    for i, s in enumerate(spans):
+        assert 0 < s.start_ns <= s.end_ns and s.batch == 0
+        if s.parent < 0:
+            continue
+        p = spans[s.parent]
+        assert s.parent < i
+        assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+        assert p.name == "batch" or s.pass_no == p.pass_no
+        if s.name in STAGES:
+            assert p.name == "pass", s.name
+        if s.name.endswith("_fetch"):
+            stage = s.name[:-len("_fetch")]
+            assert any(spans[a].name == stage
+                       for a in _ancestors(spans, s)), s.name
+    sums = {}
+    for s in spans:
+        sums[s.name] = sums.get(s.name, 0.0) + (s.end_ns - s.start_ns) * 1e-9
+    assert set(prof.timings) == {k for k in sums if k in t_batch._TIMED or
+                                 k.endswith("_fetch")}
+    for k, v in prof.timings.items():
+        assert v == pytest.approx(sums[k], rel=1e-9), k
+
+
+@pytest.fixture(scope="module")
+def dwell14():
+    """tests/test_torch_lanes.py's DNA batch: 6 reads of 500 bases at a
+    mean dwell of 14 samples, two of them with a zero-length segment in
+    the first pass."""
+    model, params, _, maps = _prep_reads(6, read_len=500, mean_dwell=14.0)
+    t_model = convert.kmer_model(model.means, model.sds, model.central_pos,
+                                 model.name, "DNA")
+    return (t_model,) + _convert(params, maps)
+
+
+@pytest.mark.parametrize("cap,reason", [("_DELFIX_NB_CAP", "delfix_nb_cap"),
+                                        ("_DELFIX_T_CAP", "delfix_t_cap")])
+def test_counters(dwell14, cap, reason, monkeypatch):
+    """(j) With a device cap of the deletion fix at 0, the two reads with
+    a deletion go to the host lane for that cap: the counters of the work
+    done (two passes, the second the rescaling of one read), retried
+    (none) and routed (each read that reaches finalize on one lane, each
+    copy down)."""
+    live = []
+    run_pass = t_batch.BatchedResquiggler._run_pass
+
+    def run_pass_rec(self, states, *a, **kw):
+        live.append(sum(s.error is None for s in states))
+        return run_pass(self, states, *a, **kw)
+
+    monkeypatch.setattr(t_batch.BatchedResquiggler, "_run_pass",
+                        run_pass_rec)
+    monkeypatch.setattr(t_batch, cap, 0)
+    prof = t_batch.StageProfile()
+    out = _port(dwell14, "float32", profile=prof).resquiggle_batch(
+        dwell14[2])
+    c = prof.counters
+    assert all(res is not None for res, _ in out)
+    assert live == [6, 1]
+    assert (c["batches"], c["reads"], c["groups"]) == (1, 6, 2)
+    assert c["read_passes"] == 7
+    assert c["finalize_host_reads"] == c["host_lane." + reason] == 2
+    assert c["finalize_device_reads"] == 5
+    assert [k for k in c if k.startswith("host_lane.")] == [
+        "host_lane." + reason]
+    assert not {"start_retry_reads", "save_bw_retry_reads"} & set(c)
+    fetch_spans = sum(s.name.endswith("_fetch") for s in prof.spans)
+    assert c["fetches"] >= fetch_spans > 0
+
+
+def test_spans_lie_inside_their_trace_ranges(inputs, tmp_path):
+    """(k) With a profile and a trace both, every span of the log lies
+    inside the trace's range of its name and rank, on the trace's clock
+    (an event's ``ts``, µs, plus the file's ``baseTimeNanoseconds``),
+    within 1 ms; and every range has its span."""
+    prof = t_batch.StageProfile()
+    br = _port(inputs[1], "float32", profile=prof)
+    d = str(tmp_path / "trace")
+    list(br.resquiggle_batches([inputs[1][2][:2]], max_scaling_iters=1,
+                               trace_dir=d))
+    (fn,) = _trace_files(d)
+    with open(fn) as f:
+        trace = json.load(f)
+    base = int(trace["baseTimeNanoseconds"])
+    ranges = {}
+    for e in sorted((e for e in trace["traceEvents"]
+                     if e.get("cat") == "user_annotation"),
+                    key=lambda e: e["ts"]):
+        ranges.setdefault(e["name"], []).append(
+            (base + round(e["ts"] * 1e3),
+             base + round((e["ts"] + e["dur"]) * 1e3)))
+    seen = {}
+    for s in prof.spans:
+        k = seen[s.name] = seen.get(s.name, 0) + 1
+        lo, hi = ranges[s.name][k - 1]
+        assert lo - 10 ** 6 <= s.start_ns <= s.end_ns <= hi + 10 ** 6, s.name
+    assert {k: len(v) for k, v in ranges.items()} == seen
+    assert STAGES | {"batch", "pass", "segment_fetch"} <= set(seen)
+
+
+def test_span_without_profile_or_trace_is_the_shared_null(inputs):
+    """(l) With no profile and no trace, ``_span`` returns one shared null
+    context; with a profile, a span."""
+    br = _port(inputs[1], "float32")
+    assert br._span("segment") is br._span("batch") is t_batch._NULL_SPAN
+    br.profile = t_batch.StageProfile()
+    assert isinstance(br._span("segment"), t_batch._Span)
 
 
 def _tie_profile():
@@ -273,10 +410,17 @@ def _stage_lines(err):
             if line.startswith("  ") and line.endswith("%)")}
 
 
+def _counter_lines(err):
+    """The counters block after the table: name -> count."""
+    lines = err.splitlines()
+    block = lines[lines.index("counters") + 1:]
+    return {line.split()[0]: int(line.split()[1]) for line in block}
+
+
 def test_runner_profile(capsys):
     """(f) ``RunConfig(profile=True)``: the run's StageProfile holds the
-    stages and ``io_map``, the summary keeps it, the table goes to
-    stderr and nothing to stdout."""
+    stages and ``io_map``, the summary keeps it, the table and then the
+    counters go to stderr and nothing to stdout."""
     model, fasta, reads = _memory_reads(4)
     params = t_config.load_resquiggle_parameters("DNA")
     rc = t_runner.RunConfig(profile=True, device="cpu", batch_size=4,
@@ -292,6 +436,9 @@ def test_runner_profile(capsys):
     assert set(summary.transfer_bytes) == {"upload", "fetch"}
     assert {"io_map", "batch_loop", "writeback", "run"} <= \
         set(summary.timings)
+    assert _counter_lines(cap.err) == summary.counters
+    assert summary.counters["reads"] == len(reads)
+    assert summary.counters["batches"] == 1
 
 
 def _trace_files(d):
@@ -315,7 +462,7 @@ def test_trace_dir_writes_the_stage_ranges(inputs, tmp_path):
                                 trace_dir=d)
     traced = next(gen)
     gen.close()
-    assert not br._tracing
+    assert br._span("segment") is t_batch._NULL_SPAN
     (fn,) = _trace_files(d)
     assert STAGES <= _annotations(fn)
     _same_results(traced, br.resquiggle_batch(t_maps, max_scaling_iters=1))
@@ -353,6 +500,7 @@ def test_command_line_profile_and_trace(tmp_path, capsys):
     assert STAGES | {"io_map", "writeback"} <= _stage_lines(err)
     assert [line.split()[0] for line in err.splitlines()
             if line.endswith(" MB")] == ["fetch", "upload"]
+    assert _counter_lines(err)["reads"] == 3
     (fn,) = _trace_files(trace)
     assert STAGES <= _annotations(fn)
     got, want = _corrected(fast5_dir), _corrected(plain_dir)

@@ -55,14 +55,17 @@ float32 array on the float32 lane.
 the traceback, fixes deletions and fits: the JAX package's alternative
 lanes of its batched finalize, the defaults its defaults.
 
-``profile=`` (a :class:`StageProfile`) records each stage's wall seconds,
-the host's waits for device results and the bytes that cross between
-host and device; :func:`print_stage_timings` prints them.
-``resquiggle_batches(..., trace_dir=)`` writes a torch.profiler trace in
-which each stage is a named range (:func:`trace_ctx`).
+``profile=`` (a :class:`StageProfile`) records a span for every stage,
+sub-stage and wait for device results, each batch and each scaling
+pass, the bytes that cross between host and device and counts of the
+work done, retried and routed; :func:`print_stage_timings` and
+:func:`print_counters` print them.  ``resquiggle_batches(...,
+trace_dir=)`` writes a torch.profiler trace (:func:`trace_ctx`) in which
+the same spans are named ranges.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import os
@@ -146,37 +149,87 @@ class FinalizeLanes:
     device_theil_sen: bool = False
 
 
+# the six stages; a wait for device results inside one is a span named
+# ``<stage>_fetch``
+STAGES = ("segment", "plan", "start", "adaptive", "static", "finalize")
+# the spans whose seconds ``StageProfile.timings`` sums (the JAX package's
+# keys), with every ``<stage>_fetch``
+_TIMED = frozenset(STAGES + ("seg_pack", "seg_upload", "delfix_plan",
+                             "delfix_apply", "finalize_native"))
+
+
+class Span:
+    """One record of :attr:`StageProfile.spans`.  ``parent``: the index in
+    the log of the span open around it in its thread (-1: none);
+    ``batch``: the sequence number of its ``batch`` span in the profile;
+    ``pass_no``: the scaling pass of that batch (0 the first; a
+    save-bandwidth retry's passes go on counting); -1 outside either.
+    ``start_ns`` and ``end_ns``: ``time.time_ns()`` at its start and end
+    (0 while open), the clock of a torch.profiler Chrome trace: an
+    event's ``ts`` (µs) plus the file's ``baseTimeNanoseconds``."""
+    __slots__ = ("name", "parent", "batch", "pass_no", "start_ns", "end_ns")
+
+    def __init__(self, name: str, parent: int, batch: int, pass_no: int):
+        self.name, self.parent = name, parent
+        self.batch, self.pass_no = batch, pass_no
+        self.start_ns = self.end_ns = 0
+
+
+class _Thread(threading.local):
+    """A thread's open spans (indices in the log) and its batch and
+    pass."""
+
+    def __init__(self):
+        self.stack = []
+        self.batch = -1
+        self.pass_no = -1
+
+
 class StageProfile:
     """Where a re-squiggle's wall time went (the JAX package's
     ``STAGE_TIMINGS`` and ``TRANSFER_BYTES``, as one object a caller
-    passes).
+    passes), and what work it did.
 
-    ``timings``: seconds by name.  The stages are ``segment``, ``plan``,
-    ``start``, ``adaptive``, ``static`` and ``finalize``; the sub-stages
-    ``seg_pack`` and ``seg_upload`` (the raw matrix packed on the host and
-    sent to the device) and ``delfix_plan`` and ``delfix_apply`` (the
-    deletion-fix windows planned and applied on the host); and
-    ``<stage>_fetch``, the time the host waited in a stage's device to
-    host copies.  A sub-stage's or a fetch's seconds also count in its
-    stage.  A run adds ``io_map`` and ``writeback`` (``pipeline/runner.py``).
+    ``spans``: the span log (:class:`Span`), one record for each span the
+    batched lane opened: every ``batch`` and each scaling ``pass`` in it,
+    the stages (``STAGES``), their sub-stages and phases, and ``<stage>_
+    fetch``, a wait in a stage's device to host copies.  Spans nest, and
+    a child's time counts in its parent's.  ``timings``: seconds by name,
+    the sums of the span log over the JAX package's keys: the stages; the
+    sub-stages ``seg_pack`` and ``seg_upload`` (the raw matrix packed on
+    the host and sent to the device), ``delfix_plan`` and
+    ``delfix_apply`` (the deletion-fix windows planned and applied on the
+    host) and ``finalize_native`` (the host library's finalize); and
+    every ``<stage>_fetch``.  The other spans are in the log alone.  A
+    run adds ``io_map`` and ``writeback`` (``pipeline/runner.py``).
     ``transfer_bytes``: ``upload`` (host to device) and ``fetch`` (device
     to host), counted on a CPU device too.  ``row_fetches``: rows the
     host copied from a matrix that otherwise stays on the device, by
     name: ``cpts`` (a static-band read's changepoints) and ``seg_over``
     (a segment table with a segment longer than the uint8 wire holds).
+    ``counters``: counts by name (:func:`print_counters`): the work done
+    (``batches``, ``reads`` of the batches asked for, ``read_passes``,
+    every read entering a scaling pass, ``groups``), retried
+    (``start_retry_reads``, ``save_bw_retry_reads``) and routed
+    (``finalize_device_reads``, ``finalize_host_reads``,
+    ``host_lane.<reason>`` for each read a host lane finishes, and
+    ``fetches``, the device to host copies).
 
     Nothing is synchronised for the profile: device work surfaces where
-    the host waits for it, in a ``_fetch`` key, or in the stage whose
+    the host waits for it, in a ``_fetch`` span, or in the span whose
     ``.item()``, boolean indexing or ``nonzero`` on a card tensor waits
-    for it, which no ``_fetch`` key sees.  Threads may add to one profile
-    at once; each thread has its own current stage."""
+    for it, which no ``_fetch`` span sees.  Threads may add to one
+    profile at once; each thread's spans nest on their own."""
 
     def __init__(self):
         self.timings = {}
         self.transfer_bytes = {}
         self.row_fetches = {}
+        self.counters = {}
+        self.spans: List[Span] = []
+        self._batches = 0
         self._lock = threading.Lock()
-        self._local = threading.local()
+        self._local = _Thread()
 
     def add_time(self, name: str, seconds: float):
         with self._lock:
@@ -191,36 +244,71 @@ class StageProfile:
         with self._lock:
             self.row_fetches[name] = self.row_fetches.get(name, 0) + int(n)
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        """Time a stage; fetches inside it go to ``<name>_fetch``."""
-        prev = getattr(self._local, "stage", None)
-        self._local.stage = name
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._local.stage = prev
-            self.add_time(name, time.perf_counter() - t0)
+    def count(self, name: str, n: int = 1):
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0) + int(n)
 
-    @contextlib.contextmanager
-    def sub(self, name: str):
-        """Time a sub-stage of the current stage."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.add_time(name, time.perf_counter() - t0)
+    def begin(self, name: str) -> Span:
+        """Open a span in this thread, inside its open span; a ``batch``
+        span starts a batch, a ``pass`` span the batch's next pass."""
+        loc = self._local
+        with self._lock:
+            if name == "batch":
+                loc.batch, loc.pass_no = self._batches, -1
+                self._batches += 1
+            elif name == "pass":
+                loc.pass_no += 1
+            span = Span(name, loc.stack[-1] if loc.stack else -1, loc.batch,
+                        loc.pass_no)
+            loc.stack.append(len(self.spans))
+            self.spans.append(span)
+        span.start_ns = time.time_ns()
+        return span
 
-    def fetch(self, ts) -> list:
-        """``ts`` copied to host numpy arrays, the wait charged to the
-        current stage's ``_fetch`` key and the bytes to ``fetch``."""
-        t0 = time.perf_counter()
-        out = [t.cpu().numpy() for t in ts]
-        stage = getattr(self._local, "stage", None) or "other"
-        self.add_time(stage + "_fetch", time.perf_counter() - t0)
-        self.add_bytes("fetch", sum(a.nbytes for a in out))
-        return out
+    def end(self, span: Span):
+        """Close ``span``, this thread's innermost open span."""
+        span.end_ns = time.time_ns()
+        self._local.stack.pop()
+        if span.name in _TIMED or span.name.endswith("_fetch"):
+            self.add_time(span.name, (span.end_ns - span.start_ns) * 1e-9)
+
+
+class _Span:
+    """One span of a :class:`BatchedResquiggler` (its :meth:`_span`): a
+    ``record_function`` range while a torch.profiler session records (as
+    ``resquiggle_batches(trace_dir=)`` runs one), and a span of the
+    resquiggler's profile where it has one.  The profile's span lies
+    inside the range.  A stage's span makes it the stage whose
+    ``_fetch`` spans its copies open."""
+    __slots__ = ("owner", "name", "profile", "range", "span", "prev")
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name = owner, name
+
+    def __enter__(self):
+        self.range = self.span = None
+        if torch.autograd._profiler_enabled():
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        self.prev = self.owner._stage
+        if self.name in STAGES:
+            self.owner._stage = self.name
+        self.profile = self.owner.profile
+        if self.profile is not None:
+            self.span = self.profile.begin(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        if self.span is not None:
+            self.profile.end(self.span)
+        self.owner._stage = self.prev
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+# what _span returns with no profile and no trace: nothing runs
+_NULL_SPAN = contextlib.nullcontext()
 
 
 def print_stage_timings(profile: StageProfile, out=None):
@@ -237,6 +325,18 @@ def print_stage_timings(profile: StageProfile, out=None):
             name, t, 100 * t / total if total else 0))
     for name, b in sorted(transfer.items()):
         out.write("  %-18s %8.2f MB\n" % (name, b / 2 ** 20))
+
+
+def print_counters(profile: StageProfile, out=None):
+    """The profile's counters by name under a ``counters`` line, to
+    stderr by default; nothing where there are none."""
+    out = out or sys.stderr
+    with profile._lock:
+        counters = dict(profile.counters)
+    if counters:
+        out.write("counters\n")
+    for name, n in sorted(counters.items()):
+        out.write("  %-30s %12d\n" % (name, n))
 
 
 @contextlib.contextmanager
@@ -261,25 +361,6 @@ def trace_ctx(trace_dir: str, devices):
         finally:
             for d in cards:
                 torch.cuda.synchronize(d)
-
-
-def _timed_stage(name: str):
-    """A BatchedResquiggler stage: timed into ``self.profile`` and, while
-    ``resquiggle_batches`` traces, a range named ``name`` in the trace.
-    Without either it calls the method and does nothing else."""
-    def deco(fn):
-        @functools.wraps(fn)
-        def wrapper(self, *a, **k):
-            if self.profile is None and not self._tracing:
-                return fn(self, *a, **k)
-            with contextlib.ExitStack() as spans:
-                if self._tracing:
-                    spans.enter_context(torch.profiler.record_function(name))
-                if self.profile is not None:
-                    spans.enter_context(self.profile.stage(name))
-                return fn(self, *a, **k)
-        return wrapper
-    return deco
 
 
 def _round_up(x: int, m: int) -> int:
@@ -481,6 +562,9 @@ class _ReadState:
     del_fixed: bool = False
     # device fit (shift_corr, scale_corr, score, changed, fit_ok)
     dev_fit: Optional[tuple] = None
+    # why the read leaves the device lane for a host lane (the profile's
+    # ``host_lane.<reason>``), set where that is decided
+    host_lane: Optional[str] = None
 
     @functools.cached_property
     def raw_i16(self) -> Optional[np.ndarray]:
@@ -499,6 +583,7 @@ class _ReadState:
         self.del_windows = None
         self.del_fixed = False
         self.dev_fit = None
+        self.host_lane = None
 
 
 def _length_groups(live: list) -> list:
@@ -852,8 +937,8 @@ def _theil_sen_device_blocks(ev, mod, n_pts, device,
     the count kernel on a card) before one copy of every slope and
     intercept comes down; the intercepts' residuals are rounded once, as
     the JAX lane's compiled fit rounds them.  Returns float64 (slopes,
-    intercepts) of the B reads.  A ``profile`` counts the bytes each way;
-    as in the JAX lane, no key times the blocks."""
+    intercepts) of the B reads.  A ``profile`` counts the bytes each way
+    and the copy down; as in the JAX lane, no key times the blocks."""
     B, N = ev.shape
     Bp = _round_up(B, _TS_BLOCK)
     evp = np.zeros((Bp, N), np.float32)
@@ -871,6 +956,7 @@ def _theil_sen_device_blocks(ev, mod, n_pts, device,
         for b0 in range(0, Bp, _TS_BLOCK)]
     out = torch.cat(fits, 1).cpu().numpy()
     if profile is not None:
+        profile.count("fetches")
         profile.add_bytes("fetch", out.nbytes)
     out = out.astype(np.float64)
     return out[0, :B], out[1, :B]
@@ -936,8 +1022,8 @@ class BatchedResquiggler:
                 seq_samp_type.name, use_save_bandwidth=True).bandwidth)
         self.profile = profile
         self.lanes = lanes
-        # set while resquiggle_batches writes a trace
-        self._tracing = False
+        # the stage whose span is open (_Span), which names its fetches
+        self._stage = None
         # the device k-mer table of each mesh device (_levels_tab)
         self._level_tabs = {}
         # reads seen by the device finalize, and those with a deletion:
@@ -1000,11 +1086,19 @@ class BatchedResquiggler:
         return self._up(arr.astype(np.int32 if fits else np.int64),
                         device).long()
 
-    def _sub(self, name: str):
-        """A sub-stage of the current stage (timed only with a profile)."""
-        if self.profile is None:
-            return contextlib.nullcontext()
-        return self.profile.sub(name)
+    def _span(self, name: str):
+        """A span named ``name`` (:class:`_Span`) around the block: a
+        range of a running torch.profiler trace and a span of the profile.
+        With neither, the shared null context, and nothing else runs."""
+        if self.profile is None and not torch.autograd._profiler_enabled():
+            return _NULL_SPAN
+        return _Span(self, name)
+
+    def _count(self, name: str, n: int = 1):
+        """Add ``n`` to the profile's counter ``name``, if there is a
+        profile."""
+        if self.profile is not None:
+            self.profile.count(name, n)
 
     def _levels_tab(self, dev):
         """The k-mer table (means, sds) on ``dev`` at the lane's dtype,
@@ -1067,10 +1161,15 @@ class BatchedResquiggler:
             num_bases=p.start_n_bases, num_events=num_events)
 
     def _np(self, *ts):
-        """Device to host copies (the JAX package's ``_fetch``)."""
-        if self.profile is None:
-            return [t.cpu().numpy() for t in ts]
-        return self.profile.fetch(ts)
+        """Device to host copies (the JAX package's ``_fetch``): the wait
+        a ``<stage>_fetch`` span of the current stage, each copy one of
+        the profile's ``fetches`` and its bytes ``fetch``."""
+        with self._span((self._stage or "other") + "_fetch"):
+            out = [t.cpu().numpy() for t in ts]
+        if self.profile is not None:
+            self.profile.count("fetches", len(out))
+            self.profile.add_bytes("fetch", sum(a.nbytes for a in out))
+        return out
 
     def _np_scalars(self, reads, *ts) -> list:
         """Per-read vectors of ``reads`` to the host: on the float32 lane,
@@ -1150,7 +1249,6 @@ class BatchedResquiggler:
         return [(d, r) for d, r in enumerate(by) if r]
 
     # ------------------------------------------------------ stage drivers
-    @_timed_stage("segment")
     def _segment_batch(self, states: List[_ReadState]):
         """Stages 1-3 (+ start DP): normalize, select, event means.  The
         live reads split into contiguous shards over the mesh, each run on
@@ -1195,7 +1293,7 @@ class BatchedResquiggler:
         which goes up otherwise."""
         B = len(live)
         sig_lens = np.array([s.raw.shape[0] for s in live], np.int64)
-        with self._sub("seg_pack"):
+        with self._span("seg_pack"):
             wire = all(s.raw_i16 is not None for s in live)
             if wire:
                 host = _pack_delta_wire([s.raw_i16 for s in live],
@@ -1205,7 +1303,7 @@ class BatchedResquiggler:
                 for i, s in enumerate(live):
                     raw_pad[i, :s.raw.shape[0]] = s.raw
                 host = (raw_pad,)
-        with self._sub("seg_upload"):
+        with self._span("seg_upload"):
             lens_j = self._t(sig_lens, device=dev)
             up = [torch.as_tensor(a).to(dev) for a in host]
             if self.profile is not None:
@@ -1219,15 +1317,17 @@ class BatchedResquiggler:
         p = self.params
         if all(s.raw_dev is not None for s in live):
             # a rescale pass: the raw rows are still on the device
-            raw_j = self._gather_resident([s.raw_dev for s in live], dev,
-                                          sig_w)
-            lens_j = self._t([s.raw.shape[0] for s in live], device=dev)
+            with self._span("seg_gather"):
+                raw_j = self._gather_resident([s.raw_dev for s in live],
+                                              dev, sig_w)
+                lens_j = self._t([s.raw.shape[0] for s in live], device=dev)
         else:
             raw_j, lens_j = self._upload_raw(live, dev, sig_w)
-        for i, s in enumerate(live):
-            s.raw_dev = (raw_j, i)
-        rm_sj, rs_sj = self._levels(live, p.start_n_bases, clip=True,
-                                    device=dev)
+        with self._span("seg_levels"):
+            for i, s in enumerate(live):
+                s.raw_dev = (raw_j, i)
+            rm_sj, rs_sj = self._levels(live, p.start_n_bases, clip=True,
+                                        device=dev)
         sp = self._start_params(p.start_bw)
         if rescale_pass:
             return self._segment_rescale(live, dev, raw_j, lens_j, rm_sj,
@@ -1236,35 +1336,37 @@ class BatchedResquiggler:
         if p.use_t_test_seg:
             return self._segment_rna(live, dev, raw_j, lens_j, rm_sj, rs_sj,
                                      sp, cpts_w, n_stalls)
-        w = p.running_stat_width
-        num_cpts = np.array([s.num_events for s in live], np.int64)
-        has_sv, sv_shift, sv_scale, sv_lower, sv_upper = self._given_sv(
-            live, -nrm.POS_LARGE, nrm.POS_LARGE)
-        t = lambda a, f=False: self._t(a, f, dev)
-        (norm_j, em_j, cpts_j, status_j, shift, scale, lower, upper,
-         start_segs_j, start_score_j) = _stage_a_dna(
-            raw_j, lens_j, t(has_sv), t(sv_shift, True), t(sv_scale, True),
-            t(sv_lower, True), t(sv_upper, True), t(num_cpts), rm_sj, rs_sj,
-            (None if self.outlier_thresh is None
-             else float(self.outlier_thresh)), w, p.min_obs_per_base,
-            cpts_w, sp)
+        with self._span("stage_a_dna"):
+            num_cpts = np.array([s.num_events for s in live], np.int64)
+            has_sv, sv_shift, sv_scale, sv_lower, sv_upper = self._given_sv(
+                live, -nrm.POS_LARGE, nrm.POS_LARGE)
+            t = lambda a, f=False: self._t(a, f, dev)
+            (norm_j, em_j, cpts_j, status_j, shift, scale, lower, upper,
+             start_segs_j, start_score_j) = _stage_a_dna(
+                raw_j, lens_j, t(has_sv), t(sv_shift, True),
+                t(sv_scale, True), t(sv_lower, True), t(sv_upper, True),
+                t(num_cpts), rm_sj, rs_sj,
+                (None if self.outlier_thresh is None
+                 else float(self.outlier_thresh)), p.running_stat_width,
+                p.min_obs_per_base, cpts_w, sp)
         (status, shift, scale, lower, upper, s0, sN,
          score) = self._np_scalars(live, status_j, shift, scale, lower,
                                    upper, start_segs_j[:, 0],
                                    start_segs_j[:, -1], start_score_j)
-        for i, s in enumerate(live):
-            if status[i] != 0:
-                s.error = "Fewer changepoints found than requested"
-                continue
-            s.cpts, s.cpts_dev = None, (cpts_j, i, s.num_events)
-            s.n_ev = s.num_events - 1
-            s.event_means = None
-            prev_sv = s.map_res.scale_values
-            s.scale_values = ScaleValues(
-                float(shift[i]), float(scale[i]), float(lower[i]),
-                float(upper[i]),
-                prev_sv.outlier_thresh if prev_sv is not None
-                else self.outlier_thresh)
+        with self._span("seg_unpack"):
+            for i, s in enumerate(live):
+                if status[i] != 0:
+                    s.error = "Fewer changepoints found than requested"
+                    continue
+                s.cpts, s.cpts_dev = None, (cpts_j, i, s.num_events)
+                s.n_ev = s.num_events - 1
+                s.event_means = None
+                prev_sv = s.map_res.scale_values
+                s.scale_values = ScaleValues(
+                    float(shift[i]), float(scale[i]), float(lower[i]),
+                    float(upper[i]),
+                    prev_sv.outlier_thresh if prev_sv is not None
+                    else self.outlier_thresh)
         return {"em": em_j, "norm": norm_j, "cpts": cpts_j,
                 "start": (s0.astype(np.int64), sN.astype(np.int64),
                           score.astype(np.float64))}
@@ -1297,39 +1399,42 @@ class BatchedResquiggler:
         static band."""
         p = self.params
         B = len(live)
-        num_cpts = np.array([s.num_events for s in live], np.int64)
-        stall_s = np.zeros((B, n_stalls), np.int64)
-        stall_e = np.zeros((B, n_stalls), np.int64)
-        for i, s in enumerate(live):
-            for k, (a, b) in enumerate(s.map_res.stall_ints or []):
-                stall_s[i, k], stall_e[i, k] = a, b
-        has_sv, sv_shift, sv_scale, sv_lower, sv_upper = self._given_sv(
-            live, np.nan, np.nan)
-        t = lambda a, f=False: self._t(a, f, dev)
-        (norm_j, em_j, cpts_j, n_cpts_j, status_j, shift, scale, lower,
-         upper, start_segs_j, start_score_j) = _stage_a_rna(
-            raw_j, lens_j, t(has_sv), t(sv_shift, True), t(sv_scale, True),
-            t(sv_lower, True), t(sv_upper, True), t(num_cpts), t(stall_s),
-            t(stall_e), rm_sj, rs_sj,
-            (None if self.outlier_thresh is None
-             else float(self.outlier_thresh)), p.running_stat_width,
-            p.min_obs_per_base, cpts_w, sp)
+        with self._span("stage_a_rna"):
+            num_cpts = np.array([s.num_events for s in live], np.int64)
+            stall_s = np.zeros((B, n_stalls), np.int64)
+            stall_e = np.zeros((B, n_stalls), np.int64)
+            for i, s in enumerate(live):
+                for k, (a, b) in enumerate(s.map_res.stall_ints or []):
+                    stall_s[i, k], stall_e[i, k] = a, b
+            has_sv, sv_shift, sv_scale, sv_lower, sv_upper = self._given_sv(
+                live, np.nan, np.nan)
+            t = lambda a, f=False: self._t(a, f, dev)
+            (norm_j, em_j, cpts_j, n_cpts_j, status_j, shift, scale, lower,
+             upper, start_segs_j, start_score_j) = _stage_a_rna(
+                raw_j, lens_j, t(has_sv), t(sv_shift, True),
+                t(sv_scale, True), t(sv_lower, True), t(sv_upper, True),
+                t(num_cpts), t(stall_s), t(stall_e), rm_sj, rs_sj,
+                (None if self.outlier_thresh is None
+                 else float(self.outlier_thresh)), p.running_stat_width,
+                p.min_obs_per_base, cpts_w, sp)
         (n_cpts, status, shift, scale, lower, upper, s0, sN,
          score) = self._np_scalars(live, n_cpts_j, status_j, shift, scale,
                                    lower, upper, start_segs_j[:, 0],
                                    start_segs_j[:, -1], start_score_j)
         lim = lambda v: None if np.isnan(v) else float(v)
-        for i, s in enumerate(live):
-            if status[i] != 0:
-                s.error = "Fewer changepoints found than requested"
-                continue
-            s.cpts, s.cpts_dev = None, (cpts_j, i, int(n_cpts[i]))
-            s.n_ev = int(n_cpts[i]) - 1
-            s.event_means = None
-            s.scale_values = ScaleValues(float(shift[i]), float(scale[i]),
-                                         lim(lower[i]), lim(upper[i]), None)
-            if s.n_ev < p.start_bw + p.start_n_bases:
-                s.use_static = True
+        with self._span("seg_unpack"):
+            for i, s in enumerate(live):
+                if status[i] != 0:
+                    s.error = "Fewer changepoints found than requested"
+                    continue
+                s.cpts, s.cpts_dev = None, (cpts_j, i, int(n_cpts[i]))
+                s.n_ev = int(n_cpts[i]) - 1
+                s.event_means = None
+                s.scale_values = ScaleValues(
+                    float(shift[i]), float(scale[i]), lim(lower[i]),
+                    lim(upper[i]), None)
+                if s.n_ev < p.start_bw + p.start_n_bases:
+                    s.use_static = True
         return {"em": em_j, "norm": norm_j, "cpts": cpts_j,
                 "start": (s0.astype(np.int64), sN.astype(np.int64),
                           score.astype(np.float64))}
@@ -1339,28 +1444,29 @@ class BatchedResquiggler:
         """Rescale-pass segmentation reusing first-pass changepoints,
         gathered where they stay on the device (the JAX package's
         ``_segment_rescale`` with ``_gather_rows_pad``)."""
-        n_cpts = np.array([s.cpts_dev[2] for s in live], np.int64)
-        _, sv_shift, sv_scale, sv_lower, sv_upper = self._given_sv(
-            live, np.nan, np.nan)
-        t = lambda a, f=False: self._t(a, f, dev)
-        cpts_j = self._gather_resident([s.cpts_dev[:2] for s in live], dev,
-                                       cpts_w)
-        norm_j, em_j, start_segs_j, start_score_j = _stage_a_rescale(
-            raw_j, lens_j, t(sv_shift, True), t(sv_scale, True),
-            t(sv_lower, True), t(sv_upper, True), cpts_j, t(n_cpts), rm_sj,
-            rs_sj, sp)
+        with self._span("stage_a_rescale"):
+            n_cpts = np.array([s.cpts_dev[2] for s in live], np.int64)
+            _, sv_shift, sv_scale, sv_lower, sv_upper = self._given_sv(
+                live, np.nan, np.nan)
+            t = lambda a, f=False: self._t(a, f, dev)
+            cpts_j = self._gather_resident([s.cpts_dev[:2] for s in live],
+                                           dev, cpts_w)
+            norm_j, em_j, start_segs_j, start_score_j = _stage_a_rescale(
+                raw_j, lens_j, t(sv_shift, True), t(sv_scale, True),
+                t(sv_lower, True), t(sv_upper, True), cpts_j, t(n_cpts),
+                rm_sj, rs_sj, sp)
         s0, sN, score = self._np_scalars(live, start_segs_j[:, 0],
                                          start_segs_j[:, -1], start_score_j)
-        for i, s in enumerate(live):
-            s.cpts_dev = (cpts_j, i, int(n_cpts[i]))
-            s.n_ev = int(n_cpts[i]) - 1
-            s.event_means = None
-            s.scale_values = s.map_res.scale_values.replace()
+        with self._span("seg_unpack"):
+            for i, s in enumerate(live):
+                s.cpts_dev = (cpts_j, i, int(n_cpts[i]))
+                s.n_ev = int(n_cpts[i]) - 1
+                s.event_means = None
+                s.scale_values = s.map_res.scale_values.replace()
         return {"em": em_j, "norm": norm_j, "cpts": cpts_j,
                 "start": (s0.astype(np.int64), sN.astype(np.int64),
                           score.astype(np.float64))}
 
-    @_timed_stage("plan")
     def _plan_reads(self, states: List[_ReadState]):
         """Expected levels + static-band routing.  The k-mer codes, packed
         bases and levels of every read new to the resquiggler come from
@@ -1397,7 +1503,6 @@ class BatchedResquiggler:
                     s.ref_means.shape[0] < p.start_n_bases):
                 s.use_static = True
 
-    @_timed_stage("start")
     def _start_discovery(self, states, ctx, start_bw: int,
                          check_score: bool, precomputed: bool = False):
         """Static-band start discovery + validity score (``precomputed``:
@@ -1411,9 +1516,10 @@ class BatchedResquiggler:
         need = nb + start_bw
         shards = self._shards(live)
         if precomputed:
-            found = [(reads, [a[[s.dev_row for s in reads]]
-                              for a in ctx[d]["start"]])
-                     for d, reads in shards]
+            with self._span("start_rows"):
+                found = [(reads, [a[[s.dev_row for s in reads]]
+                                  for a in ctx[d]["start"]])
+                         for d, reads in shards]
         else:
             if ctx[shards[0][0]]["em"].shape[1] < need:
                 # every live read has >= need events, but the group-wide
@@ -1423,53 +1529,57 @@ class BatchedResquiggler:
                 return []
             sp = self._start_params(start_bw)
             queued = []
-            for d, reads in shards:
-                dev = self.mesh[d]
-                rows = self._t([s.dev_row for s in reads], device=dev)
-                rm_sj, rs_sj = self._levels(reads, nb, clip=True, device=dev)
-                segs, score = _start_dp_with_score(
-                    ctx[d]["em"][rows][:, :need], rm_sj, rs_sj, sp)
-                queued.append((reads, (segs[:, 0], segs[:, -1], score)))
+            with self._span("start_dp"):
+                for d, reads in shards:
+                    dev = self.mesh[d]
+                    rows = self._t([s.dev_row for s in reads], device=dev)
+                    rm_sj, rs_sj = self._levels(reads, nb, clip=True,
+                                                device=dev)
+                    segs, score = _start_dp_with_score(
+                        ctx[d]["em"][rows][:, :need], rm_sj, rs_sj, sp)
+                    queued.append((reads, (segs[:, 0], segs[:, -1], score)))
             found = [(reads, self._np_scalars(reads, *out))
                      for reads, out in queued]
         failed = []
         thresh = SIG_MATCH_THRESH[self.seq_samp_type.name]
-        for reads, (seg0, segN, score) in found:
-            for i, s in enumerate(reads):
-                if check_score and (not np.isfinite(score[i]) or
-                                    score[i] > thresh):
-                    failed.append(s)
-                    continue
-                s.events_per_base = (int(segN[i]) - int(seg0[i])) / (nb + 1)
-                s.mapped_start = int(seg0[i])
+        with self._span("start_check"):
+            for reads, (seg0, segN, score) in found:
+                for i, s in enumerate(reads):
+                    if check_score and (not np.isfinite(score[i]) or
+                                        score[i] > thresh):
+                        failed.append(s)
+                        continue
+                    s.events_per_base = ((int(segN[i]) - int(seg0[i])) /
+                                         (nb + 1))
+                    s.mapped_start = int(seg0[i])
         return failed
 
-    @_timed_stage("adaptive")
     def _adaptive_batch(self, states: List[_ReadState], ctx):
         """Masked-start prefix + adaptive DP + traceback."""
         p = self.params
         live = []
         half_bw = p.bandwidth // 2
-        for s in states:
-            if s.error is not None or s.use_static:
-                continue
-            if s.events_per_base == 0:
-                s.error = ("Very poor signal quality. Read likely includes "
-                           "open pore.")
-                continue
-            if s.mapped_start < half_bw:
-                s.events_start_clip = 0
-                s.mapped_start_offset = s.mapped_start
-            else:
-                s.events_start_clip = s.mapped_start - half_bw
-                s.mapped_start_offset = half_bw
-            if (int((half_bw + 1) / s.events_per_base) >=
-                    s.ref_means.shape[0] or
-                    s.n_ev - s.mapped_start_offset -
-                    s.events_start_clip < p.bandwidth):
-                s.use_static = True
-                continue
-            live.append(s)
+        with self._span("adaptive_select"):
+            for s in states:
+                if s.error is not None or s.use_static:
+                    continue
+                if s.events_per_base == 0:
+                    s.error = ("Very poor signal quality. Read likely "
+                               "includes open pore.")
+                    continue
+                if s.mapped_start < half_bw:
+                    s.events_start_clip = 0
+                    s.mapped_start_offset = s.mapped_start
+                else:
+                    s.events_start_clip = s.mapped_start - half_bw
+                    s.mapped_start_offset = half_bw
+                if (int((half_bw + 1) / s.events_per_base) >=
+                        s.ref_means.shape[0] or
+                        s.n_ev - s.mapped_start_offset -
+                        s.events_start_clip < p.bandwidth):
+                    s.use_static = True
+                    continue
+                live.append(s)
         if live:
             self._adaptive_device_call(live, ctx)
 
@@ -1481,11 +1591,13 @@ class BatchedResquiggler:
         bw = p.bandwidth
         shards = self._shards(live)
         live = [s for _, reads in shards for s in reads]     # K3's order
-        L_max = _pow2_bucket(max(s.ref_means.shape[0] for s in live), 256)
-        E_max = _pow2_bucket(
-            max(s.n_ev - s.events_start_clip for s in live) + bw, 256)
-        pstarts, pvalid, pend, start_rows, P_max = \
-            _build_masked_plans_batch(live, p)
+        with self._span("masked_plans"):
+            L_max = _pow2_bucket(max(s.ref_means.shape[0] for s in live),
+                                 256)
+            E_max = _pow2_bucket(
+                max(s.n_ev - s.events_start_clip for s in live) + bw, 256)
+            pstarts, pvalid, pend, start_rows, P_max = \
+                _build_masked_plans_batch(live, p)
         dpp = DpParams(
             z_shift=p.z_shift, skip_pen=p.skip_pen, stay_pen=p.stay_pen,
             mask_fill_z_score=MASK_FILL_Z_SCORE,
@@ -1493,50 +1605,62 @@ class BatchedResquiggler:
         dp_args = [None] * len(self.mesh)
         dev_in = {}
         k = 0
-        for d, reads in shards:
-            dev = self.mesh[d]
-            t = lambda a, f=False: self._t(a, f, dev)
-            sl = slice(k, k + len(reads))
-            k += len(reads)
-            rows = t([s.dev_row for s in reads])
-            clips = t([s.events_start_clip for s in reads])
-            n_events = t([s.n_ev - s.events_start_clip for s in reads])
-            seq_lens = t([s.ref_means.shape[0] for s in reads])
-            rm_j, rs_j = self._levels(reads, L_max, device=dev)
-            em_j = _gather_clip_rows(ctx[d]["em"], rows, clips, E_max)
-            dp_args[d] = (em_j, n_events, rm_j, rs_j, seq_lens,
-                          t(pstarts[sl]), t(pvalid[sl]), t(pend[sl]),
-                          t(start_rows[sl]))
-            dev_in[d] = (rows, clips, n_events, seq_lens, rm_j, rs_j)
+        with self._span("dp_inputs"):
+            for d, reads in shards:
+                dev = self.mesh[d]
+                t = lambda a, f=False: self._t(a, f, dev)
+                sl = slice(k, k + len(reads))
+                k += len(reads)
+                rows = t([s.dev_row for s in reads])
+                clips = t([s.events_start_clip for s in reads])
+                n_events = t([s.n_ev - s.events_start_clip for s in reads])
+                seq_lens = t([s.ref_means.shape[0] for s in reads])
+                rm_j, rs_j = self._levels(reads, L_max, device=dev)
+                em_j = _gather_clip_rows(ctx[d]["em"], rows, clips, E_max)
+                dp_args[d] = (em_j, n_events, rm_j, rs_j, seq_lens,
+                              t(pstarts[sl]), t(pvalid[sl]), t(pend[sl]),
+                              t(start_rows[sl]))
+                dev_in[d] = (rows, clips, n_events, seq_lens, rm_j, rs_j)
         # fused while one read's (L, bw) move codes stay small, else
         # chunked along the rows (long reads, the save-bandwidth retry)
-        segs_j, band_err, bound_err, _ = \
-            banded_dp.adaptive_banded_dp_tb_sharded(
-                self.mesh, dp_args, dpp, L_max, P_max, p.band_bound_thresh,
-                banded_dp.plan_dp_layout(L_max, bw))
-        sizes = [len(r) for _, r in shards]
-        by = [dict(zip([d for d, _ in shards], a.split(sizes)))
-              for a in (segs_j, band_err, bound_err)]
+        with self._span("dp_enqueue"):
+            segs_j, band_err, bound_err, _ = \
+                banded_dp.adaptive_banded_dp_tb_sharded(
+                    self.mesh, dp_args, dpp, L_max, P_max,
+                    p.band_bound_thresh, banded_dp.plan_dp_layout(L_max, bw))
+            sizes = [len(r) for _, r in shards]
+            by = [dict(zip([d for d, _ in shards], a.split(sizes)))
+                  for a in (segs_j, band_err, bound_err)]
         if not self.lanes.device_finalize:
-            self._host_trim(shards, *by)
+            with self._span("host_trim"):
+                self._host_trim(shards, *by)
             return
         delfix, fit = self._fit_lanes()
         fin, fits = {}, {}
-        for d, reads in shards:
-            rows, clips, n_events, seq_lens = dev_in[d][:4]
-            fin[d] = _stage_finalize(
-                ctx[d]["cpts"], rows, clips, by[0][d].to(self.mesh[d]),
-                seq_lens, n_events, L_max)
+        with self._span("trim_enqueue"):
+            for d, reads in shards:
+                rows, clips, n_events, seq_lens = dev_in[d][:4]
+                fin[d] = _stage_finalize(
+                    ctx[d]["cpts"], rows, clips, by[0][d].to(self.mesh[d]),
+                    seq_lens, n_events, L_max)
         if fit:
             # the fit on the unfixed tables in the same pass; its scalars
             # come down with the stage's own
-            for d, (samp, tri) in self._fit_points(shards, L_max).items():
-                rows, _, _, seq_lens, rm_j, rs_j = dev_in[d]
-                fits[d] = _stage_fit(
-                    ctx[d]["norm"], rows, fin[d][1], fin[d][0], rm_j, rs_j,
-                    seq_lens, samp, tri, float(config.SHIFT_CHANGE_THRESH),
-                    float(config.SCALE_CHANGE_THRESH),
-                    not self.skip_seq_scaling)[:5]
+            with self._span("fit_points"):
+                points = self._fit_points(shards, L_max)
+            with self._span("fit_enqueue"):
+                for d, (samp, tri) in points.items():
+                    rows, _, _, seq_lens, rm_j, rs_j = dev_in[d]
+                    fits[d] = _stage_fit(
+                        ctx[d]["norm"], rows, fin[d][1], fin[d][0], rm_j,
+                        rs_j, seq_lens, samp, tri,
+                        float(config.SHIFT_CHANGE_THRESH),
+                        float(config.SCALE_CHANGE_THRESH),
+                        not self.skip_seq_scaling)[:5]
+        # where a read without a device fit goes to a host lane
+        off = None if delfix else (
+            "deletion" if fit else
+            "fit_gate" if self.lanes.device_fit is None else "lanes")
         has_del_all = []
         for d, reads in shards:
             seq_segs_j, rsrtr, has_del, d8_j, over_j = fin[d]
@@ -1545,20 +1669,24 @@ class BatchedResquiggler:
                 reads, by[1][d].to(self.mesh[d]), by[2][d].to(self.mesh[d]),
                 over_j, rsrtr, has_del, *fits.get(d, ()))
             has_del_all.append(has_del)
-            tables = self._seg_tables(
-                d8, (over != 0) & (band == 0) & (bound == 0), seq_segs_j)
-            for i, s in enumerate(reads):
-                if _dp_failed(s, band[i], bound[i]):
-                    continue
-                s.dp_segs = tables[i, :s.ref_means.shape[0] + 1].copy()
-                s.dp_rsrtr = int(rsrtr[i])
-                s.has_del = bool(has_del[i])
-                if f and not s.has_del:
-                    # as in the JAX lane, no device means are registered
-                    # for these reads
-                    s.dev_fit = (float(f[0][i]), float(f[1][i]),
-                                 float(f[2][i]), bool(f[3][i]),
-                                 bool(f[4][i]))
+            with self._span("seg_tables"):
+                tables = self._seg_tables(
+                    d8, (over != 0) & (band == 0) & (bound == 0), seq_segs_j)
+            with self._span("dp_unpack"):
+                for i, s in enumerate(reads):
+                    if _dp_failed(s, band[i], bound[i]):
+                        continue
+                    s.dp_segs = tables[i, :s.ref_means.shape[0] + 1].copy()
+                    s.dp_rsrtr = int(rsrtr[i])
+                    s.has_del = bool(has_del[i])
+                    if f and not s.has_del:
+                        # as in the JAX lane, no device means are
+                        # registered for these reads
+                        s.dev_fit = (float(f[0][i]), float(f[1][i]),
+                                     float(f[2][i]), bool(f[3][i]),
+                                     bool(f[4][i]))
+                    elif off is not None:
+                        s.host_lane = off
         self._note_del_rate(np.concatenate(has_del_all))
         if delfix:
             self._delfix_and_fit(shards, ctx, {
@@ -1579,6 +1707,7 @@ class BatchedResquiggler:
                   if not _dp_failed(s, band[i], bound[i])]
             self._fetch_cpts([s for _, s in ok])
             for i, s in ok:
+                s.host_lane = "host_trim"
                 tb = rsq._trim_traceback(
                     segs[i, :s.ref_means.shape[0] + 1].astype(np.int64),
                     events_len=s.n_ev - s.events_start_clip)
@@ -1624,7 +1753,7 @@ class BatchedResquiggler:
         fit_reads = []
         w = config.DEL_FIX_WINDOW
         min_sig_per_base = p.raw_min_obs_per_base * config.EXTRA_SIG_FACTOR
-        with self._sub("delfix_plan"):
+        with self._span("delfix_plan"):
             for d, reads in shards:
                 win_i, win_bs, win_nb, win_t, win_rel = wins[d]
                 for i, s in enumerate(reads):
@@ -1638,6 +1767,7 @@ class BatchedResquiggler:
                         # device window DP is the same recurrence in
                         # prefix-sum form, which rounds differently where
                         # integer signals tie
+                        s.host_lane = "float64"
                         continue
                     segs = s.dp_segs
                     # vectorized fast path of plan_del_fix_windows: deletion
@@ -1671,9 +1801,13 @@ class BatchedResquiggler:
                         we_arr = np.array([b for _, b in windows])
                         n_ev = we_arr - ws_arr
                         sig_len = segs[we_arr] - segs[ws_arr]
-                    if (n_ev.max() > _DELFIX_NB_CAP or
-                            sig_len.max() > _DELFIX_T_CAP):
-                        continue                  # host lane (s.has_del True)
+                    # past a device cap: a host lane (s.has_del True)
+                    if n_ev.max() > _DELFIX_NB_CAP:
+                        s.host_lane = "delfix_nb_cap"
+                        continue
+                    if sig_len.max() > _DELFIX_T_CAP:
+                        s.host_lane = "delfix_t_cap"
+                        continue
                     s.del_windows = (
                         list(zip(ws_arr.tolist(), we_arr.tolist())),
                         len(win_i))
@@ -1691,23 +1825,27 @@ class BatchedResquiggler:
         nb_pad = max([2] + [n for v in wins.values() for n in v[2]])
         t_pad = max([2] + [n for v in wins.values() for n in v[3]])
         mhz = p.max_half_z_score
-        fit_shards = {s.shard for s in fit_reads}
-        points = self._fit_points(shards, L_max, fit_shards)
+        with self._span("fit_points"):
+            points = self._fit_points(shards, L_max,
+                                      {s.shard for s in fit_reads})
         queued = {}
-        for d, (samp_j, tri) in points.items():
-            dev = self.mesh[d]
-            # one inert window keeps a call without windows shape-valid
-            win = wins[d] if wins[d][0] else ([0], [0], [0], [2], [0])
-            rows_j, rsrtr_j, seq_segs_j, rm_j, rs_j, seq_lens_j = dev_in[d]
-            queued[d] = _stage_delfix_fit(
-                ctx[d]["norm"], rows_j, rsrtr_j, seq_segs_j, rm_j, rs_j,
-                seq_lens_j, *[self._t(a, device=dev) for a in win],
-                float(mhz if mhz is not None else 0.0), samp_j, tri,
-                nb_pad=nb_pad, t_pad=t_pad, min_obs=p.raw_min_obs_per_base,
-                winsorize=mhz is not None,
-                shift_thresh=float(config.SHIFT_CHANGE_THRESH),
-                scale_thresh=float(config.SCALE_CHANGE_THRESH),
-                do_fit=not self.skip_seq_scaling)
+        with self._span("delfix_enqueue"):
+            for d, (samp_j, tri) in points.items():
+                dev = self.mesh[d]
+                # one inert window keeps a call without windows shape-valid
+                win = wins[d] if wins[d][0] else ([0], [0], [0], [2], [0])
+                rows_j, rsrtr_j, seq_segs_j, rm_j, rs_j, seq_lens_j = \
+                    dev_in[d]
+                queued[d] = _stage_delfix_fit(
+                    ctx[d]["norm"], rows_j, rsrtr_j, seq_segs_j, rm_j, rs_j,
+                    seq_lens_j, *[self._t(a, device=dev) for a in win],
+                    float(mhz if mhz is not None else 0.0), samp_j, tri,
+                    nb_pad=nb_pad, t_pad=t_pad,
+                    min_obs=p.raw_min_obs_per_base,
+                    winsorize=mhz is not None,
+                    shift_thresh=float(config.SHIFT_CHANGE_THRESH),
+                    scale_thresh=float(config.SCALE_CHANGE_THRESH),
+                    do_fit=not self.skip_seq_scaling)
         # (bounds, fail, shift_corr, scale_corr, score, changed, fit_ok);
         # the boundaries come down as int16 (window positions, < t_pad),
         # the fit's scalars stacked; the rescaled event means stay on the
@@ -1717,7 +1855,7 @@ class BatchedResquiggler:
                self._np_scalars(shard_reads[d], *out[2:-1])
                for d, out in queued.items()}
 
-        with self._sub("delfix_apply"):
+        with self._span("delfix_apply"):
             for s in fit_reads:
                 if s.del_windows is None:
                     continue
@@ -1764,7 +1902,6 @@ class BatchedResquiggler:
                 # fail or finish on a host lane
                 device_levels.register_batch(queued[d][-1], lvl_entries)
 
-    @_timed_stage("static")
     def _static_reads(self, states: List[_ReadState], ctx):
         """Short-read static-band assignment (host, numpy)."""
         need = [s for s in states if s.error is None and s.use_static and
@@ -1778,6 +1915,7 @@ class BatchedResquiggler:
         static = [s for s in states if s.error is None and s.use_static]
         self._fetch_cpts(static)
         for s in static:
+            s.host_lane = "static_band"
             try:
                 seq_events = rsq.find_static_base_assignment(
                     s.event_means, s.ref_means, s.ref_sds, self.params)
@@ -1818,36 +1956,41 @@ class BatchedResquiggler:
         the reads' (state, dp_res, segs, norm, score, changed)."""
         max_n = config.MAX_POINTS_FOR_THEIL_SEN
         jobs = []
-        for s, dp_res in host:
-            sv = s.scale_values
-            L = s.ref_means.shape[0]
-            jobs.append((
-                s.raw[s.dp_rsrtr:s.dp_rsrtr + int(s.dp_segs[-1])], sv.shift,
-                sv.scale, sv.lower_lim, sv.upper_lim, s.ref_means, s.ref_sds,
-                s.dp_segs, {True: 1, False: 0, None: -1}[s.has_del],
-                _ts_sample_idx(L, max_n) if L > max_n else None))
-        with self._sub("finalize_native"):
+        with self._span("native_jobs"):
+            for s, dp_res in host:
+                sv = s.scale_values
+                L = s.ref_means.shape[0]
+                jobs.append((
+                    s.raw[s.dp_rsrtr:s.dp_rsrtr + int(s.dp_segs[-1])],
+                    sv.shift, sv.scale, sv.lower_lim, sv.upper_lim,
+                    s.ref_means, s.ref_sds, s.dp_segs,
+                    {True: 1, False: 0, None: -1}[s.has_del],
+                    _ts_sample_idx(L, max_n) if L > max_n else None))
+        with self._span("finalize_native"):
             segs_l, ev_l, norm_l, slopes, inters, status = \
                 native.finalize_batch(jobs, self.params,
                                       -1 if self.skip_seq_scaling else 1)
         results = []
-        for i, (s, dp_res) in enumerate(host):
-            st = int(status[i])
-            if st == native.FIT_FAILED_STATUS:
-                s.error = ("Read failed sequence-based signal re-scaling "
-                           "parameter estimation.")
-                continue
-            if st != 0:
-                s.error = native.DEL_FIX_ERRORS.get(st, "deletion fix failed")
-                continue
-            ev, changed = ev_l[i], False
-            if not self.skip_seq_scaling:
-                shc, scc, changed = self._apply_fit(s, float(slopes[i]),
-                                                    float(inters[i]))
-                ev = (ev - shc) / scc
-            score = rsq.get_read_seg_score(ev, dp_res.ref_means,
-                                           dp_res.ref_sds)
-            results.append((s, dp_res, segs_l[i], norm_l[i], score, changed))
+        with self._span("native_apply"):
+            for i, (s, dp_res) in enumerate(host):
+                st = int(status[i])
+                if st == native.FIT_FAILED_STATUS:
+                    s.error = ("Read failed sequence-based signal "
+                               "re-scaling parameter estimation.")
+                    continue
+                if st != 0:
+                    s.error = native.DEL_FIX_ERRORS.get(
+                        st, "deletion fix failed")
+                    continue
+                ev, changed = ev_l[i], False
+                if not self.skip_seq_scaling:
+                    shc, scc, changed = self._apply_fit(
+                        s, float(slopes[i]), float(inters[i]))
+                    ev = (ev - shc) / scc
+                score = rsq.get_read_seg_score(ev, dp_res.ref_means,
+                                               dp_res.ref_sds)
+                results.append((s, dp_res, segs_l[i], norm_l[i], score,
+                                changed))
         return results
 
     def _finalize_host(self, host):
@@ -1864,13 +2007,14 @@ class BatchedResquiggler:
         (state, dp_res, segs, norm, score, changed)."""
         f32 = self.dtype != torch.float64
         reads = []
-        for s, dp_res in host:
-            norm = self._host_norm(s.raw, s.scale_values, s.dp_rsrtr,
-                                   s.dp_rsrtr + int(s.dp_segs[-1]))
-            reads.append([s, dp_res, dp_res.segs, norm])
+        with self._span("host_norm"):
+            for s, dp_res in host:
+                norm = self._host_norm(s.raw, s.scale_values, s.dp_rsrtr,
+                                       s.dp_rsrtr + int(s.dp_segs[-1]))
+                reads.append([s, dp_res, dp_res.segs, norm])
         dels = [r for r in reads if r[0].has_del is not False]
         if dels:
-            with self._sub("finalize_native"):
+            with self._span("finalize_native"):
                 segs_l, status = native.del_fix_batch(
                     [(norm, dp_res.ref_means, dp_res.ref_sds, segs)
                      for _, dp_res, segs, norm in dels], self.params)
@@ -1892,39 +2036,40 @@ class BatchedResquiggler:
         mod = np.zeros((len(reads), max_n))
         n_pts = np.zeros(len(reads), np.int64)
         ev_pre = []
-        for i, (_, dp_res, segs, norm) in enumerate(reads):
-            r_ev, r_mod = ref_impl.new_means(norm, segs), dp_res.ref_means
-            ev_pre.append(r_ev)
-            n = r_mod.shape[0]
-            if n > max_n:
-                samp = _ts_sample_idx(n, max_n)
-                r_ev, r_mod, n = r_ev[samp], r_mod[samp], max_n
-            ev[i, :n], mod[i, :n], n_pts[i] = r_ev, r_mod, n
-        if (f32 and self.lanes.device_theil_sen and len(self.mesh) == 1 and
-                len(reads) >= 32):
-            slopes, inters = _theil_sen_device_blocks(
-                ev, mod, n_pts, self.device, self.profile)
-        else:
-            slopes, inters = native.theil_sen_batch(ev, mod, n_pts,
-                                                    use_f32=f32)
         results = []
-        for (s, dp_res, segs, norm), r_ev, slope, inter in zip(
-                reads, ev_pre, slopes, inters):
-            if slope == 0:
-                s.error = ("Read failed sequence-based signal re-scaling "
-                           "parameter estimation.")
-                continue
-            shc, scc, changed = self._apply_fit(s, float(slope),
-                                                float(inter))
-            norm = (norm - shc) / scc
-            means = ((r_ev - shc) / scc if f32 else
-                     ref_impl.new_means(norm, segs))
-            score = rsq.get_read_seg_score(means, dp_res.ref_means,
-                                           dp_res.ref_sds)
-            results.append((s, dp_res, segs, norm, score, changed))
+        with self._span("host_fit"):
+            for i, (_, dp_res, segs, norm) in enumerate(reads):
+                r_ev, r_mod = (ref_impl.new_means(norm, segs),
+                               dp_res.ref_means)
+                ev_pre.append(r_ev)
+                n = r_mod.shape[0]
+                if n > max_n:
+                    samp = _ts_sample_idx(n, max_n)
+                    r_ev, r_mod, n = r_ev[samp], r_mod[samp], max_n
+                ev[i, :n], mod[i, :n], n_pts[i] = r_ev, r_mod, n
+            if (f32 and self.lanes.device_theil_sen and
+                    len(self.mesh) == 1 and len(reads) >= 32):
+                slopes, inters = _theil_sen_device_blocks(
+                    ev, mod, n_pts, self.device, self.profile)
+            else:
+                slopes, inters = native.theil_sen_batch(ev, mod, n_pts,
+                                                        use_f32=f32)
+            for (s, dp_res, segs, norm), r_ev, slope, inter in zip(
+                    reads, ev_pre, slopes, inters):
+                if slope == 0:
+                    s.error = ("Read failed sequence-based signal "
+                               "re-scaling parameter estimation.")
+                    continue
+                shc, scc, changed = self._apply_fit(s, float(slope),
+                                                    float(inter))
+                norm = (norm - shc) / scc
+                means = ((r_ev - shc) / scc if f32 else
+                         ref_impl.new_means(norm, segs))
+                score = rsq.get_read_seg_score(means, dp_res.ref_means,
+                                               dp_res.ref_sds)
+                results.append((s, dp_res, segs, norm, score, changed))
         return results
 
-    @_timed_stage("finalize")
     def _finalize(self, states: List[_ReadState], will_retry: bool = False):
         """Apply the device fit (scalar bookkeeping), finish every other
         read in batched calls of the host library (:meth:`_finalize_native`
@@ -1933,18 +2078,28 @@ class BatchedResquiggler:
         ``skip_seq_scaling`` the scale values stay as segmentation set
         them and no read asks for another scaling iteration."""
         host, dev = [], []
-        for s in states:
-            if s.error is not None or s.result is not None:
-                continue
-            if s.dp_segs is None:
-                s.error = "DP did not produce a path"
-                continue
-            dp_res = DpResults(s.dp_rsrtr, s.dp_segs, s.ref_means, s.ref_sds,
-                               s.genome_seq_trim)
-            if s.dev_fit is not None:
-                dev.append((s, dp_res, s.dp_segs))
-            else:
-                host.append((s, dp_res))
+        with self._span("finalize_route"):
+            for s in states:
+                if s.error is not None or s.result is not None:
+                    continue
+                if s.dp_segs is None:
+                    s.error = "DP did not produce a path"
+                    continue
+                dp_res = DpResults(s.dp_rsrtr, s.dp_segs, s.ref_means,
+                                   s.ref_sds, s.genome_seq_trim)
+                if s.dev_fit is not None:
+                    dev.append((s, dp_res, s.dp_segs))
+                else:
+                    host.append((s, dp_res))
+        if self.profile is not None:
+            self._count("finalize_device_reads", len(dev))
+            self._count("finalize_host_reads", len(host))
+            # a read no branch routed: a device fix or fit that did not
+            # finish it
+            for reason, n in collections.Counter(
+                    s.host_lane or "device_unfinished"
+                    for s, _ in host).items():
+                self._count("host_lane." + reason, n)
 
         results = []
         if host:
@@ -1953,67 +2108,81 @@ class BatchedResquiggler:
                        self.lanes.native_finalize
                        else self._finalize_host(host))
 
-        for s, dp_res, segs in dev:
-            shc, scc, score, changed, fit_ok = s.dev_fit
-            start = dp_res.read_start_rel_to_raw
-            if self.skip_seq_scaling:
-                norm = self._host_norm(s.raw, s.scale_values, start,
-                                       start + int(segs[-1]))
-                results.append((s, dp_res, segs, norm, score, False))
-                continue
-            if not fit_ok:
-                s.error = ("Read failed sequence-based signal re-scaling "
-                           "parameter estimation.")
-                continue
-            sv_pre = s.scale_values
-            s.scale_values = sv_pre.replace(
-                shift=sv_pre.shift + shc * sv_pre.scale,
-                scale=sv_pre.scale * scc,
-                outlier_thresh=self.outlier_thresh)
-            norm = None
-            if not (will_retry and changed):
-                # the normalized mapped slice, two steps as the host lane:
-                # pre-fit scale values + clip, then the fitted correction
-                norm = (self._host_norm(s.raw, sv_pre, start,
-                                        start + int(segs[-1])) - shc) / scc
-            results.append((s, dp_res, segs, norm, score, changed))
+        with self._span("device_apply"):
+            for s, dp_res, segs in dev:
+                shc, scc, score, changed, fit_ok = s.dev_fit
+                start = dp_res.read_start_rel_to_raw
+                if self.skip_seq_scaling:
+                    norm = self._host_norm(s.raw, s.scale_values, start,
+                                           start + int(segs[-1]))
+                    results.append((s, dp_res, segs, norm, score, False))
+                    continue
+                if not fit_ok:
+                    s.error = ("Read failed sequence-based signal "
+                               "re-scaling parameter estimation.")
+                    continue
+                sv_pre = s.scale_values
+                s.scale_values = sv_pre.replace(
+                    shift=sv_pre.shift + shc * sv_pre.scale,
+                    scale=sv_pre.scale * scc,
+                    outlier_thresh=self.outlier_thresh)
+                norm = None
+                if not (will_retry and changed):
+                    # the normalized mapped slice, two steps as the host
+                    # lane: pre-fit scale values + clip, then the fitted
+                    # correction
+                    norm = (self._host_norm(s.raw, sv_pre, start,
+                                            start + int(segs[-1])) -
+                            shc) / scc
+                results.append((s, dp_res, segs, norm, score, changed))
 
-        for s, dp_res, segs, norm, score, changed in results:
-            if segs.shape[0] != len(dp_res.genome_seq) + 1:
-                s.error = ("Aligned sequence does not match number of "
-                           "segments produced")
-                continue
-            s.result = s.map_res.replace(
-                read_start_rel_to_raw=dp_res.read_start_rel_to_raw,
-                segs=segs, genome_seq=dp_res.genome_seq, raw_signal=norm,
-                scale_values=s.scale_values, sig_match_score=float(score),
-                norm_params_changed=bool(changed))
+        with self._span("finalize_results"):
+            for s, dp_res, segs, norm, score, changed in results:
+                if segs.shape[0] != len(dp_res.genome_seq) + 1:
+                    s.error = ("Aligned sequence does not match number of "
+                               "segments produced")
+                    continue
+                s.result = s.map_res.replace(
+                    read_start_rel_to_raw=dp_res.read_start_rel_to_raw,
+                    segs=segs, genome_seq=dp_res.genome_seq, raw_signal=norm,
+                    scale_values=s.scale_values,
+                    sig_match_score=float(score),
+                    norm_params_changed=bool(changed))
 
         # a failed read, or one finished on a host lane, must leave no
         # device means behind: an earlier pass may have registered it
-        for s in states:
-            if ((s.error is not None or s.dev_fit is None) and
-                    s.map_res.align_info is not None):
-                device_levels.unregister(s.map_res.align_info.read_id,
-                                         self.device.type)
+        with self._span("levels_unregister"):
+            for s in states:
+                if ((s.error is not None or s.dev_fit is None) and
+                        s.map_res.align_info is not None):
+                    device_levels.unregister(s.map_res.align_info.read_id,
+                                             self.device.type)
 
     # ------------------------------------------------------------ run API
     def _run_pass(self, states: List[_ReadState], will_retry: bool = False):
-        for s in states:
-            if s.error is None:
-                s.n_ev = s.num_events - 1
-        live = [s for s in states if s.error is None]
-        for group in _length_groups(live):
-            self._run_pass_group(group, will_retry)
+        with self._span("pass"):
+            for s in states:
+                if s.error is None:
+                    s.n_ev = s.num_events - 1
+            live = [s for s in states if s.error is None]
+            groups = _length_groups(live)
+            self._count("read_passes", len(live))
+            self._count("groups", len(groups))
+            for group in groups:
+                self._run_pass_group(group, will_retry)
 
     def _run_pass_group(self, states: List[_ReadState],
                         will_retry: bool = False):
         p = self.params
-        self._plan_reads(states)
-        ctx = self._segment_batch(states)
+        with self._span("plan"):
+            self._plan_reads(states)
+        with self._span("segment"):
+            ctx = self._segment_batch(states)
         if ctx is not None:
-            failed_start = self._start_discovery(
-                states, ctx, p.start_bw, check_score=True, precomputed=True)
+            with self._span("start"):
+                failed_start = self._start_discovery(
+                    states, ctx, p.start_bw, check_score=True,
+                    precomputed=True)
             # save-bandwidth start retry without score check, so no read
             # fails it (reference: tombo/resquiggle.py:996-1006)
             for s in failed_start:
@@ -2021,11 +2190,16 @@ class BatchedResquiggler:
                     s.use_static = True
             retry = [s for s in failed_start if not s.use_static]
             if retry:
-                self._start_discovery(retry, ctx, p.start_save_bw,
-                                      check_score=False)
-            self._adaptive_batch(states, ctx)
-            self._static_reads(states, ctx)
-        self._finalize(states, will_retry=will_retry)
+                self._count("start_retry_reads", len(retry))
+                with self._span("start"):
+                    self._start_discovery(retry, ctx, p.start_save_bw,
+                                          check_score=False)
+            with self._span("adaptive"):
+                self._adaptive_batch(states, ctx)
+            with self._span("static"):
+                self._static_reads(states, ctx)
+        with self._span("finalize"):
+            self._finalize(states, will_retry=will_retry)
 
     def resquiggle_batches(self, batches, pipeline_depth: int = 3,
                            max_scaling_iters: int = config.MAX_SCALING_ITERS,
@@ -2038,14 +2212,12 @@ class BatchedResquiggler:
         a batch here makes thousands of short PyTorch calls, each of which
         hands the GIL over, so concurrent batches slow each other down
         (PERF.md, Findings).  ``trace_dir``: trace the batches into it
-        (:func:`trace_ctx`), each stage a range named as in
+        (:func:`trace_ctx`), each span a range named as in
         :class:`StageProfile`; the trace is written when the generator
         ends or is closed."""
         with contextlib.ExitStack() as stack:
             if trace_dir is not None:
                 stack.enter_context(trace_ctx(trace_dir, self.mesh))
-                self._tracing = True
-                stack.callback(setattr, self, "_tracing", False)
             for b in batches:
                 yield self.resquiggle_batch(
                     b, max_scaling_iters=max_scaling_iters)
@@ -2055,26 +2227,37 @@ class BatchedResquiggler:
                          ) -> List[Tuple[Optional[ResquiggleResults],
                                          Optional[str]]]:
         """Re-squiggle a batch of mapped reads (raw signal already
-        adjusted).  Returns per-read (result, error)."""
+        adjusted).  Returns per-read (result, error).  The profile's
+        ``batch`` span, one of its ``batches`` and its ``reads``."""
+        with self._span("batch"):
+            self._count("batches")
+            self._count("reads", len(map_results))
+            return self._resquiggle_reads(map_results, max_scaling_iters)
+
+    def _resquiggle_reads(self, map_results, max_scaling_iters: int):
+        """:meth:`resquiggle_batch`'s work, the save-bandwidth retry's
+        too."""
         states = []
-        for idx, mr in enumerate(map_results):
-            raw = np.asarray(mr.raw_signal, np.float64)
-            if self.const_scale is not None and mr.scale_values is None:
-                # one scale for every read, the median shift per read:
-                # scale values from the host into the given-scale path
-                _, sv = rsq.normalize_raw_signal(
-                    raw, norm_type="median_const_scale",
-                    outlier_thresh=self.outlier_thresh,
-                    const_scale=self.const_scale)
-                mr = mr.replace(scale_values=sv)
-            num_mapped_bases = len(mr.genome_seq) - self.std_ref.kmer_width + 1
-            st = _ReadState(idx=idx, map_res=mr, raw=raw, num_events=0)
-            st.num_events = rsq.compute_num_events(
-                raw.shape[0], num_mapped_bases,
-                self.params.mean_obs_per_event)
-            if st.num_events / self.params.bandwidth > num_mapped_bases:
-                st.error = "Too much raw signal for mapped sequence"
-            states.append(st)
+        with self._span("read_states"):
+            for idx, mr in enumerate(map_results):
+                raw = np.asarray(mr.raw_signal, np.float64)
+                if self.const_scale is not None and mr.scale_values is None:
+                    # one scale for every read, the median shift per read:
+                    # scale values from the host into the given-scale path
+                    _, sv = rsq.normalize_raw_signal(
+                        raw, norm_type="median_const_scale",
+                        outlier_thresh=self.outlier_thresh,
+                        const_scale=self.const_scale)
+                    mr = mr.replace(scale_values=sv)
+                num_mapped_bases = (len(mr.genome_seq) -
+                                    self.std_ref.kmer_width + 1)
+                st = _ReadState(idx=idx, map_res=mr, raw=raw, num_events=0)
+                st.num_events = rsq.compute_num_events(
+                    raw.shape[0], num_mapped_bases,
+                    self.params.mean_obs_per_event)
+                if st.num_events / self.params.bandwidth > num_mapped_bases:
+                    st.error = "Too much raw signal for mapped sequence"
+                states.append(st)
 
         self._run_pass(states, will_retry=max_scaling_iters > 1)
 
@@ -2098,16 +2281,17 @@ class BatchedResquiggler:
         retry = ([] if self.params.bandwidth == self.save_params.bandwidth
                  else [s for s in states if s.result is None])
         if retry:
+            self._count("save_bw_retry_reads", len(retry))
             saver = BatchedResquiggler(
                 self.std_ref, self.save_params, self.seq_samp_type,
                 self.outlier_thresh, self.dtype, mesh=self.mesh,
                 const_scale=self.const_scale,
                 skip_seq_scaling=self.skip_seq_scaling, profile=self.profile,
                 lanes=self.lanes)
-            saver._tracing = self._tracing
-            retry_out = saver.resquiggle_batch(
-                [s.map_res.replace(scale_values=None) for s in retry],
-                max_scaling_iters=max_scaling_iters)
+            with self._span("save_bw_retry"):
+                retry_out = saver._resquiggle_reads(
+                    [s.map_res.replace(scale_values=None) for s in retry],
+                    max_scaling_iters)
             for s, (res, err) in zip(retry, retry_out):
                 if res is not None:
                     s.result = res

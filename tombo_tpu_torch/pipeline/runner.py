@@ -42,7 +42,7 @@ from ..stats import levels_cache as lc
 from ..types import ReadData, ResquiggleResults, SeqSampleType, SequenceData
 from . import resquiggle as rsq
 from .batch import (BatchedResquiggler, FinalizeLanes, StageProfile,
-                    print_stage_timings)
+                    print_counters, print_stage_timings)
 
 POOR_MATCH = ("Poor raw to expected signal matching "
               "(revert with `filter clear_filters`)")
@@ -97,8 +97,8 @@ class RunConfig:
     ingest_min: int = 256
     ingest_procs: Optional[int] = None
     # time the run by stage into a batch.StageProfile (the re-squiggle
-    # stages, io_map, writeback), kept in the summary and printed to
-    # stderr at the end of the run
+    # stages, io_map, writeback) and count its work, kept in the summary
+    # and printed to stderr at the end of the run
     profile: bool = False
     # write a torch.profiler trace of the batch loop into this directory
     trace_dir: Optional[str] = None
@@ -118,10 +118,11 @@ class RunSummary:
     # chunks as they arrive), the batch loop (re-squiggle on the device,
     # less the wait for mapped reads), writeback, and the whole run
     timings: Dict[str, float] = field(default_factory=dict)
-    # with RunConfig.profile: the StageProfile's seconds by name and
-    # bytes by direction (batch.StageProfile)
+    # with RunConfig.profile: the StageProfile's seconds by name, bytes
+    # by direction and counters (batch.StageProfile)
     stage_timings: Dict[str, float] = field(default_factory=dict)
     transfer_bytes: Dict[str, int] = field(default_factory=dict)
+    counters: Dict[str, int] = field(default_factory=dict)
 
     def as_dict(self):
         return dict(n_success=self.n_success, n_failed=self.n_failed,
@@ -703,6 +704,8 @@ def resquiggle_all_reads(
     if profile is not None:
         summary.stage_timings = dict(profile.timings)
         summary.transfer_bytes = dict(profile.transfer_bytes)
+        summary.counters = dict(profile.counters)
         if rc.profile:
             print_stage_timings(profile)
+            print_counters(profile)
     return summary, reads_index
